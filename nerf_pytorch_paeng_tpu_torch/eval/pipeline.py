@@ -1,0 +1,37 @@
+"""Pipelined per-frame eval loop (own copy of the JAX package's
+``eval/pipeline.py``).
+
+Frame i+1's device work is enqueued before frame i's outputs are fetched
+and encoded, and host IO (PNG writes) runs on a small thread pool, so image
+IO overlaps device rendering.
+"""
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable
+
+
+def pipelined_frames(items: Iterable, render_one: Callable,
+                     drain_one: Callable, io_workers: int = 2) -> None:
+    """Run ``render_one(i, item)`` one frame ahead of
+    ``drain_one(i, outputs, submit)``; queued IO errors surface after the
+    loop, and the pool always shuts down (waiting for queued writes)."""
+    io_pool = ThreadPoolExecutor(max_workers=io_workers)
+    io_futs = []
+
+    def submit(fn, *args):
+        io_futs.append(io_pool.submit(fn, *args))
+
+    try:
+        pending = None
+        for i, item in enumerate(items):
+            out = render_one(i, item)
+            if pending is not None:
+                drain_one(*pending, submit)
+            pending = (i, out)
+        if pending is not None:
+            drain_one(*pending, submit)
+        for f in io_futs:
+            f.result()                    # surface any IO error
+    finally:
+        io_pool.shutdown(wait=True)
