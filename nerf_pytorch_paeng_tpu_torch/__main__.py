@@ -1,5 +1,5 @@
-"""python -m nerf_pytorch_paeng_tpu_torch --config <file> --eval_only true
---testing_idx N [--device cpu]"""
+"""python -m nerf_pytorch_paeng_tpu_torch --config <file> [--device cpu]
+(training), or ... --eval_only true --testing_idx N (evaluation)"""
 import sys
 
 from .driver import main

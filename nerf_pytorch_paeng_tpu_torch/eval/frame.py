@@ -24,17 +24,11 @@ import torch
 
 from ..kernels.fused_mlp import fused_mlp_eval_rays, fused_mlp_sigma_rays
 from ..ops.rays import get_rays
-from ..ops.render import hierarchical_z_vals
+from ..ops.render import hierarchical_z_vals, pack_od
 from ..ops.sampling import stratified_z_vals
 from ..ops.volume import volume_render_rays_t, weights_from_sigma_t
 
 DEFAULT_BLOCK = 131072
-
-
-def pack_od(rays_o: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
-    """[M, 3] + [M, 3] -> the kernels' [8, M] layout (rows 6-7 zero)."""
-    return torch.cat([rays_o.T, rays_d.T, rays_o.new_zeros(2, len(rays_o))],
-                     0).contiguous()
 
 
 def _check_supported(cfg) -> None:

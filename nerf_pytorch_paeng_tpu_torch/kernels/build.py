@@ -2,9 +2,11 @@
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The library's name carries a hash of the source and the flags,
-so an edited source rebuilds and a stale library is never loaded.  The
-build directory is ``<repo>/build/kernels`` (git-ignored).
+seconds).  The library's name carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source rebuilds and a
+stale library is never loaded.  The build directory is
+``<repo>/build/kernels`` (git-ignored).  ``build_all`` runs one ``nvcc``
+per source, all at once.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Iterable, List
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -32,30 +35,56 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
+    text = (SRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+def build_all(names: Iterable[str]) -> List[Path]:
+    """Compile each ``csrc/<name>.cu`` whose library for this exact source
+    does not exist, one ``nvcc`` per source, all started together.  The
+    compiler's resource report (-Xptxas -v) is kept beside each library as
+    ``.log``."""
+    names = list(names)
+    outs = [library_path(name) for name in names]
+    jobs = []
+    try:
+        for name, out in zip(names, outs):
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+            jobs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, out, tmp, proc in jobs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{log}")
+                continue
+            out.with_suffix(".log").write_text(log)
+            os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+    finally:
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library for this exact source
-    exists.  The compiler's resource report (-Xptxas -v) is kept beside
-    the library as ``.log``."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)          # atomic: a concurrent loader sees all or none
-    return out
+    """``build_all`` for one source."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -34,82 +34,28 @@
 //  * the skip layer is two products into one accumulator; for the full
 //    field the direction embedding and its product (plus the view bias) are
 //    computed once per ray at block start and seed the view layer's
-//    accumulators at every sample;
+//    accumulators at every sample; when the rays alone give fewer than two
+//    waves of blocks (a training batch), the samples are split over blocks
+//    too, each computing its rays' direction term itself;
 //  * the 1-wide density and 3-wide colour heads are dot products on the
 //    CUDA cores (two threads per point), not padded tensor-core tiles.
 // First cut: no wgmma/TMA and one block per SM; the rate against the bound
 // is in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "nerf_mlp_common.cuh"
 
 namespace {
 
-constexpr int WIDTH = 256;
-constexpr int HALF = 128;
-constexpr int EMBX = 64;
-constexpr int EMBD = 32;
-constexpr int TILE = 128;      // rays per block = points per step
-constexpr int THREADS = 256;   // 8 warps
-constexpr int KCHUNK = 32;     // weight rows per ring slot
-constexpr int ACT_LD = WIDTH + 8;   // bf16 row strides, padded by 16 bytes
-constexpr int EMB_LD = EMBX + 8;
-constexpr int W_LD = WIDTH + 8;
 constexpr int HVD_LD = HALF + 4;    // float32 row stride
-
-// Packed layout (elements); equal to kernels/fused_mlp.py::W_OFFSETS /
-// B_OFFSETS, which tests/test_torch_kernels.py checks against these lines.
-constexpr long OFF_W0 = 0;
-constexpr long OFF_W1 = 16384;
-constexpr long OFF_W2 = 81920;
-constexpr long OFF_W3 = 147456;
-constexpr long OFF_W4 = 212992;
-constexpr long OFF_W5E = 278528;
-constexpr long OFF_W5H = 294912;
-constexpr long OFF_W6 = 360448;
-constexpr long OFF_W7 = 425984;
-constexpr long OFF_WFEAT = 491520;
-constexpr long OFF_WVF = 557056;
-constexpr long OFF_WVD = 589824;
-constexpr long OFF_WDENS = 593920;
-constexpr long OFF_WCOL = 594176;
-constexpr long OFF_B0 = 0;           // b_i at OFF_B0 + 256 i, i = 0..7
-constexpr long OFF_BFEAT = 2048;
-constexpr long OFF_BV = 2304;
-constexpr long OFF_BDENS = 2432;
-constexpr long OFF_BCOL = 2440;
 
 // shared memory carve-up (bytes); every region is a multiple of 128 B
 constexpr int SM_ACT = TILE * ACT_LD * 2;           // 67584
 constexpr int SM_EMB = TILE * EMB_LD * 2;           // 18432
-constexpr int SM_WBUF = 2 * KCHUNK * W_LD * 2;      // 33792
-constexpr int SM_SCRATCH = (THREADS / 32) * 256 * 4;  // 8192
 constexpr int SM_HVD = TILE * HVD_LD * 4;           // 67584
 constexpr int SM_RAYS = TILE * 8 * 4;               // 4096
 constexpr int SM_HEADS = 1024 * 4;                  // wdens 256 + wcol 384 (+pad)
 constexpr int SMEM_SIGMA = SM_ACT + SM_EMB + SM_WBUF + SM_SCRATCH + SM_RAYS + SM_HEADS;
 constexpr int SMEM_EVAL = SMEM_SIGMA + SM_HVD;
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-
-// the accumulator tile of one warp for an output of width N: rows
-// 32 * (warp % 4) .. +32, columns (N / 2) * (warp / 4) .. +N/2
-template <int N>
-struct Acc {
-  AccFrag f[2][N / 32];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < N / 32; ++j) wmma::fill_fragment(f[i][j], 0.0f);
-  }
-};
 
 struct Smem {
   bf16* act;      // [TILE][ACT_LD] hidden activations (bf16)
@@ -139,113 +85,6 @@ __device__ __forceinline__ Smem carve(unsigned char* base, bool with_hvd) {
   return s;
 }
 
-// one ring slot <- KCHUNK rows x N columns of a [K, N] row-major weight
-template <int N>
-__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* __restrict__ src) {
-  constexpr int VPR = N / 8;  // 16-byte vectors per row
-  for (int v = threadIdx.x; v < KCHUNK * VPR; v += THREADS) {
-    const int r = v / VPR, c = (v % VPR) * 8;
-    __pipeline_memcpy_async(dst + r * W_LD + c, src + (long)r * N + c, 16);
-  }
-}
-
-// acc += A[TILE x K] (shared, bf16, stride lda) @ W[K x N] (global, bf16).
-// Ends with a barrier, so on return every warp is done reading A and the
-// caller may overwrite A in place.  Its first barrier also publishes any
-// shared-memory writes the block made before the call.
-template <int N>
-__device__ void gemm(Acc<N>& acc, const bf16* A, int lda, int K,
-                     const bf16* __restrict__ W, bf16* wbuf) {
-  constexpr int NF = N / 32;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = (warp & 3) * 32;
-  const int col0 = (warp >> 2) * (N / 2);
-  const int nch = K / KCHUNK;
-  load_chunk<N>(wbuf, W);
-  __pipeline_commit();
-  for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) {
-      load_chunk<N>(wbuf + ((c + 1) & 1) * KCHUNK * W_LD, W + (long)(c + 1) * KCHUNK * N);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    const bf16* wb = wbuf + (c & 1) * KCHUNK * W_LD;
-#pragma unroll
-    for (int kk = 0; kk < KCHUNK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, A + row0 * lda + c * KCHUNK + kk, lda);
-      wmma::load_matrix_sync(a1, A + (row0 + 16) * lda + c * KCHUNK + kk, lda);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wb + kk * W_LD + col0 + 16 * j, W_LD);
-        wmma::mma_sync(acc.f[0][j], a0, b, acc.f[0][j]);
-        wmma::mma_sync(acc.f[1][j], a1, b, acc.f[1][j]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// dst[TILE x N] (bf16, stride ldd) <- round(act(acc + bias)); bias may be null
-template <int N>
-__device__ void epilogue(Acc<N>& acc, const float* __restrict__ bias, bool relu,
-                         bf16* dst, int ldd, float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = (warp & 3) * 32;
-  const int col0 = (warp >> 2) * (N / 2);
-  float* sc = scratch + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < N / 32; ++j) {
-      wmma::store_matrix_sync(sc, acc.f[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, col = col0 + 16 * j + (e & 15);
-        float v = sc[e] + (bias ? __ldg(bias + col) : 0.0f);
-        if (relu) v = fmaxf(v, 0.0f);
-        dst[(row0 + 16 * i + r) * ldd + col] = __float2bfloat16(v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// emb[p][:] <- [x, sin 2^j x (j < L), cos 2^j x (j < L), 0 ...] for the
-// TILE points x_p = o_p + d_p * z_p (or the unit directions when z is null);
-// sin/cos(2^j x) by the double-angle recurrence, as the TPU kernels do.
-__device__ void build_emb(bf16* emb, const float* rays, const float* zrow, int L,
-                          int cols) {
-  for (int idx = threadIdx.x; idx < TILE * 3; idx += THREADS) {
-    const int p = idx / 3, c = idx % 3;
-    const float* ray = rays + p * 8;
-    float x;
-    if (zrow) {
-      x = ray[c] + ray[3 + c] * zrow[p];
-    } else {
-      const float dx = ray[3], dy = ray[4], dz = ray[5];
-      x = ray[3 + c] * rsqrtf(dx * dx + dy * dy + dz * dz);
-    }
-    bf16* e = emb + p * EMB_LD;
-    e[c] = __float2bfloat16(x);
-    float s = sinf(x), co = cosf(x);
-    for (int j = 0; j < L; ++j) {
-      e[3 + 3 * j + c] = __float2bfloat16(s);
-      e[3 + 3 * L + 3 * j + c] = __float2bfloat16(co);
-      const float s2 = 2.0f * s * co;
-      co = 1.0f - 2.0f * s * s;
-      s = s2;
-    }
-  }
-  const int used = 3 + 6 * L, pad = cols - used;
-  for (int idx = threadIdx.x; idx < TILE * pad; idx += THREADS)
-    emb[(idx / pad) * EMB_LD + used + idx % pad] = __float2bfloat16(0.0f);
-}
-
 template <bool OUT_BF16>
 __device__ __forceinline__ void store_out(void* out, long i, float v) {
   if (OUT_BF16)
@@ -254,16 +93,11 @@ __device__ __forceinline__ void store_out(void* out, long i, float v) {
     reinterpret_cast<float*>(out)[i] = v;
 }
 
-// block start: rays of this tile into shared memory (rays past N get a
-// harmless unit direction and are never stored), head weights as float
+// block start: rays of this tile into shared memory (rays past N are never
+// stored), head weights as float
 __device__ void load_block_inputs(const Smem& sm, const float* __restrict__ od,
                                   const bf16* __restrict__ w, int n, int ray0) {
-  for (int idx = threadIdx.x; idx < TILE * 6; idx += THREADS) {
-    const int k = idx / TILE, p = idx % TILE, ray = ray0 + p;
-    float v = (k == 3) ? 1.0f : 0.0f;
-    if (ray < n) v = od[(long)k * n + ray];
-    sm.rays[p * 8 + k] = v;
-  }
+  load_rays(sm.rays, od, n, ray0);
   for (int i = threadIdx.x; i < WIDTH; i += THREADS)
     sm.heads[i] = __bfloat162float(w[OFF_WDENS + i]);
   for (int i = threadIdx.x; i < HALF * 3; i += THREADS)
@@ -341,7 +175,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
                  const bf16* __restrict__ w, const float* __restrict__ b,
                  void* r_out, void* g_out, void* b_out, void* s_out,
-                 int n, int s, int L_x, int L_d) {
+                 int n, int s, int L_x, int L_d, int kchunk) {
   extern __shared__ __align__(128) unsigned char smem[];
   Smem sm = carve(smem, true);
   const int ray0 = blockIdx.x * TILE;
@@ -367,8 +201,9 @@ eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
   }
 
   float* zrow = sm.scratch;
+  const int k_end = min(s, (int)(blockIdx.y + 1) * kchunk);
 #pragma unroll 1
-  for (int k = 0; k < s; ++k) {
+  for (int k = blockIdx.y * kchunk; k < k_end; ++k) {
     __syncthreads();
     if (threadIdx.x < TILE) {
       const int ray = ray0 + threadIdx.x;
@@ -421,11 +256,6 @@ eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
   }
 }
 
-template <typename K>
-int launch_prep(K kernel, int smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
 }  // namespace
 
 extern "C" int nerf_sigma_rays(const float* od, const float* z, const void* w, const float* b,
@@ -448,18 +278,26 @@ extern "C" int nerf_sigma_rays(const float* od, const float* z, const void* w, c
 extern "C" int nerf_eval_rays(const float* od, const float* z, const void* w, const float* b,
                               void* r, void* g, void* bl, void* sigma, int n, int s, int L_x,
                               int L_d, int out_bf16, void* stream) {
-  const dim3 grid((n + TILE - 1) / TILE);
+  // A block owns 128 rays and a run of their samples.  With fewer than two
+  // waves of ray tiles (a 4096-ray training batch has 32) the sample axis
+  // is split too, so the card fills; an 800x800 frame's 131072-ray blocks
+  // keep one run of all S samples per block.
+  const int ray_tiles = (n + TILE - 1) / TILE;
+  int splits = 1;
+  if (ray_tiles < 2 * sm_count()) splits = min(s, (2 * sm_count() + ray_tiles - 1) / ray_tiles);
+  const int kchunk = (s + splits - 1) / splits;
+  const dim3 grid(ray_tiles, (s + kchunk - 1) / kchunk);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* wb = reinterpret_cast<const bf16*>(w);
   int rc;
   if (out_bf16) {
     if ((rc = launch_prep(eval_rays_kernel<true>, SMEM_EVAL))) return rc;
     eval_rays_kernel<true><<<grid, THREADS, SMEM_EVAL, st>>>(od, z, wb, b, r, g, bl, sigma, n, s,
-                                                              L_x, L_d);
+                                                              L_x, L_d, kchunk);
   } else {
     if ((rc = launch_prep(eval_rays_kernel<false>, SMEM_EVAL))) return rc;
     eval_rays_kernel<false><<<grid, THREADS, SMEM_EVAL, st>>>(od, z, wb, b, r, g, bl, sigma, n,
-                                                               s, L_x, L_d);
+                                                               s, L_x, L_d, kchunk);
   }
   return (int)cudaGetLastError();
 }

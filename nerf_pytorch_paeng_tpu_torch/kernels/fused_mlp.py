@@ -1,13 +1,16 @@
 """The fused NeRF MLP along rays: packing, CUDA wrappers, plain versions.
 
-Two kernels (source: ``csrc/fused_mlp.cu``), each with a plain PyTorch
-version of the same arithmetic in this module:
+Two forward kernels (source: ``csrc/fused_mlp.cu``), each with a plain
+PyTorch version of the same arithmetic in this module:
 
 - ``fused_mlp_sigma_rays`` (trunk + density head; replaces the JAX
   package's ``kernels/fused_mlp.py::_sigma_rays_kernel``, the dense
   renderer's coarse pass);
 - ``fused_mlp_eval_rays`` (the full field; replaces
-  ``_eval_rays_kernel``, the dense renderer's fine pass).
+  ``_eval_rays_kernel``, the dense renderer's fine pass and the training
+  forward of both passes).
+
+Their backward (``fused_mlp_vjp.py``) takes the weights this module packs.
 
 Data layout, as in the JAX signatures: ``od`` [8, N] float32 (origin in
 rows 0-2, unnormalised direction in rows 3-5), ``z_t`` [S, N] float32
@@ -92,6 +95,19 @@ def eval_flop_per_ray(L_d: int = 4) -> int:
     return 2 * (3 + 6 * L_d) * (WIDTH // 2)
 
 
+def bwd_flop_per_sample(L_x: int = 10, L_d: int = 4) -> int:
+    """The backward's gradient products: every weight's gradient (the
+    direction weights' too, since their delta differs per sample) and the
+    input gradient of every layer but the first, the skip's embedding rows
+    and the direction rows.  The recompute of the forward is the design's
+    own cost and is not counted."""
+    in_x, in_d = 3 + 6 * L_x, 3 + 6 * L_d
+    chain = 7 * WIDTH * WIDTH + WIDTH * WIDTH + WIDTH * (WIDTH // 2) \
+        + WIDTH + (WIDTH // 2) * 3      # w1-4, w5h, w6, w7, wfeat, wvf, heads
+    weights = chain + 2 * in_x * WIDTH + in_d * (WIDTH // 2)  # + w0, w5e, wvd
+    return 2 * (chain + weights)
+
+
 def emb_perm(L: int) -> np.ndarray:
     """Kernel embedding row -> reference embedding row.
 
@@ -107,61 +123,81 @@ def emb_perm(L: int) -> np.ndarray:
     return perm
 
 
-@torch.no_grad()
-def pack_nerf_mlp_params(mlp, L_x: int = 10, L_d: int = 4,
-                         dtype: torch.dtype = torch.bfloat16,
-                         device=None) -> Dict[str, torch.Tensor]:
-    """Pack one ``NeRFMLP`` (reference architecture: 8x256, skip at 4) into
-    the kernels' layout.
-
-    Returns ``{"w": flat weights (dtype), "b": flat float32 biases}`` plus
-    a named view into them for every entry of the layout (the plain
-    versions read those).  First-layer and skip rows are permuted to the
-    kernels' embedding order and zero-padded to 64 (positions) / 32
-    (directions) rows."""
+def pack_flat(mlp, L_x: int = 10, L_d: int = 4
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``NeRFMLP`` (reference architecture: 8x256, skip at 4) in the
+    kernels' layout: ``(w [W_TOTAL], b [B_TOTAL])``, float32, on the
+    module's device.  Built by differentiable ops (transpose, row
+    permutation, zero padding, concatenation), so autograd maps gradients
+    in the packed layout back to the module's parameters.  First-layer and
+    skip rows are permuted to the kernels' embedding order and zero-padded
+    to 64 (positions) / 32 (directions) rows."""
     if not (len(mlp.linear_x) == 8 and mlp.linear_x[0].out_features == WIDTH
             and mlp.skips == (4,) and 1 <= L_x <= 10 and 1 <= L_d <= 4):
         raise NotImplementedError(
             "the fused kernels take the 8x256 skip-4 MLP with 1<=L_x<=10, "
             f"1<=L_d<=4 (got L_x={L_x}, L_d={L_d})")
     in_x, in_d = 3 + 6 * L_x, 3 + 6 * L_d
-    px, pd = emb_perm(L_x), emb_perm(L_d)
-    device = device if device is not None else mlp.linear_feat.weight.device
+    device = mlp.linear_feat.weight.device
+    px = torch.as_tensor(emb_perm(L_x), device=device)
+    pd = torch.as_tensor(emb_perm(L_d), device=device)
 
     def kern(layer):                                 # [in, out] float32
-        return layer.weight.detach().float().T.cpu()
+        return layer.weight.float().T
 
     def pad_rows(w, rows):
-        out = torch.zeros(rows, w.shape[1])
-        out[:w.shape[0]] = w
-        return out
+        return torch.cat([w, w.new_zeros(rows - w.shape[0], w.shape[1])])
 
-    src = {"w0": pad_rows(kern(mlp.linear_x[0])[px], EMBX_ROWS)}
+    src = {"w0": pad_rows(kern(mlp.linear_x[0]).index_select(0, px),
+                          EMBX_ROWS)}
     for i in (1, 2, 3, 4, 6, 7):
         src[f"w{i}"] = kern(mlp.linear_x[i])
     w5 = kern(mlp.linear_x[5])                       # rows: [emb_x | h]
-    src["w5e"] = pad_rows(w5[:in_x][px], EMBX_ROWS)
+    src["w5e"] = pad_rows(w5[:in_x].index_select(0, px), EMBX_ROWS)
     src["w5h"] = w5[in_x:]
     src["wfeat"] = kern(mlp.linear_feat)
     wv = kern(mlp.linear_d)                          # rows: [feat | emb_d]
-    assert wv.shape[0] == WIDTH + in_d, wv.shape
+    if wv.shape[0] != WIDTH + in_d:
+        raise ValueError(f"view layer has {wv.shape[0]} inputs, L_d={L_d} "
+                         f"needs {WIDTH + in_d}")
     src["wvf"] = wv[:WIDTH]
-    src["wvd"] = pad_rows(wv[WIDTH:][pd], EMBD_ROWS)
+    src["wvd"] = pad_rows(wv[WIDTH:].index_select(0, pd), EMBD_ROWS)
     src["wdens"] = kern(mlp.linear_density)[:, 0]
     src["wcol"] = kern(mlp.linear_color)
     for i in range(8):
-        src[f"b{i}"] = mlp.linear_x[i].bias.detach().float().cpu()
-    src["bfeat"] = mlp.linear_feat.bias.detach().float().cpu()
-    src["bv"] = mlp.linear_d.bias.detach().float().cpu()
-    src["bdens"] = mlp.linear_density.bias.detach().float().cpu()
-    src["bcol"] = mlp.linear_color.bias.detach().float().cpu()
+        src[f"b{i}"] = mlp.linear_x[i].bias.float()
+    src["bfeat"] = mlp.linear_feat.bias.float()
+    src["bv"] = mlp.linear_d.bias.float()
+    src["bdens"] = mlp.linear_density.bias.float()
+    src["bcol"] = mlp.linear_color.bias.float()
 
-    packed = _with_views(torch.zeros(W_TOTAL, dtype=dtype, device=device),
-                         torch.zeros(B_TOTAL, device=device))
-    for name, t in src.items():
-        assert packed[name].shape == t.shape, (name, t.shape)
-        packed[name].copy_(t)
-    return packed
+    def flat(layout):
+        parts = []
+        for name, shape in layout:
+            t = src[name]
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: {tuple(t.shape)} != {shape}")
+            parts.append(t.reshape(-1))
+            pad = -t.numel() % 8
+            if pad:
+                parts.append(t.new_zeros(pad))
+        return torch.cat(parts)
+
+    return flat(_W_LAYOUT), flat(_B_LAYOUT)
+
+
+@torch.no_grad()
+def pack_nerf_mlp_params(mlp, L_x: int = 10, L_d: int = 4,
+                         dtype: torch.dtype = torch.bfloat16,
+                         device=None) -> Dict[str, torch.Tensor]:
+    """``pack_flat`` without gradients, the weights stored in ``dtype``:
+    ``{"w": flat weights, "b": flat float32 biases}`` plus a named view
+    into them for every entry of the layout (the plain versions read
+    those)."""
+    w, b = pack_flat(mlp, L_x, L_d)
+    device = device if device is not None else w.device
+    return _with_views(w.to(device=device, dtype=dtype).contiguous(),
+                       b.to(device).contiguous())
 
 
 def _with_views(w: torch.Tensor, b: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -289,13 +325,14 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _cuda_lib(od: torch.Tensor, packed) -> ctypes.CDLL:
+def _cuda_lib(od: torch.Tensor, packed, library=_library) -> ctypes.CDLL:
+    """``library()`` once the inputs are ones its kernels take."""
     if od.device.type != "cuda":
         raise RuntimeError(f"fused MLP kernels run on CUDA or CPU tensors, "
                            f"not {od.device.type}")
     if packed["w"].dtype != torch.bfloat16:
         raise ValueError("the CUDA kernels take bfloat16 packed weights")
-    return _library()
+    return library()
 
 
 def _raise_on(rc: int, fn: str) -> None:

@@ -26,6 +26,8 @@ from nerf_pytorch_paeng_tpu_torch.models.nerf import init_nerf
 from nerf_pytorch_paeng_tpu_torch.utils.device import resolve_device
 from nerf_pytorch_paeng_tpu_torch.utils.synth import save_as_blender_dataset
 
+from torch_port_util import subprocess_env
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = sorted(glob.glob(str(ROOT / "configs" / "*" / "*.txt")))
 
@@ -166,7 +168,7 @@ def test_eval_only_cli_end_to_end(synth_root, tmp_path):
     proc = subprocess.run([sys.executable, "-m",
                            "nerf_pytorch_paeng_tpu_torch", *args],
                           cwd=ROOT, capture_output=True, text=True,
-                          timeout=300)
+                          timeout=300, env=subprocess_env())
     assert proc.returncode == 0, proc.stderr
     out_dir = os.path.join(log_dir, "blender_lego", "blender_lego_5",
                            "test_result")
@@ -182,7 +184,8 @@ def test_eval_only_cli_end_to_end(synth_root, tmp_path):
     assert "test view 1:" in proc.stdout
 
 
-@pytest.mark.parametrize("flags", [[], ["--render_only", "true"]])
+@pytest.mark.parametrize("flags", [["--render_only", "true"],
+                                   ["--data_type", "llff"]])
 def test_unported_modes_exit_nonzero(flags, capsys):
     rc = main(["--config", str(ROOT / "configs/blender/lego.txt"),
                "--device", "cpu", *flags])

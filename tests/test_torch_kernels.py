@@ -135,12 +135,14 @@ def test_wrappers_reject_bad_inputs(bad):
 
 
 def test_cu_offsets_match_packed_layout():
-    """csrc/fused_mlp.cu hard-codes the packed offsets; they must be the
-    Python layout's."""
+    """The kernels' shared header hard-codes the packed offsets; they must
+    be the Python layout's."""
     src = (pathlib.Path(fm.__file__).parent / "csrc" /
-           "fused_mlp.cu").read_text()
+           "nerf_mlp_common.cuh").read_text()
     consts = {m.group(1): int(m.group(2)) for m in re.finditer(
         r"constexpr long OFF_(\w+) = (\d+);", src)}
+    totals = dict(re.findall(r"constexpr long ([WB])_TOTAL = (\d+);", src))
+    assert (int(totals["W"]), int(totals["B"])) == (fm.W_TOTAL, fm.B_TOTAL)
     for name, off in fm.W_OFFSETS.items():
         assert consts[name.upper()] == off, name
     for name, off in fm.B_OFFSETS.items():

@@ -37,5 +37,6 @@ def test_no_jax_imports(path):
 def test_kernel_sources_are_package_data():
     text = (ROOT / "pyproject.toml").read_text()
     assert "nerf_pytorch_paeng_tpu_torch" in text
-    assert "csrc/*.cu" in text
+    assert "csrc/*.cu" in text and "csrc/*.cuh" in text
     assert list((PORT / "kernels" / "csrc").glob("*.cu"))
+    assert list((PORT / "kernels" / "csrc").glob("*.cuh"))

@@ -1,11 +1,27 @@
 """Shared inputs for the port-vs-JAX tests (tests/test_torch_*.py): one
 numpy-seeded parameter tree in the JAX package's flax layout, handed to
-both packages, so each side sees the same weights."""
+both packages, so each side sees the same weights.
+
+Importing it also gives this process its share of the CPU's cores for
+torch: pytest-xdist runs several workers on one machine, each of which
+would otherwise start one compute thread per core, and the port's small
+products then spend their time waiting on each other."""
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
 
 WIDTH = 256
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // _WORKERS))
+
+
+def subprocess_env() -> dict:
+    """The environment for a child Python that runs the port: the same
+    share of the cores."""
+    return {**os.environ, "OMP_NUM_THREADS": str(torch.get_num_threads())}
 
 
 def np_mlp_params(rng: np.random.Generator, L_x: int = 10, L_d: int = 4,
