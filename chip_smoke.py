@@ -13,9 +13,15 @@
    the eval block (131072 rays; 64, and 64+128 merged samples); K1 with
    float32 outputs and the backward kernel (K2) at the training batch
    (4096 rays; 64 and 192 samples); K2 launched twice must give the same
-   bits.
-3. Eval phase: writes a synthetic 800x800 scene in the blender layout and
-   a seeded reference-format checkpoint, then runs the port's
+   bits; the gated kernels K4 (64 samples) and K5 (192) at the eval block
+   with a seeded gate that leaves about half the (128-ray tile, 8-sample
+   row) blocks on: gated blocks exactly 0, active blocks bit-equal to the
+   ungated kernel and within the tolerance of the gated plain version,
+   timed at that gate and at an all-on gate beside the bound of the
+   active work; the points kernel K7 on the 128^3 support grid.
+3. Eval phase: writes a synthetic 800x800 scene in the blender layout, at
+   lego's field of view, and a seeded reference-format checkpoint, then
+   runs the port's
    ``--eval_only`` entry on configs/blender/lego.txt (8x256 MLP, 64+128
    samples, full resolution); then renders one view again with the plain
    versions on the card and holds the two frames together (PSNR >= 35 dB).
@@ -26,6 +32,21 @@
    times, one step under the profiler and the peak device memory.  Then
    N steps, a checkpoint, a resume to 2N in a fresh ``main_worker``,
    against 2N uninterrupted steps: the saved states must be bit-equal.
+5. Render phase: a checkpoint of the hand-built compact field
+   (``utils/synth.compact_field_state_dict``, an L1 ball of radius 1.5),
+   then the port's ``--render_only`` entry on configs/blender/lego.txt at
+   800x800 with 12 orbit views through the culled renderer: K7 must build
+   the two support grids once, K4 and K5 must render every frame and K3
+   and K1 must not run, the gates must skip work, and the gif and PNGs
+   must be written.  Then one pose, deterministic sampling: the culled
+   frame against the dense one (PSNR >= 40 dB), with gates against
+   without (1e-5), kernels against plain versions (>= 35 dB); culled and
+   dense frame times, and one culled frame under the profiler.  Last, K4
+   and K5 on the very inputs that pose and the first orbit view gave them
+   (K4 over the 640,000 rays, K5 on each cover block and sample class, the
+   small blocks under the sample-axis split) with the seeded random
+   weights, every unit live: gated blocks 0, active blocks bit-equal to
+   the ungated kernel and within the tolerance of the plain version.
 
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -45,6 +66,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -62,6 +84,11 @@ KERNEL_TOL = dict(max_abs=5e-2, rel_l2=1e-2)   # bf16 activation rounding
 # (the kernel's distance is another draw of the same noise).
 GRAD_TOL = dict(rel_l2=1e-2, floor_factor=3.0, cos=0.999)
 FRAME_PSNR_MIN = 35.0
+CULLED_VS_DENSE_PSNR_MIN = 40.0   # the cull and the truncation move O(1e-3)
+GATED_VS_UNGATED_MAX = 1e-5       # gated samples carry zero weight
+RENDER_VIEWS = 12                 # the lego orbit's 120, cut to 12
+SUPPORT_GRID = 128                # the support grid on the card (eval/frame.py)
+LEGO_CAMERA_ANGLE_X = 0.6911112070083618   # lego's transforms_*.json
 TRAIN_STEPS = 60
 RESUME_STEPS = 5
 
@@ -173,6 +200,119 @@ def kernel_phase(fm, packed, cfg, device):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
     return rows
+
+
+def bound(flop: float, nbytes: float):
+    """(least ms for the work on this card, what sets it)."""
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gated_flop(gate, n: int, s: int, per_sample: int, per_ray: int = 0):
+    """FLOP of a gated launch: 8 samples of every ray of each active
+    (128-ray tile, 8-sample row) block, and the per-ray term of every
+    tile with an active row."""
+    tiles = -(-n // 128)
+    on = (gate.view(tiles, s // 8) != 0).cpu()
+    rays = torch.clamp(n - 128 * torch.arange(tiles), max=128)
+    return (int((on.sum(1) * rays).sum()) * 8 * per_sample
+            + int(rays[on.any(1)].sum()) * per_ray)
+
+
+def gated_kernel_phase(fm, packed, cfg, device):
+    """K4 and K5 at the eval block with a seeded gate of about half its
+    blocks on, against the ungated kernel and the gated plain version;
+    times at that gate and at an all-on gate, beside the active work's
+    bound."""
+    rows = {}
+    specs = (
+        ("fused_mlp_sigma_rays_gated", fm.fused_mlp_sigma_rays,
+         fm.fused_mlp_sigma_rays_plain, packed["coarse"], 64,
+         fm.sigma_flop_per_sample(cfg.L_x), 0,
+         "nerf_pytorch_paeng_tpu/kernels/fused_mlp.py:283"),
+        ("fused_mlp_eval_rays_gated", fm.fused_mlp_eval_rays,
+         fm.fused_mlp_eval_rays_plain, packed["fine"], 192,
+         fm.eval_flop_per_sample(cfg.L_x), fm.eval_flop_per_ray(cfg.L_d),
+         "nerf_pytorch_paeng_tpu/kernels/fused_mlp.py:453"),
+    )
+    for name, kern, plain, p, s, per_sample, per_ray, tpu_at in specs:
+        od, z = seeded_rays(BLOCK, s, seed=s, device=device)
+        size = -(-BLOCK // 128) * (s // 8)
+        g = torch.Generator(device).manual_seed(3000 + s)
+        half = (torch.rand(size, generator=g, device=device) < 0.5).to(
+            torch.int32)
+        all_on = torch.ones(size, dtype=torch.int32, device=device)
+        on = fm.gate_mask(half, s, BLOCK)
+        kw = dict(out_dtype=torch.bfloat16)
+        k_ms, k_out = cuda_ms(lambda: kern(od, z, p, gate=half, **kw), reps=5)
+        on_ms, _ = cuda_ms(lambda: kern(od, z, p, gate=all_on, **kw), reps=3)
+        ungated = kern(od, z, p, **kw)
+        p_ms, p_out = cuda_ms(lambda: plain(od, z, p, gate=half, **kw),
+                              reps=1)
+        k_out, ungated, p_out = (x if isinstance(x, tuple) else (x,)
+                                 for x in (k_out, ungated, p_out))
+        for got, ung in zip(k_out, ungated):
+            check(not bool(got[~on].any()), f"{name}: a gated block is not 0")
+            check(torch.equal(got[on], ung[on]),
+                  f"{name}: active blocks differ from the ungated kernel")
+        max_abs, rel_l2 = errors([o[on] for o in k_out],
+                                 [o[on] for o in p_out])
+        check(max_abs <= KERNEL_TOL["max_abs"]
+              and rel_l2 <= KERNEL_TOL["rel_l2"],
+              f"{name} disagrees with its plain version")
+        nbytes = (od.numel() * 4 + z.numel() * 4 + size * 4
+                  + p["w"].numel() * 2 + p["b"].numel() * 4
+                  + len(k_out) * s * BLOCK * 2)
+        flop = gated_flop(half, BLOCK, s, per_sample, per_ray)
+        flop_on = gated_flop(all_on, BLOCK, s, per_sample, per_ray)
+        b_ms, b_by = bound(flop, nbytes)
+        b_on_ms, _ = bound(flop_on, nbytes)
+        share = float(on.float().mean())
+        log(f"kernel {name}: N={BLOCK} S={s} gate on {share:.3f} of the "
+            f"blocks: gated blocks 0, active blocks bit-equal to the "
+            f"ungated kernel, vs plain max_abs={max_abs:.3e} "
+            f"rel_l2={rel_l2:.3e} (tolerance {KERNEL_TOL}); ms={k_ms:.3f} "
+            f"plain_ms={p_ms:.3f} bound_ms={b_ms:.3f} "
+            f"({flop / k_ms / 1e9:.1f} TFLOP/s); all on: ms={on_ms:.3f} "
+            f"bound_ms={b_on_ms:.3f} ({flop_on / on_ms / 1e9:.1f} TFLOP/s)")
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp.cu",
+            "replaces": tpu_at, "launches": None,
+            "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "gate_on_share": share, "all_on_ms": on_ms,
+            "all_on_bound_ms": b_on_ms}
+    return rows
+
+
+def points_kernel_phase(fm, packed, cfg, device):
+    """K7 on the support grid the culled renderer builds (128^3 points of
+    the cube of half-side ``far``)."""
+    from nerf_pytorch_paeng_tpu_torch.ops.occupancy import grid_points
+    x = grid_points(float(cfg.far), SUPPORT_GRID, device)
+    n = x.shape[1]
+    p = packed["coarse"]
+    kw = dict(out_dtype=torch.bfloat16)
+    k_ms, k_out = cuda_ms(lambda: fm.fused_mlp_sigma(x, p, **kw), reps=5)
+    p_ms, p_out = cuda_ms(lambda: fm.fused_mlp_sigma_plain(x, p, **kw),
+                          reps=2)
+    max_abs, rel_l2 = errors([k_out], [p_out])
+    check(max_abs <= KERNEL_TOL["max_abs"] and rel_l2 <= KERNEL_TOL["rel_l2"],
+          "fused_mlp_sigma disagrees with its plain version")
+    flop = fm.sigma_flop_per_sample(cfg.L_x) * n
+    b_ms, b_by = bound(flop, x.numel() * 4 + n * 2 + p["w"].numel() * 2
+                       + p["b"].numel() * 4)
+    log(f"kernel fused_mlp_sigma: P={n} max_abs={max_abs:.3e} "
+        f"rel_l2={rel_l2:.3e} (tolerance {KERNEL_TOL}) ms={k_ms:.3f} "
+        f"plain_ms={p_ms:.3f} bound_ms={b_ms:.3f} "
+        f"({flop / k_ms / 1e9:.1f} TFLOP/s)")
+    return {"name": "fused_mlp_sigma", "route": "cuda",
+            "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp.cu",
+            "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp.py:585",
+            "launches": None, "max_abs_err": max_abs, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def grad_errors(fm, got, want, other):
@@ -317,21 +457,28 @@ def profile_call(fn, what: str, device) -> dict:
 
 
 def launch_counters() -> dict:
-    """Every kernel wrapper of the port, by name."""
+    """Every kernel's launch counter, by kernel name: (wrapper, attribute).
+    The rays wrappers count their gated launches (K4, K5) apart."""
     from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp as fm
     from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp_vjp as fv
-    return {"fused_mlp_sigma_rays": fm.fused_mlp_sigma_rays,
-            "fused_mlp_eval_rays": fm.fused_mlp_eval_rays,
-            "fused_mlp_bwd_rays": fv.fused_mlp_bwd_rays}
+    return {"fused_mlp_sigma_rays": (fm.fused_mlp_sigma_rays, "launches"),
+            "fused_mlp_eval_rays": (fm.fused_mlp_eval_rays, "launches"),
+            "fused_mlp_bwd_rays": (fv.fused_mlp_bwd_rays, "launches"),
+            "fused_mlp_sigma_rays_gated": (fm.fused_mlp_sigma_rays,
+                                           "gated_launches"),
+            "fused_mlp_eval_rays_gated": (fm.fused_mlp_eval_rays,
+                                          "gated_launches"),
+            "fused_mlp_sigma": (fm.fused_mlp_sigma, "launches")}
 
 
 def zero_launches() -> None:
-    for fn in launch_counters().values():
-        fn.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in launch_counters().items()}
 
 
 def slice_phase(fm, work: str, data_root: str, device):
@@ -520,6 +667,214 @@ def resume_phase(work: str, data_root: str, device) -> dict:
     return {"steps": 2 * n, "resumed_at": n, "bit_equal": True}
 
 
+def recording(fn, calls: list, name: str):
+    """``fn`` (a rays kernel wrapper), keeping each call's (name, od, z_t,
+    gate) in ``calls``."""
+    def call(od, z_t, packed, gate=None, **kw):
+        calls.append((name, od, z_t, gate))
+        return fn(od, z_t, packed, gate=gate, **kw)
+    return call
+
+
+def path_kernel_phase(fm, calls, packed, cfg) -> dict:
+    """K4 and K5 on the inputs one culled frame gave them (its rays,
+    depths and gates: K4 over the whole frame, K5 on every cover block and
+    sample class, under the sample-axis split where the block is small),
+    with the seeded random weights of the kernel phase, whose every unit
+    is live: gated blocks exactly 0, active blocks bit-equal to the
+    ungated kernel and within ``KERNEL_TOL`` of the gated plain version.
+    Returns {kernel: (worst max abs, [(N, S, on share, splits), ...])}."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, od, z, gate in calls:
+        check(gate is not None, f"{name} ran ungated on the culled path")
+        s, n = z.shape
+        if name == "fused_mlp_sigma_rays_gated":
+            kern, plain = fm.fused_mlp_sigma_rays, fm.fused_mlp_sigma_rays_plain
+            p, kw = packed["coarse"], dict(L_x=cfg.L_x)
+        else:
+            kern, plain = fm.fused_mlp_eval_rays, fm.fused_mlp_eval_rays_plain
+            p, kw = packed["fine"], dict(L_x=cfg.L_x, L_d=cfg.L_d)
+        kw["out_dtype"] = torch.bfloat16
+        got, ung, want = (x if isinstance(x, tuple) else (x,) for x in (
+            kern(od, z, p, gate=gate, **kw), kern(od, z, p, **kw),
+            plain(od, z, p, gate=gate, **kw)))
+        on = fm.gate_mask(gate, s, n)
+        for g, u in zip(got, ung):
+            check(not bool(g[~on].any()), f"{name} at ({n}, {s}): a gated "
+                  "block is not 0")
+            check(torch.equal(g[on], u[on]), f"{name} at ({n}, {s}): active "
+                  "blocks differ from the ungated kernel")
+        max_abs, rel_l2 = errors([g[on] for g in got], [w[on] for w in want])
+        tiles, splits = -(-n // 128), 1   # K5's sample-axis split of small
+        if len(got) == 4 and tiles < 2 * sms:   # grids (csrc/fused_mlp.cu)
+            kchunk = -(-s // min(s, -(-2 * sms // tiles)))
+            splits = -(-s // kchunk)
+        share = float(on.float().mean())
+        log(f"path kernel {name}: N={n} S={s} sample-axis splits {splits} "
+            f"gate on {share:.3f}: gated blocks 0, active blocks bit-equal "
+            f"to the ungated kernel, vs plain max_abs={max_abs:.3e} "
+            f"rel_l2={rel_l2:.3e} (tolerance {KERNEL_TOL})")
+        check(max_abs <= KERNEL_TOL["max_abs"]
+              and rel_l2 <= KERNEL_TOL["rel_l2"],
+              f"{name} at ({n}, {s}) disagrees with its plain version")
+        worst, shapes = out.get(name, (0.0, []))
+        out[name] = (max(worst, max_abs), shapes + [(n, s, share, splits)])
+    for name in ("fused_mlp_sigma_rays_gated", "fused_mlp_eval_rays_gated"):
+        check(name in out, f"{name} was not called by the culled frame")
+    return out
+
+
+def render_phase(fm, packed_rand, work: str, data_root: str, device):
+    """The ``--render_only`` entry on the compact field through the culled
+    renderer; then one pose through the culled, ungated and dense
+    renderers and the plain versions, and K4 and K5 on that pose's inputs
+    with the random weights ``packed_rand``."""
+    import dataclasses
+
+    from PIL import Image
+
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.data.render_pose import get_render_pose
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
+    from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import pack_nerf
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import \
+        compact_field_state_dict
+
+    argv = ["--config", os.path.join(HERE, "configs/blender/lego.txt"),
+            "--render_only", "true", "--testing_idx", "1",
+            "--n_angle", str(RENDER_VIEWS), "--exp_name", "smoke_render",
+            "--data_root", data_root, "--log_dir", os.path.join(work, "logs")]
+    cfg = load_config(argv)
+    check(cfg.render_cull == "auto" and cfg.render_type == "gif"
+          and (cfg.N_samples_c, cfg.N_samples_f) == (64, 128),
+          "lego.txt does not render culled gifs at 64+128 samples")
+    ckpt = driver.checkpoint_path(cfg, cfg.testing_idx)
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    torch.save({"idx": cfg.testing_idx,
+                "model_state_dict": compact_field_state_dict(r=1.5, k=20.0)},
+               ckpt)
+
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = driver.main_worker(cfg)              # the --render_only entry
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    stats = res["stats"]
+    log(f"render: launches {launches}, wall {wall:.2f} s, peak device "
+        f"memory {peak_gb:.2f} GB")
+    check(launches["fused_mlp_sigma"] == 2,
+          f"K7 ran {launches['fused_mlp_sigma']} times, not 2 (one grid "
+          "per module)")
+    for name in ("fused_mlp_sigma_rays_gated", "fused_mlp_eval_rays_gated"):
+        check(launches[name] >= RENDER_VIEWS, (name, launches[name]))
+    for name in ("fused_mlp_sigma_rays", "fused_mlp_eval_rays",
+                 "fused_mlp_bwd_rays"):
+        check(launches[name] == 0, f"{name} ran on the culled path "
+              "(invalid support bounds?)")
+    check(len(stats) == RENDER_VIEWS, f"{len(stats)} frame records")
+    frac_c = [float(st["gate_frac_coarse"]) for st in stats]
+    frac_f = [float(st["gate_frac_fine"]) for st in stats]
+    n_act = [st["n_act"] for st in stats]
+    blocks = [st["blocks"] for st in stats]
+    check(min(frac_c) > 0 and min(frac_f) > 0,
+          f"a gate skipped nothing: coarse {frac_c}, fine {frac_f}")
+    check(res["rgbs"].shape == (RENDER_VIEWS, 800, 800, 3)
+          and bool(np.isfinite(res["rgbs"]).all())
+          and bool(np.isfinite(res["disps"]).all()),
+          "rendered frames: shape or finiteness")
+    save_dir = res["save_dir"]
+    for video in ("_rgb.gif", "_disp.gif"):
+        with Image.open(os.path.join(save_dir, video)) as im:
+            check(im.n_frames == RENDER_VIEWS and im.size == (800, 800),
+                  (video, im.n_frames, im.size))
+    missing = [f"{i}_{k}.png" for i in range(RENDER_VIEWS)
+               for k in ("rgb", "disp")
+               if not os.path.isfile(os.path.join(save_dir, f"{i}_{k}.png"))]
+    check(not missing, f"missing {missing}")
+    frame_ms = [t * 1e3 for t in res["frame_s"]]
+    log(f"render: {RENDER_VIEWS} views, frame device ms "
+        f"{['%.1f' % t for t in frame_ms]} (CUDA events; the first includes "
+        f"the two support grids); active rays {n_act} of {800 * 800} "
+        f"({['%.3f' % (a / 640000) for a in n_act]}); "
+        f"phase-2 blocks {blocks}; skipped share of gate blocks, coarse "
+        f"{['%.3f' % f for f in frac_c]}, fine {['%.3f' % f for f in frac_f]}")
+
+    # one pose, deterministic sampling (no jitter of the coarse or the fine
+    # depths), four ways
+    cfg = dataclasses.replace(cfg, perturb=0.0)
+    model = driver.load_model(cfg, cfg.testing_idx, device)
+    packed = pack_nerf(model, cfg, device=device)
+    _, (K, _), (H, W), _ = load_blender(data_root, cfg.bkg_white,
+                                        cfg.downsample, cfg.testskip)
+    pose = torch.as_tensor(get_render_pose(RENDER_VIEWS)[1][:3, :4])
+    variants = (
+        ("culled", cfg, {}),
+        ("ungated", dataclasses.replace(cfg, render_precull="off",
+                                        render_gate_fine="off"), {}),
+        ("dense", dataclasses.replace(cfg, render_cull="none"), {}),
+        ("plain", cfg, dict(sigma_fn=fm.fused_mlp_sigma_rays_plain,
+                            field_fn=fm.fused_mlp_eval_rays_plain,
+                            points_fn=fm.fused_mlp_sigma_plain)))
+    frames, times = {}, {}
+    for label, c, kw in variants:
+        render = make_frame_renderer(c, H, W, K, device, stratified=False,
+                                     **kw)
+        reps = 1 if label == "plain" else 3
+        times[label], frames[label] = cuda_ms(lambda: render(packed, pose),
+                                              reps=reps)
+    rgb = frames["culled"][0]
+    p_dense = psnr(rgb, frames["dense"][0])
+    p_plain = psnr(rgb, frames["plain"][0])
+    d_gate = max(float((a - b).abs().max())
+                 for a, b in zip(frames["culled"], frames["ungated"]))
+    log(f"render: one pose, deterministic: culled vs dense PSNR "
+        f"{p_dense:.2f} dB (min {CULLED_VS_DENSE_PSNR_MIN}), gated vs "
+        f"ungated max abs {d_gate:.3e} (max {GATED_VS_UNGATED_MAX}), kernels "
+        f"vs plain PSNR {p_plain:.2f} dB (min {FRAME_PSNR_MIN}); frame ms "
+        f"(CUDA events, median of 3 after one warm-up): culled "
+        f"{times['culled']:.1f}, culled without gates "
+        f"{times['ungated']:.1f}, dense {times['dense']:.1f}, culled plain "
+        f"{times['plain']:.1f}")
+    check(p_dense >= CULLED_VS_DENSE_PSNR_MIN, f"culled vs dense {p_dense} dB")
+    check(d_gate <= GATED_VS_UNGATED_MAX, f"gated vs ungated {d_gate}")
+    check(p_plain >= FRAME_PSNR_MIN, f"kernels vs plain frame {p_plain} dB")
+    render = make_frame_renderer(cfg, H, W, K, device, stratified=False)
+    render(packed, pose)
+    prof = profile_call(lambda: render(packed, pose), "culled frame", device)
+
+    # this pose and the first orbit view (whose cover ends in the small
+    # blocks that K5 runs under the sample-axis split) once more, keeping
+    # what K4 and K5 were given; then the kernels on those inputs with
+    # weights that exercise every unit (the compact field's live only 6 of
+    # each layer's 256)
+    calls = []
+    render = make_frame_renderer(
+        cfg, H, W, K, device, stratified=False,
+        sigma_fn=recording(fm.fused_mlp_sigma_rays, calls,
+                           "fused_mlp_sigma_rays_gated"),
+        field_fn=recording(fm.fused_mlp_eval_rays, calls,
+                           "fused_mlp_eval_rays_gated"))
+    for c2w in (pose, torch.as_tensor(get_render_pose(RENDER_VIEWS)[0][:3, :4])):
+        render(packed, c2w)
+    path = path_kernel_phase(fm, calls, packed_rand, cfg)
+    del calls
+    check(any(sp > 1 for *_, sp in path["fused_mlp_eval_rays_gated"][1]),
+          "no K5 block of the render path ran under the sample-axis split")
+    return launches, dict(
+        views=RENDER_VIEWS, wall_s=wall, frame_ms=frame_ms, n_act=n_act,
+        active_share=[a / (H * W) for a in n_act],
+        blocks=blocks, gate_frac_coarse=frac_c, gate_frac_fine=frac_f,
+        peak_gb=peak_gb, pose_frame_ms=times,
+        culled_vs_dense_psnr=p_dense, gated_vs_ungated_max_abs=d_gate,
+        kernels_vs_plain_psnr=p_plain, profile=prof), path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -555,27 +910,38 @@ def main() -> int:
     rows = kernel_phase(fm, packed, cfg, device)
     rows["fused_mlp_bwd_rays"], train_shapes = train_kernel_phase(
         fm, fv, packed, cfg, device)
+    rows.update(gated_kernel_phase(fm, packed, cfg, device))
+    rows["fused_mlp_sigma"] = points_kernel_phase(fm, packed, cfg, device)
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         data_root = os.path.join(work, "lego_synth")
         t0 = time.perf_counter()
         save_as_blender_dataset(data_root, n_train=4, n_val=1, n_test=3,
-                                H=800, W=800)
-        log(f"synthetic 800x800 blender scene written "
+                                H=800, W=800,
+                                camera_angle_x=LEGO_CAMERA_ANGLE_X)
+        log(f"synthetic 800x800 blender scene at lego's field of view written "
             f"({time.perf_counter() - t0:.1f} s)")
         eval_launches, stats = slice_phase(fm, work, data_root, device)
+        render_launches, render_stats, path = render_phase(
+            fm, packed, work, data_root, device)
         train_launches, train_stats = train_phase(work, data_root, device)
         resume = resume_phase(work, data_root, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each path's own run, counters at 0 before it: K3 and K1 on the eval
-    # path, K1 and K2 on the training path
+    # path, K7, K4 and K5 on the render path, K1 and K2 on the training path
     for name, row in rows.items():
-        row["launches"] = eval_launches[name] + train_launches[name]
+        row["launches"] = (eval_launches[name] + render_launches[name]
+                           + train_launches[name])
         check(row["launches"] > 0, f"{name} never launched on a main path")
+    # K4 and K5: the worst of the kernel phase and the render path's inputs
+    for name, (max_abs, shapes) in path.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
+        rows[name]["path_shapes"] = shapes
 
     log(json.dumps({"slice": stats}))
+    log(json.dumps({"render": {**render_stats, "launches": render_launches}}))
     log(json.dumps({"train": {**train_stats, "launches": train_launches,
                               "kernel_shapes": train_shapes,
                               "resume": resume}}))

@@ -4,11 +4,12 @@ Own copy of the JAX package's parser (``nerf_pytorch_paeng_tpu/config.py``):
 the same dialect (inline ``#`` comments, bare action flags such as
 ``bkg_white_true``, bracketed lists) and every option under the same name,
 so one config file drives both packages.  Of the JAX package's additions it
-keeps those this slice reads (``seed``, ``eval_only``, ``render_only``,
-``compute_dtype``, ``log_dir``, ``lpips_weights``) and adds one knob,
-``device``.  The JAX package's TPU knobs (``use_pallas``, ``render_cull``,
-sharding, pre-culling, ...) are not fields here: a config file or command
-line that sets one fails instead of being ignored.
+keeps those the ported slices read (``seed``, ``eval_only``, ``render_only``,
+``compute_dtype``, ``log_dir``, ``lpips_weights`` and the seven knobs of
+the culled frame renderer, ``render_cull`` ... ``render_gate_fine``) and
+adds one knob, ``device``.  The JAX package's other TPU knobs
+(``use_pallas``, sharding, training pre-cull, ...) are not fields here: a
+config file or command line that sets one fails instead of being ignored.
 """
 from __future__ import annotations
 
@@ -105,6 +106,21 @@ class NerfConfig:
     log_dir: str = ""             # defaults to <repo>/logs
     lpips_weights: str = ""       # VGG16 weights .npz for LPIPS ("" = nan)
 
+    # ====== The culled frame renderer (eval/frame.py; the JAX package's
+    # config.py documents each).  "auto" renders through the
+    # occupancy-culled two-phase renderer, "none" densely.
+    render_cull: str = "auto"
+    render_cull_tau: float = 1e-3
+    render_trunc_eps: float = 1e-3
+    # support-bound pre-cull of the coarse pass (K4, grids by K7): "auto"
+    # = where the gated kernels apply; grid 0 = auto (128 on CUDA, off on
+    # the CPU); half-side 0 = far
+    render_precull: str = "auto"
+    render_precull_grid: int = 0
+    render_precull_halfside: float = 0.0
+    # fine-pass row gating by the fine module's own support bounds (K5)
+    render_gate_fine: str = "auto"
+
     # ====== Port only: where tensors live ("cuda", "cuda:N" or "cpu")
     device: str = "cuda"
 
@@ -115,6 +131,8 @@ class NerfConfig:
     def validate(self) -> "NerfConfig":
         """The JAX package's checks on the fields kept here, plus ``device``;
         raises ValueError."""
+        tri_state = ("auto", "on", "off", "true", "false", "t", "f", "yes",
+                     "no", "y", "n", "0", "1")
         checks = (
             ("data_type", self.data_type in ("blender", "llff", "custom")),
             ("render_type", self.render_type in ("gif", "mp4")),
@@ -122,6 +140,10 @@ class NerfConfig:
             ("N_samples_c", self.N_samples_c > 0),
             ("iter_warmup", self.iter_warmup < self.iter_N + 1),
             ("device", self.device == "cpu" or self.device.startswith("cuda")),
+            ("render_cull", self.render_cull in ("auto", "none")),
+            ("render_precull", str(self.render_precull).lower() in tri_state),
+            ("render_gate_fine",
+             str(self.render_gate_fine).lower() in tri_state),
         )
         for name, ok in checks:
             if not ok:

@@ -1,18 +1,20 @@
-"""Experiment driver: dataset -> state -> train loop -> test and save hooks,
-or the standalone evaluation of a saved checkpoint.
+"""Experiment driver: dataset -> state -> train loop -> test, render and
+save hooks, or the standalone evaluation or rendering of a saved
+checkpoint.
 
 Counterpart of the JAX package's ``driver.main_worker`` on blender data:
 the coarse+fine model, Adam under the warmup-cosine schedule, global ray
 batching or per-image sampling, resume (``iter_start``, ``-1`` for the
 latest checkpoint) and the loop with the ``idx_print``, ``idx_vis``,
-``idx_save`` and ``idx_test`` hooks.  Checkpoints are the reference
-format, ``logs/<exp>/<exp>_<step>.pth.tar`` (``train/checkpoint.py``).
-With ``eval_only`` it restores the weights saved at ``testing_idx``, packs
-them once for the fused kernels and runs the held-out-view evaluation.
+``idx_save``, ``idx_test`` and ``idx_render`` hooks.  Checkpoints are the
+reference format, ``logs/<exp>/<exp>_<step>.pth.tar``
+(``train/checkpoint.py``).  With ``eval_only`` and/or ``render_only`` it
+restores the weights saved at ``testing_idx``, packs them once for the
+fused kernels and runs the held-out-view evaluation and/or the novel-view
+render.
 
-Not ported yet, and refused by ``main`` with a message: novel-view
-rendering (``render_only``; the ``idx_render`` hook is skipped) and the
-LLFF and custom loaders.
+Not ported yet, and refused by ``main`` with a message: the LLFF and
+custom loaders.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 
 from .config import NerfConfig, load_config
 from .data import load_blender
+from .eval.render import run_render
 from .eval.test import run_test
 from .kernels.fused_mlp import pack_nerf
 from .models.nerf import NeRF
@@ -121,9 +124,7 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
         for _ in range(state.step):
             rng.choice(i_train)
     test_on = bool(cfg.idx_test and cfg.mode_test and len(i_test) > 0)
-    if cfg.idx_render and cfg.mode_render:
-        print(">> idx_render: novel-view rendering is not ported yet; the "
-              "render hook is skipped")
+    render_on = bool(cfg.idx_render and cfg.mode_render)
 
     first = cfg.iter_start + 1
     losses = torch.empty(max(cfg.iter_N - cfg.iter_start, 0), device=device)
@@ -149,6 +150,9 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
         if test_on and i % cfg.idx_test == 0:
             run_test(i, pack_nerf(state.model, cfg, device=device),
                      images[i_test], extrinsics[i_test], K, hw, cfg, device)
+        if render_on and i % cfg.idx_render == 0:
+            run_render(i, pack_nerf(state.model, cfg, device=device), K, hw,
+                       cfg, device)
     logger.close()
     print(">> training done")
     return dict(step=state.step, loss=losses.tolist(), step_s=clock.seconds())
@@ -174,25 +178,28 @@ def main_worker(cfg: NerfConfig) -> dict:
         testskip=cfg.testskip, bkg_white=cfg.bkg_white)
     print(f">> dataset loaded: images {images.shape}, hw {hw}, "
           f"train/val/test {'/'.join(str(len(i)) for i in i_split)}")
-    if cfg.eval_only:
+    if cfg.eval_only or cfg.render_only:
         i_test = i_split[2]
         model = load_model(cfg, cfg.testing_idx, device)
         packed = pack_nerf(model, cfg, device=device)
-        return run_test(cfg.testing_idx, packed, images[i_test],
-                        extrinsics[i_test], K, hw, cfg, device)
+        res = {}
+        if cfg.eval_only:
+            res = run_test(cfg.testing_idx, packed, images[i_test],
+                           extrinsics[i_test], K, hw, cfg, device)
+        if cfg.render_only:
+            rendered = run_render(cfg.testing_idx, packed, K, hw, cfg,
+                                  device)
+            res = {**res, "render": rendered} if cfg.eval_only else rendered
+        return res
     return train(cfg, images, K, extrinsics, hw, i_split, device)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     cfg = load_config(argv)
-    unported = None
-    if cfg.render_only:
-        unported = "novel-view rendering (--render_only)"
-    elif cfg.data_type != "blender":
-        unported = f"the {cfg.data_type} loader"
-    if unported:
-        print(f"nerf_pytorch_paeng_tpu_torch: {unported} is not ported yet; "
-              "the JAX package (main.py) runs it", file=sys.stderr)
+    if cfg.data_type != "blender":
+        print(f"nerf_pytorch_paeng_tpu_torch: the {cfg.data_type} loader is "
+              "not ported yet; the JAX package (main.py) runs it",
+              file=sys.stderr)
         return 2
     main_worker(cfg)
     return 0

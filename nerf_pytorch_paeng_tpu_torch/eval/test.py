@@ -8,6 +8,7 @@ and mean summaries in the reference format.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -31,7 +32,7 @@ def run_test(idx: int, packed, test_imgs, test_poses, K, hw, cfg,
     ``packed``: both MLPs from ``kernels.fused_mlp.pack_nerf``;
     ``test_imgs`` [T, H, W, 3] numpy, ``test_poses`` [T, 3or4, 4].
     Metric-reporting evaluation always renders through the exact dense
-    path, as the JAX package does.
+    path (``render_cull="none"``), as the JAX package does.
 
     On the card, frame i's SSIM and its copies to pinned host memory are
     queued right behind its render, and frame i+1 is queued before frame i
@@ -43,7 +44,8 @@ def run_test(idx: int, packed, test_imgs, test_poses, K, hw, cfg,
         save_dir = os.path.join(cfg.logdir, cfg.exp_name,
                                 f"{cfg.exp_name}_{idx}", "test_result")
     os.makedirs(save_dir, exist_ok=True)
-    renderer = make_frame_renderer(cfg, H, W, K, device)
+    renderer = make_frame_renderer(
+        dataclasses.replace(cfg, render_cull="none"), H, W, K, device)
     lpips_params = load_lpips_params(cfg.lpips_weights)
 
     poses = np.asarray(test_poses)

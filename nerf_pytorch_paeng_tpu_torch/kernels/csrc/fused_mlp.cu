@@ -1,16 +1,24 @@
-// Fused NeRF MLP along rays, for Hopper (sm_90a): two kernels.
+// Fused NeRF MLP for Hopper (sm_90a): three kernels.
 //
-//   nerf_sigma_rays  replaces the JAX package's TPU kernel
-//                    kernels/fused_mlp.py::_sigma_rays_kernel (fused_mlp_sigma_rays,
-//                    gate=None): trunk + density head -> sigma [S, N].
-//   nerf_eval_rays   replaces kernels/fused_mlp.py::_eval_rays_kernel
-//                    (fused_mlp_eval_rays, gate=None): the full field ->
-//                    r, g, b, sigma, each [S, N].
+//   nerf_sigma_rays   replaces the JAX package's TPU kernels
+//                     kernels/fused_mlp.py::_sigma_rays_kernel (gate null) and
+//                     _sigma_rays_kernel_gated (gate given): trunk + density
+//                     head along rays -> sigma [S, N].
+//   nerf_eval_rays    replaces kernels/fused_mlp.py::_eval_rays_kernel and
+//                     _eval_rays_kernel_gated: the full field along rays ->
+//                     r, g, b, sigma, each [S, N].
+//   nerf_sigma_points replaces kernels/fused_mlp.py::_mlp_sigma_kernel: trunk
+//                     + density head at points x [3, P] -> sigma [P] (the
+//                     support-bound grids of the culled renderer).
 //
 // Inputs: od [8, N] float32 (origin rows 0-2, unnormalised direction rows
 // 3-5), z [S, N] float32 depths, the packed weights of
 // nerf_pytorch_paeng_tpu_torch/kernels/fused_mlp.py (bf16, [in, out] row-major
-// per layer) and float32 biases.
+// per layer) and float32 biases.  The optional gate is int32
+// [ceil(N / 128) * (S / 8)], tile-major over (128-ray block, 8-sample row):
+// where it is 0 the block skips embedding, trunk and heads for those 8
+// samples and stores 0 to every output (the caller certifies that their
+// density logits are <= 0, so the compositing weights do not change).
 //
 // What bounds it on this card: operations.  A sample costs ~0.99 MFLOP
 // (sigma) or ~1.19 MFLOP (full field) of bf16 matrix products against 4 B
@@ -38,7 +46,16 @@
 //    waves of blocks (a training batch), the samples are split over blocks
 //    too, each computing its rays' direction term itself;
 //  * the 1-wide density and 3-wide colour heads are dot products on the
-//    CUDA cores (two threads per point), not padded tensor-core tiles.
+//    CUDA cores (two threads per point), not padded tensor-core tiles;
+//  * gating: the TPU grid's (ray tile, 8-sample row) step becomes a
+//    128-ray block's 8 sample iterations; the gate test is the same for the
+//    whole block and comes before the step's first barrier, so a gated row
+//    costs a few stores.  The work bound counts the active blocks only.
+//    The full field skips its per-ray view term where all of a block's
+//    rows are gated;
+//  * points (the grid kernel): a block takes 128 consecutive points as
+//    rays with origin x, direction 0 and depth 0, so the in-block
+//    embedding sees x itself, and runs one trunk and the density head.
 // First cut: no wgmma/TMA and one block per SM; the rate against the bound
 // is in PERF.md.
 
@@ -91,6 +108,11 @@ __device__ __forceinline__ void store_out(void* out, long i, float v) {
     reinterpret_cast<bf16*>(out)[i] = __float2bfloat16(v);
   else
     reinterpret_cast<float*>(out)[i] = v;
+}
+
+// true where the gate turns this block's sample row of sample k off
+__device__ __forceinline__ bool gated_off(const int* __restrict__ gate, int s, int k) {
+  return gate != nullptr && gate[blockIdx.x * (s >> 3) + (k >> 3)] == 0;
 }
 
 // block start: rays of this tile into shared memory (rays past N are never
@@ -150,7 +172,7 @@ template <bool OUT_BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 sigma_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
                   const bf16* __restrict__ w, const float* __restrict__ b,
-                  void* sigma, int n, int s, int L_x) {
+                  void* sigma, int n, int s, int L_x, const int* __restrict__ gate) {
   extern __shared__ __align__(128) unsigned char smem[];
   Smem sm = carve(smem, false);
   const int ray0 = blockIdx.x * TILE;
@@ -158,6 +180,11 @@ sigma_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
   float* zrow = sm.scratch;  // staged depths of the current sample
 #pragma unroll 1
   for (int k = 0; k < s; ++k) {
+    if (gated_off(gate, s, k)) {  // uniform over the block, before any barrier
+      if (threadIdx.x < TILE && ray0 + (int)threadIdx.x < n)
+        store_out<OUT_BF16>(sigma, (long)k * n + ray0 + threadIdx.x, 0.0f);
+      continue;
+    }
     __syncthreads();  // previous step's heads are done with act / scratch
     if (threadIdx.x < TILE) {
       const int ray = ray0 + threadIdx.x;
@@ -175,12 +202,31 @@ __global__ void __launch_bounds__(THREADS, 1)
 eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
                  const bf16* __restrict__ w, const float* __restrict__ b,
                  void* r_out, void* g_out, void* b_out, void* s_out,
-                 int n, int s, int L_x, int L_d, int kchunk) {
+                 int n, int s, int L_x, int L_d, int kchunk, const int* __restrict__ gate) {
   extern __shared__ __align__(128) unsigned char smem[];
   Smem sm = carve(smem, true);
   const int ray0 = blockIdx.x * TILE;
   const int warp = threadIdx.x >> 5;
   const int row0 = (warp & 3) * 32, col0 = (warp >> 2) * (HALF / 2);
+  const int k_begin = blockIdx.y * kchunk;
+  const int k_end = min(s, k_begin + kchunk);
+  if (gate != nullptr) {  // every row of this block's run gated: zeros, no view term
+    bool any = false;
+    for (int r = k_begin >> 3; r <= (k_end - 1) >> 3; ++r)
+      any |= gate[blockIdx.x * (s >> 3) + r] != 0;
+    if (!any) {
+      for (int idx = threadIdx.x; idx < (k_end - k_begin) * TILE; idx += THREADS) {
+        const int ray = ray0 + idx % TILE;
+        if (ray >= n) continue;
+        const long at = (long)(k_begin + idx / TILE) * n + ray;
+        store_out<OUT_BF16>(r_out, at, 0.0f);
+        store_out<OUT_BF16>(g_out, at, 0.0f);
+        store_out<OUT_BF16>(b_out, at, 0.0f);
+        store_out<OUT_BF16>(s_out, at, 0.0f);
+      }
+      return;
+    }
+  }
   load_block_inputs(sm, od, w, n, ray0);
   __syncthreads();
 
@@ -201,9 +247,18 @@ eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
   }
 
   float* zrow = sm.scratch;
-  const int k_end = min(s, (int)(blockIdx.y + 1) * kchunk);
 #pragma unroll 1
-  for (int k = blockIdx.y * kchunk; k < k_end; ++k) {
+  for (int k = k_begin; k < k_end; ++k) {
+    if (gated_off(gate, s, k)) {  // uniform over the block, before any barrier
+      if (threadIdx.x < TILE && ray0 + (int)threadIdx.x < n) {
+        const long at = (long)k * n + ray0 + threadIdx.x;
+        store_out<OUT_BF16>(r_out, at, 0.0f);
+        store_out<OUT_BF16>(g_out, at, 0.0f);
+        store_out<OUT_BF16>(b_out, at, 0.0f);
+        store_out<OUT_BF16>(s_out, at, 0.0f);
+      }
+      continue;
+    }
     __syncthreads();
     if (threadIdx.x < TILE) {
       const int ray = ray0 + threadIdx.x;
@@ -256,28 +311,69 @@ eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
   }
 }
 
+// trunk + density head at 128 consecutive points of x [3, P]
+template <bool OUT_BF16>
+__global__ void __launch_bounds__(THREADS, 1)
+sigma_points_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
+                    const float* __restrict__ b, void* sigma, int p, int L_x) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Smem sm = carve(smem, false);
+  const int pt0 = blockIdx.x * TILE;
+  // each point as a ray with origin x, direction 0, at depth 0
+  for (int idx = threadIdx.x; idx < TILE * 6; idx += THREADS) {
+    const int k = idx / TILE, q = idx % TILE, pt = pt0 + q;
+    sm.rays[q * 8 + k] = (k < 3 && pt < p) ? x[(long)k * p + pt] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < WIDTH; i += THREADS)
+    sm.heads[i] = __bfloat162float(w[OFF_WDENS + i]);
+  float* zrow = sm.scratch;
+  if (threadIdx.x < TILE) zrow[threadIdx.x] = 0.0f;
+  __syncthreads();
+  build_emb(sm.emb, sm.rays, zrow, L_x, EMBX);
+  trunk(sm, w, b);
+  density_head<OUT_BF16>(sm, b, sigma, 0, p, pt0);
+}
+
 }  // namespace
+
+extern "C" int nerf_sigma_points(const float* x, const void* w, const float* b, void* sigma,
+                                 int p, int L_x, int out_bf16, void* stream) {
+  const dim3 grid((p + TILE - 1) / TILE);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bf16* wb = reinterpret_cast<const bf16*>(w);
+  int rc;
+  if (out_bf16) {
+    if ((rc = launch_prep(sigma_points_kernel<true>, SMEM_SIGMA))) return rc;
+    sigma_points_kernel<true><<<grid, THREADS, SMEM_SIGMA, st>>>(x, wb, b, sigma, p, L_x);
+  } else {
+    if ((rc = launch_prep(sigma_points_kernel<false>, SMEM_SIGMA))) return rc;
+    sigma_points_kernel<false><<<grid, THREADS, SMEM_SIGMA, st>>>(x, wb, b, sigma, p, L_x);
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int nerf_sigma_rays(const float* od, const float* z, const void* w, const float* b,
                                void* sigma, int n, int s, int L_x, int out_bf16,
-                               void* stream) {
+                               const int* gate, void* stream) {
   const dim3 grid((n + TILE - 1) / TILE);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* wb = reinterpret_cast<const bf16*>(w);
   int rc;
   if (out_bf16) {
     if ((rc = launch_prep(sigma_rays_kernel<true>, SMEM_SIGMA))) return rc;
-    sigma_rays_kernel<true><<<grid, THREADS, SMEM_SIGMA, st>>>(od, z, wb, b, sigma, n, s, L_x);
+    sigma_rays_kernel<true><<<grid, THREADS, SMEM_SIGMA, st>>>(od, z, wb, b, sigma, n, s, L_x,
+                                                                gate);
   } else {
     if ((rc = launch_prep(sigma_rays_kernel<false>, SMEM_SIGMA))) return rc;
-    sigma_rays_kernel<false><<<grid, THREADS, SMEM_SIGMA, st>>>(od, z, wb, b, sigma, n, s, L_x);
+    sigma_rays_kernel<false><<<grid, THREADS, SMEM_SIGMA, st>>>(od, z, wb, b, sigma, n, s, L_x,
+                                                                 gate);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int nerf_eval_rays(const float* od, const float* z, const void* w, const float* b,
                               void* r, void* g, void* bl, void* sigma, int n, int s, int L_x,
-                              int L_d, int out_bf16, void* stream) {
+                              int L_d, int out_bf16, const int* gate, void* stream) {
   // A block owns 128 rays and a run of their samples.  With fewer than two
   // waves of ray tiles (a 4096-ray training batch has 32) the sample axis
   // is split too, so the card fills; an 800x800 frame's 131072-ray blocks
@@ -293,11 +389,11 @@ extern "C" int nerf_eval_rays(const float* od, const float* z, const void* w, co
   if (out_bf16) {
     if ((rc = launch_prep(eval_rays_kernel<true>, SMEM_EVAL))) return rc;
     eval_rays_kernel<true><<<grid, THREADS, SMEM_EVAL, st>>>(od, z, wb, b, r, g, bl, sigma, n, s,
-                                                              L_x, L_d, kchunk);
+                                                              L_x, L_d, kchunk, gate);
   } else {
     if ((rc = launch_prep(eval_rays_kernel<false>, SMEM_EVAL))) return rc;
     eval_rays_kernel<false><<<grid, THREADS, SMEM_EVAL, st>>>(od, z, wb, b, r, g, bl, sigma, n,
-                                                               s, L_x, L_d, kchunk);
+                                                               s, L_x, L_d, kchunk, gate);
   }
   return (int)cudaGetLastError();
 }

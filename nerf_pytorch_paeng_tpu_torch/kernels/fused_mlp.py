@@ -1,14 +1,17 @@
-"""The fused NeRF MLP along rays: packing, CUDA wrappers, plain versions.
+"""The fused NeRF MLP: packing, CUDA wrappers, plain versions.
 
-Two forward kernels (source: ``csrc/fused_mlp.cu``), each with a plain
+Three forward kernels (source: ``csrc/fused_mlp.cu``), each with a plain
 PyTorch version of the same arithmetic in this module:
 
-- ``fused_mlp_sigma_rays`` (trunk + density head; replaces the JAX
-  package's ``kernels/fused_mlp.py::_sigma_rays_kernel``, the dense
-  renderer's coarse pass);
-- ``fused_mlp_eval_rays`` (the full field; replaces
-  ``_eval_rays_kernel``, the dense renderer's fine pass and the training
-  forward of both passes).
+- ``fused_mlp_sigma_rays`` (trunk + density head along rays; replaces the
+  JAX package's ``kernels/fused_mlp.py::_sigma_rays_kernel``, the coarse
+  pass, and with ``gate=`` ``_sigma_rays_kernel_gated``, the culled
+  renderer's pre-culled coarse pass);
+- ``fused_mlp_eval_rays`` (the full field along rays; replaces
+  ``_eval_rays_kernel``, the fine pass and the training forward, and with
+  ``gate=`` ``_eval_rays_kernel_gated``, the gated fine pass);
+- ``fused_mlp_sigma`` (trunk + density head on a plane of points;
+  replaces ``_mlp_sigma_kernel``, the support-bound grids).
 
 Their backward (``fused_mlp_vjp.py``) takes the weights this module packs.
 
@@ -16,7 +19,15 @@ Data layout, as in the JAX signatures: ``od`` [8, N] float32 (origin in
 rows 0-2, unnormalised direction in rows 3-5), ``z_t`` [S, N] float32
 depths; outputs are [S, N] raw logits.  Sample positions x = o + d * z and
 their double-angle embedding are built inside the kernel, so no [3, P]
-position plane exists in device memory.
+position plane exists in device memory.  ``xplane`` [3, P] float32 for
+the points kernel, output sigma [P] (the JAX kernel's 8-row output padding
+is a TPU layout and is not carried).
+
+The gate: int32 [ceil(N / 128) * (S / 8)], tile-major over (128-ray tile,
+8-sample row), as ``ops/render.tile_row_gate`` builds it.  A block whose
+entry is 0 skips the MLP and stores 0 to every output; the caller
+certifies that its samples carry density logits <= 0, so the compositing
+weights are the same.
 
 Arithmetic: operands in the packed weights' type (bf16 on the card),
 float32 accumulation, float32 biases, activations rounded to that type
@@ -26,18 +37,20 @@ computed once per ray.
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 goes to the kernel, or the wrapper raises.  Each wrapper counts its kernel
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches``; the two rays wrappers count their gated
+launches (K4, K5) apart, in ``<wrapper>.gated_launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.posenc import build_emb
+from ..ops.render import GATE_ROWS, GATE_TILE
 
 EMBX_ROWS = 64   # kernel embedding rows for positions (63 used at L_x=10)
 EMBD_ROWS = 32   # ... for view directions (27 used at L_d=4)
@@ -250,38 +263,66 @@ def _trunk(embx: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return h
 
 
+def gate_mask(gate: torch.Tensor, s: int, n: int) -> torch.Tensor:
+    """[S, N] bool: which samples a tile-major (128-ray tile, 8-sample
+    row) gate leaves on."""
+    g = gate.reshape(-(-n // GATE_TILE), s // GATE_ROWS) != 0     # [T, R]
+    return g.T.repeat_interleave(GATE_ROWS, 0).repeat_interleave(
+        GATE_TILE, 1)[:, :n]
+
+
+def _gated_rows(gate: Optional[torch.Tensor], s: int, n: int):
+    """(the gate's [S, N] mask or None, the sample rows to compute: those
+    with any block on)."""
+    if gate is None:
+        return None, range(s)
+    on = gate_mask(gate, s, n)
+    return on, [k for k, a in enumerate(on.any(1).tolist()) if a]
+
+
+def _sigma_head(x: torch.Tensor, packed: Dict[str, torch.Tensor],
+                L_x: int) -> torch.Tensor:
+    """Trunk and density head at points x [P, 3] -> float32 [P]."""
+    h = _trunk(build_emb(x, L_x, EMBX_ROWS), packed)
+    return _mm(h, packed["wdens"][:, None])[:, 0] + packed["bdens"]
+
+
 def fused_mlp_sigma_rays_plain(od: torch.Tensor, z_t: torch.Tensor,
                                packed: Dict[str, torch.Tensor],
                                L_x: int = 10,
-                               out_dtype: torch.dtype = torch.float32
+                               out_dtype: torch.dtype = torch.float32,
+                               gate: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
-    """Plain PyTorch version of the sigma kernel (one sample row at a
-    time, so memory stays at a few [N, 256] activations)."""
+    """Plain PyTorch version of the sigma kernel, gated or not (one sample
+    row at a time, so memory stays at a few [N, 256] activations; a row
+    the gate leaves wholly off is not computed)."""
     s, n = z_t.shape
     o, d = od[0:3].T.float(), od[3:6].T.float()
-    out = torch.empty((s, n), dtype=out_dtype, device=od.device)
-    for k in range(s):
+    on, rows = _gated_rows(gate, s, n)
+    out = torch.zeros((s, n), dtype=out_dtype, device=od.device)
+    for k in rows:
         x = o + d * z_t[k][:, None].float()
-        h = _trunk(build_emb(x, L_x, EMBX_ROWS), packed)
-        out[k] = (_mm(h, packed["wdens"][:, None])[:, 0]
-                  + packed["bdens"]).to(out_dtype)
-    return out
+        out[k] = _sigma_head(x, packed, L_x).to(out_dtype)
+    return out if on is None else out.masked_fill_(~on, 0)
 
 
 def fused_mlp_eval_rays_plain(od: torch.Tensor, z_t: torch.Tensor,
                               packed: Dict[str, torch.Tensor],
                               L_x: int = 10, L_d: int = 4,
-                              out_dtype: torch.dtype = torch.float32):
-    """Plain PyTorch version of the full-field kernel -> (r, g, b, sigma)."""
+                              out_dtype: torch.dtype = torch.float32,
+                              gate: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the full-field kernel, gated or not ->
+    (r, g, b, sigma)."""
     s, n = z_t.shape
     cdt = packed["w"].dtype
     o, d = od[0:3].T.float(), od[3:6].T.float()
     inv = torch.rsqrt(torch.sum(d * d, -1, keepdim=True))
     hv_dir = _mm(build_emb(d * inv, L_d, EMBD_ROWS), packed["wvd"]) \
         + packed["bv"]                                       # [N, 128] f32
-    outs = [torch.empty((s, n), dtype=out_dtype, device=od.device)
+    on, rows = _gated_rows(gate, s, n)
+    outs = [torch.zeros((s, n), dtype=out_dtype, device=od.device)
             for _ in range(4)]
-    for k in range(s):
+    for k in rows:
         x = o + d * z_t[k][:, None].float()
         h = _trunk(build_emb(x, L_x, EMBX_ROWS), packed)
         sigma = _mm(h, packed["wdens"][:, None])[:, 0] + packed["bdens"]
@@ -291,13 +332,29 @@ def fused_mlp_eval_rays_plain(od: torch.Tensor, z_t: torch.Tensor,
         for c in range(3):
             outs[c][k] = rgb[:, c].to(out_dtype)
         outs[3][k] = sigma.to(out_dtype)
+    if on is not None:
+        outs = [t.masked_fill_(~on, 0) for t in outs]
     return tuple(outs)
+
+
+def fused_mlp_sigma_plain(xplane: torch.Tensor,
+                          packed: Dict[str, torch.Tensor], L_x: int = 10,
+                          out_dtype: torch.dtype = torch.float32,
+                          chunk: int = 65536) -> torch.Tensor:
+    """Plain PyTorch version of the points kernel: xplane [3, P] ->
+    sigma [P] (in chunks of points, so a 128^3 grid stays in memory)."""
+    x = xplane.T.float()
+    out = torch.empty((x.shape[0],), dtype=out_dtype, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        out[i:i + chunk] = _sigma_head(x[i:i + chunk], packed, L_x)
+    return out
 
 
 # -------------------------------------------------------------- CUDA wrappers
 
 
-def _check(od, z_t, packed, L_x, L_d, out_dtype) -> Tuple[int, int]:
+def _check(od, z_t, packed, L_x, L_d, out_dtype, gate=None
+           ) -> Tuple[int, int]:
     if z_t.dim() != 2 or od.dim() != 2 or od.shape != (8, z_t.shape[1]):
         raise ValueError(f"od must be [8, N] and z_t [S, N]; got "
                          f"{tuple(od.shape)}, {tuple(z_t.shape)}")
@@ -306,11 +363,26 @@ def _check(od, z_t, packed, L_x, L_d, out_dtype) -> Tuple[int, int]:
             raise ValueError(f"{name} must be contiguous float32")
     if any(t.device != od.device for t in (z_t, packed["w"], packed["b"])):
         raise ValueError("od, z_t and the packed weights must share a device")
+    _check_common(packed, L_x, L_d, out_dtype)
+    s, n = z_t.shape
+    if gate is not None:
+        want = -(-n // GATE_TILE) * (s // GATE_ROWS)
+        if s % GATE_ROWS:
+            raise ValueError(f"a gate needs S % {GATE_ROWS} == 0; S={s}")
+        if (gate.dtype != torch.int32 or gate.dim() != 1
+                or gate.numel() != want or not gate.is_contiguous()
+                or gate.device != od.device):
+            raise ValueError(
+                f"gate must be contiguous int32 [{want}] on {od.device}; "
+                f"got {gate.dtype} {tuple(gate.shape)} on {gate.device}")
+    return s, n
+
+
+def _check_common(packed, L_x, L_d, out_dtype) -> None:
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype} (float32 or bfloat16)")
     if not (1 <= L_x <= 10 and 1 <= L_d <= 4):
         raise ValueError(f"L_x={L_x}, L_d={L_d} outside 1..10 / 1..4")
-    return z_t.shape
 
 
 @functools.lru_cache(maxsize=None)
@@ -319,9 +391,12 @@ def _library() -> ctypes.CDLL:
     from . import build
     lib = build.load("fused_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.nerf_sigma_rays.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.nerf_eval_rays.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.nerf_sigma_rays.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
+    lib.nerf_eval_rays.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p,
+                                   p]
+    lib.nerf_sigma_points.argtypes = [p, p, p, p, i, i, i, p]
     lib.nerf_sigma_rays.restype = lib.nerf_eval_rays.restype = i
+    lib.nerf_sigma_points.restype = i
     return lib
 
 
@@ -340,14 +415,21 @@ def _raise_on(rc: int, fn: str) -> None:
         raise RuntimeError(f"{fn}: CUDA error {rc} at launch")
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def fused_mlp_sigma_rays(od: torch.Tensor, z_t: torch.Tensor,
                          packed: Dict[str, torch.Tensor], L_x: int = 10,
-                         out_dtype: torch.dtype = torch.float32
+                         out_dtype: torch.dtype = torch.float32,
+                         gate: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """Density logits along rays: od [8, N], z_t [S, N] -> sigma [S, N]."""
-    s, n = _check(od, z_t, packed, L_x, 1, out_dtype)
+    """Density logits along rays: od [8, N], z_t [S, N] -> sigma [S, N];
+    with ``gate`` (see the module docstring) gated blocks store 0."""
+    s, n = _check(od, z_t, packed, L_x, 1, out_dtype, gate)
     if od.device.type == "cpu":
-        return fused_mlp_sigma_rays_plain(od, z_t, packed, L_x, out_dtype)
+        return fused_mlp_sigma_rays_plain(od, z_t, packed, L_x, out_dtype,
+                                          gate)
     lib = _cuda_lib(od, packed)
     out = torch.empty((s, n), dtype=out_dtype, device=od.device)
     if s * n == 0:
@@ -356,26 +438,31 @@ def fused_mlp_sigma_rays(od: torch.Tensor, z_t: torch.Tensor,
         rc = lib.nerf_sigma_rays(
             od.data_ptr(), z_t.data_ptr(), packed["w"].data_ptr(),
             packed["b"].data_ptr(), out.data_ptr(), n, s, L_x,
-            int(out_dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), _ptr(gate),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "nerf_sigma_rays")
-    fused_mlp_sigma_rays.launches += 1
+    if gate is None:
+        fused_mlp_sigma_rays.launches += 1
+    else:
+        fused_mlp_sigma_rays.gated_launches += 1
     return out
 
 
-fused_mlp_sigma_rays.launches = 0
+fused_mlp_sigma_rays.launches = fused_mlp_sigma_rays.gated_launches = 0
 
 
 def fused_mlp_eval_rays(od: torch.Tensor, z_t: torch.Tensor,
                         packed: Dict[str, torch.Tensor], L_x: int = 10,
                         L_d: int = 4,
-                        out_dtype: torch.dtype = torch.float32):
+                        out_dtype: torch.dtype = torch.float32,
+                        gate: Optional[torch.Tensor] = None):
     """Full radiance field along rays: od [8, N], z_t [S, N] ->
-    (r, g, b, sigma), each [S, N] raw logits."""
-    s, n = _check(od, z_t, packed, L_x, L_d, out_dtype)
+    (r, g, b, sigma), each [S, N] raw logits; with ``gate`` gated blocks
+    store 0 to all four."""
+    s, n = _check(od, z_t, packed, L_x, L_d, out_dtype, gate)
     if od.device.type == "cpu":
         return fused_mlp_eval_rays_plain(od, z_t, packed, L_x, L_d,
-                                         out_dtype)
+                                         out_dtype, gate)
     lib = _cuda_lib(od, packed)
     outs = [torch.empty((s, n), dtype=out_dtype, device=od.device)
             for _ in range(4)]
@@ -385,11 +472,46 @@ def fused_mlp_eval_rays(od: torch.Tensor, z_t: torch.Tensor,
         rc = lib.nerf_eval_rays(
             od.data_ptr(), z_t.data_ptr(), packed["w"].data_ptr(),
             packed["b"].data_ptr(), *(t.data_ptr() for t in outs), n, s,
-            L_x, L_d, int(out_dtype == torch.bfloat16),
+            L_x, L_d, int(out_dtype == torch.bfloat16), _ptr(gate),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "nerf_eval_rays")
-    fused_mlp_eval_rays.launches += 1
+    if gate is None:
+        fused_mlp_eval_rays.launches += 1
+    else:
+        fused_mlp_eval_rays.gated_launches += 1
     return tuple(outs)
 
 
-fused_mlp_eval_rays.launches = 0
+fused_mlp_eval_rays.launches = fused_mlp_eval_rays.gated_launches = 0
+
+
+def fused_mlp_sigma(xplane: torch.Tensor, packed: Dict[str, torch.Tensor],
+                    L_x: int = 10, out_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+    """Density logits at points: xplane [3, P] float32 -> sigma [P]."""
+    if (xplane.dim() != 2 or xplane.shape[0] != 3
+            or xplane.dtype != torch.float32 or not xplane.is_contiguous()):
+        raise ValueError(f"xplane must be contiguous float32 [3, P]; got "
+                         f"{xplane.dtype} {tuple(xplane.shape)}")
+    if any(t.device != xplane.device for t in (packed["w"], packed["b"])):
+        raise ValueError("xplane and the packed weights must share a device")
+    _check_common(packed, L_x, 1, out_dtype)
+    if xplane.device.type == "cpu":
+        return fused_mlp_sigma_plain(xplane, packed, L_x, out_dtype)
+    lib = _cuda_lib(xplane, packed)
+    p = xplane.shape[1]
+    out = torch.empty((p,), dtype=out_dtype, device=xplane.device)
+    if p == 0:
+        return out
+    with torch.cuda.device(xplane.device):
+        rc = lib.nerf_sigma_points(
+            xplane.data_ptr(), packed["w"].data_ptr(),
+            packed["b"].data_ptr(), out.data_ptr(), p, L_x,
+            int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "nerf_sigma_points")
+    fused_mlp_sigma.launches += 1
+    return out
+
+
+fused_mlp_sigma.launches = 0

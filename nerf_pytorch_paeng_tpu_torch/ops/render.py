@@ -1,9 +1,11 @@
-"""Hierarchical resampling and the training render (counterpart of the JAX
-package's ``ops/render.py``: ``hierarchical_z_vals``,
-``supports_train_rays_kernels`` and ``render_rays_train`` ungated)."""
+"""Hierarchical resampling, the training render and the culled renderer's
+gate and truncation helpers (counterpart of the JAX package's
+``ops/render.py``: ``hierarchical_z_vals``, ``supports_train_rays_kernels``,
+``render_rays_train`` ungated, ``span_sort``, ``tile_row_gate``,
+``truncation_bounds`` and ``truncation_window``)."""
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -99,3 +101,77 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
     out_f = field(model.model_fine, z_all.T.contiguous())
     return RaysRender(out_c.rgb, out_c.disp, out_f.rgb, out_f.disp,
                       out_f.acc, out_f.depth)
+
+
+GATE_TILE = 128     # rays per gate tile: the kernels' block of rays
+GATE_ROWS = 8       # samples per gate row
+
+
+def span_sort(act: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Order rays by their (first, last) active-row span, so that gate
+    tiles share spans; rays with no active row (provable misses) sort
+    last and gate whole tiles.  act [N, R] bool -> (order [N], inv [N]),
+    ``inv`` the inverse permutation; the sort is stable."""
+    n, n_rows = act.shape
+    a = act.to(torch.uint8)
+    first = a.argmax(1)
+    last = (n_rows - 1) - a.flip(1).argmax(1)
+    span_key = torch.where(act.any(1), first * (n_rows + 1) + last,
+                           torch.full_like(first, n_rows * (n_rows + 2)))
+    order = torch.argsort(span_key, stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n, device=act.device)
+    return order, inv
+
+
+def tile_row_gate(act_sorted: torch.Tensor, tile: int = GATE_TILE
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(ray tile, sample row) gate over span-sorted row activity: a
+    (tile, row) block runs iff any ray of the tile is active in the row.
+
+    act_sorted [N, R] bool -> (gate [ceil(N / tile) * R] int32, tile-major:
+    gate[t * R + r]; the skipped share of blocks, a 0-dim tensor).  A
+    ragged last tile is padded with inactive rays.  This is the layout the
+    gated kernels read (``kernels/fused_mlp.py``)."""
+    n, n_rows = act_sorted.shape
+    pad = -n % tile
+    if pad:
+        act_sorted = torch.cat([act_sorted, act_sorted.new_zeros(pad, n_rows)])
+    gate = act_sorted.reshape(-1, tile, n_rows).any(1).reshape(-1)
+    gate = gate.to(torch.int32)
+    return gate, 1.0 - gate.float().mean()
+
+
+def truncation_bounds(weights: torch.Tensor, eps: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-ray coarse window [k_start, k_need) of the sample truncation:
+    k_start one bin before the first coarse sample where the cumulative
+    weight reaches ``eps``, k_need one bin past the transmittance collapse
+    (remaining T <= eps).  The one-bin margins keep the fine samples that
+    the resample puts between the coarse midpoints.  weights [M, Sc] ->
+    (k_start [M], k_need [M]), 0 <= k_start <= k_need <= Sc."""
+    nc = weights.shape[-1]
+    cum = torch.cumsum(weights, -1)
+    rem = 1.0 - cum
+    k_need = torch.clamp(torch.sum(rem > eps, -1) + 2, max=nc)
+    k_start = torch.clamp(torch.sum(cum < eps, -1) - 1, min=0)
+    return k_start, torch.maximum(k_need, k_start)
+
+
+def truncation_window(z_all: torch.Tensor, z_vals: torch.Tensor,
+                      weights: torch.Tensor, n_keep: int, eps: float
+                      ) -> torch.Tensor:
+    """Per-ray ``n_keep``-sample window of the sorted merged depths: it
+    starts at the first merged depth at or past z_vals[k_start]
+    (``truncation_bounds``), moved earlier where it would run past the
+    end.  z_all [M, S] sorted, z_vals/weights [M, Sc] -> [M, n_keep]."""
+    if eps <= 0:
+        return z_all[:, :n_keep]
+    k_start, _ = truncation_bounds(weights, eps)
+    nc = z_vals.shape[-1]
+    z_cut = torch.gather(z_vals, -1,
+                         torch.clamp(k_start, max=nc - 1)[:, None])
+    m_start = torch.sum(z_all < z_cut, -1)
+    m_start = torch.clamp(m_start, 0, z_all.shape[-1] - n_keep)
+    idx = m_start[:, None] + torch.arange(n_keep, device=z_all.device)
+    return torch.gather(z_all, -1, idx)

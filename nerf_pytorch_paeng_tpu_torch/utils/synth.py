@@ -6,17 +6,24 @@ with a position-dependent colour, volume-rendered analytically with the
 renderer's compositing formulas (white background), seen from an orbit of
 cameras.  Used by the port's tests and by ``chip_smoke.py`` in place of
 the real datasets, which are not in the repository.
+
+``compact_field_params`` / ``compact_field_state_dict`` build a NeRF by
+hand whose density has exactly compact support (an L1 ball), so the
+culled renderer's support bounds, cull and gates engage without a fitted
+model.
 """
 from __future__ import annotations
 
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .image import imwrite
+from .interop import state_dict_from_jax_params
 
 
 def orbit_pose(theta: float, phi: float, radius: float) -> np.ndarray:
@@ -79,11 +86,16 @@ def render_gt(H: int, W: int, K: np.ndarray, c2w: np.ndarray,
 
 
 def make_synth_scene(n_views: int = 8, H: int = 32, W: int = 32,
-                     radius: float = 4.0, near: float = 2.0, far: float = 6.0
+                     radius: float = 4.0, near: float = 2.0, far: float = 6.0,
+                     camera_angle_x: Optional[float] = None
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Returns (images [N,H,W,3], K [3,3], poses [N,4,4]).  Views render
-    on threads: numpy's array arithmetic releases the interpreter lock."""
-    focal = 0.9 * W
+    """Returns (images [N,H,W,3], K [3,3], poses [N,4,4]).  The focal
+    length is 0.9 W (a 58 degree field of view), or the one of the
+    horizontal field of view ``camera_angle_x`` (radians; the lego scene's
+    is 0.6911).  Views render on threads: numpy's array arithmetic releases
+    the interpreter lock."""
+    focal = (0.9 * W if camera_angle_x is None
+             else 0.5 * W / float(np.tan(0.5 * camera_angle_x)))
     K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]],
                  np.float32)
     thetas = np.linspace(0, 2 * np.pi, n_views, endpoint=False)
@@ -96,11 +108,14 @@ def make_synth_scene(n_views: int = 8, H: int = 32, W: int = 32,
 
 def save_as_blender_dataset(root: str, n_train: int = 4, n_val: int = 1,
                             n_test: int = 2, H: int = 16, W: int = 16,
-                            radius: float = 4.0) -> None:
+                            radius: float = 4.0,
+                            camera_angle_x: Optional[float] = None) -> None:
     """Write the synthetic scene in the blender transforms_*.json layout,
-    splits interleaved around the orbit (seeded permutation)."""
+    splits interleaved around the orbit (seeded permutation);
+    ``camera_angle_x`` as in ``make_synth_scene``."""
     n = n_train + n_val + n_test
-    imgs, K, poses = make_synth_scene(n_views=n, H=H, W=W, radius=radius)
+    imgs, K, poses = make_synth_scene(n_views=n, H=H, W=W, radius=radius,
+                                      camera_angle_x=camera_angle_x)
     focal = float(K[0, 0])
     camera_angle_x = 2.0 * float(np.arctan(W / (2.0 * focal)))
     order = np.random.default_rng(0).permutation(n)
@@ -121,3 +136,63 @@ def save_as_blender_dataset(root: str, n_train: int = 4, n_val: int = 1,
         meta = {"camera_angle_x": camera_angle_x, "frames": frames}
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
             json.dump(meta, f)
+
+
+def compact_field_params(r: float = 1.5, k: float = 20.0, seed: int = 0,
+                         L_x: int = 10, L_d: int = 4, width: int = 256
+                         ) -> Dict[str, Dict]:
+    """Both MLPs of a NeRF (8 layers, skip at 4) as a numpy params tree in
+    the JAX package's layout (kernels [in, out]), built so that
+
+    - trunk layer 0 maps the raw position (embedding rows 0-2) to units
+      2i: +x_i and 2i+1: -x_i, so after the ReLU units 0-5 hold |x_i|'s
+      two halves;
+    - trunk layers 1-4, 6, 7 and the hidden rows of the skip layer carry
+      units 0-5 through unchanged (identity), everything else is 0;
+    - density logit = k r - k (units 0-5 summed) = k (r - |x|_1): positive
+      exactly inside the L1 ball of radius r;
+    - the feature and view layers pass units 0-5 on, and the colour is a
+      seeded linear map of them (weights from {+-1, +-0.5}).
+
+    Every weight is +-1, +-0.5, +-k or 0, and the bias k r: exact in bf16
+    for the k and r the callers use."""
+    rng = np.random.default_rng(seed)
+    in_x, in_d = 3 + 6 * L_x, 3 + 6 * L_d
+    units = np.arange(6)
+
+    def dense(fan_in, fan_out):
+        return {"kernel": np.zeros((fan_in, fan_out), np.float32),
+                "bias": np.zeros((fan_out,), np.float32)}
+
+    def mlp():
+        p = {}
+        p["trunk_0"] = dense(in_x, width)
+        p["trunk_0"]["kernel"][units // 2, units] = np.where(
+            units % 2 == 0, 1.0, -1.0)
+        for i in (1, 2, 3, 4, 6, 7):
+            p[f"trunk_{i}"] = dense(width, width)
+            p[f"trunk_{i}"]["kernel"][units, units] = 1.0
+        p["trunk_5"] = dense(in_x + width, width)
+        p["trunk_5"]["kernel"][in_x + units, units] = 1.0
+        p["density"] = dense(width, 1)
+        p["density"]["kernel"][units, 0] = -k
+        p["density"]["bias"][0] = k * r
+        p["feature"] = dense(width, width)
+        p["feature"]["kernel"][units, units] = 1.0
+        p["view"] = dense(width + in_d, width // 2)
+        p["view"]["kernel"][units, units] = 1.0
+        p["color"] = dense(width // 2, 3)
+        p["color"]["kernel"][units] = rng.choice(
+            np.array([-1.0, -0.5, 0.5, 1.0], np.float32), (6, 3))
+        return p
+
+    return {"coarse": mlp(), "fine": mlp()}
+
+
+def compact_field_state_dict(r: float = 1.5, k: float = 20.0, seed: int = 0,
+                             L_x: int = 10, L_d: int = 4
+                             ) -> Dict[str, torch.Tensor]:
+    """``compact_field_params`` as the port's ``NeRF`` state dict (the
+    reference ``model_state_dict``)."""
+    return state_dict_from_jax_params(
+        compact_field_params(r, k, seed, L_x, L_d))

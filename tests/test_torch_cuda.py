@@ -1,5 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions, and
-one full-width training step.
+"""The port's CUDA kernels on the card, against their plain versions, one
+full-width training step, and the culled frame with and without gates.
 
 Every test here is marked ``cuda`` and skips without a GPU (the kernels
 have no CPU mode; the CPU tests hold the plain versions against the JAX
@@ -27,7 +27,8 @@ from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp_vjp as fv
 from nerf_pytorch_paeng_tpu_torch.models.nerf import NeRF, init_nerf
 from nerf_pytorch_paeng_tpu_torch.utils.interop import \
     state_dict_from_jax_params
-from nerf_pytorch_paeng_tpu_torch.utils.synth import make_synth_scene
+from nerf_pytorch_paeng_tpu_torch.utils.synth import (
+    compact_field_state_dict, make_synth_scene)
 
 from torch_port_util import np_nerf_params, np_rays
 
@@ -119,8 +120,8 @@ def test_wrapper_raises_instead_of_falling_back(dev):
 def test_frame_kernels_vs_plain(dev):
     """A whole 64x64 frame at 64+128 samples through the kernels and
     through the plain versions, same draws: >= 35 dB apart at most
-    (inverse-CDF tie flips keep it from bit-exact)."""
-    cfg = NerfConfig()
+    (inverse-CDF tie flips keep it from bit-exact); the dense renderer."""
+    cfg = NerfConfig(render_cull="none")
     H = W = 64
     _, K, poses = make_synth_scene(n_views=1, H=H, W=W)
     packed = fm.pack_nerf(init_nerf(cfg, seed=0, device=dev), cfg)
@@ -282,3 +283,130 @@ def test_full_width_training_step(dev):
             fv.fused_mlp_bwd_rays.launches - launches[1]) == (2, 2)
     for k, v in state.model.state_dict().items():     # Adam's first step
         assert float((v != before[k]).float().mean()) > 0.5, k
+
+
+def _gate(kind, n, s, dev, seed=22):
+    """A tile-major (128-ray tile, 8-sample row) gate: all off, all on, or
+    about half on (seeded)."""
+    size = -(-n // 128) * (s // 8)
+    if kind == "off":
+        g = np.zeros(size)
+    elif kind == "on":
+        g = np.ones(size)
+    else:
+        g = np.random.default_rng(seed).random(size) < 0.5
+    return torch.as_tensor(g, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("kind,n,s", [("off", 512, 16), ("on", 512, 16),
+                                      ("mixed", 4096, 64),
+                                      ("mixed", 1000, 24),
+                                      ("mixed", 300, 192)])
+def test_gated_kernels_match_plain(dev, kind, n, s):
+    """K4 and K5: gated blocks exactly 0, active blocks bit-equal to the
+    ungated kernel and within the kernel tolerance of the gated plain
+    version; ragged ray counts (a partial last tile) included."""
+    p = _packed(23, dev)
+    od, z = _inputs(24, n, s, dev)
+    gate = _gate(kind, n, s, dev)
+    on = fm.gate_mask(gate, s, n)
+    k4 = fm.fused_mlp_sigma_rays(od, z, p, out_dtype=torch.bfloat16,
+                                 gate=gate)
+    k3 = fm.fused_mlp_sigma_rays(od, z, p, out_dtype=torch.bfloat16)
+    k5 = fm.fused_mlp_eval_rays(od, z, p, out_dtype=torch.bfloat16, gate=gate)
+    k1 = fm.fused_mlp_eval_rays(od, z, p, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    plain4 = fm.fused_mlp_sigma_rays_plain(od, z, p, out_dtype=torch.bfloat16,
+                                           gate=gate)
+    plain5 = fm.fused_mlp_eval_rays_plain(od, z, p, out_dtype=torch.bfloat16,
+                                          gate=gate)
+    for got, ungated, plain in ((k4, k3, plain4),
+                                *zip(k5, k1, plain5)):
+        assert not got[~on].any()
+        assert torch.equal(got[on], ungated[on])
+        if kind != "off":
+            _close(got, plain)
+
+
+def test_gated_launch_counts_once(dev):
+    p = _packed(25, dev)
+    od, z = _inputs(26, 256, 16, dev)
+    gate = _gate("mixed", 256, 16, dev)
+    counters = [getattr(fn, name)
+                for fn in (fm.fused_mlp_sigma_rays, fm.fused_mlp_eval_rays)
+                for name in ("launches", "gated_launches")]
+    fm.fused_mlp_sigma_rays(od, z, p, gate=gate)
+    fm.fused_mlp_eval_rays(od, z, p, gate=gate)
+    fm.fused_mlp_eval_rays_plain(od, z, p, gate=gate)
+    assert [getattr(fn, name)
+            for fn in (fm.fused_mlp_sigma_rays, fm.fused_mlp_eval_rays)
+            for name in ("launches", "gated_launches")] == [
+        counters[0], counters[1] + 1, counters[2], counters[3] + 1]
+
+
+def test_gated_wrapper_rejects_bad_gates(dev):
+    p = _packed(25, dev)
+    od, z = _inputs(26, 256, 16, dev)
+    for bad in (_gate("on", 256, 16, dev)[:-1],
+                _gate("on", 256, 16, dev).long(),
+                _gate("on", 256, 16, dev).cpu()):
+        with pytest.raises(ValueError):
+            fm.fused_mlp_sigma_rays(od, z, p, gate=bad)
+        with pytest.raises(ValueError):
+            fm.fused_mlp_eval_rays(od, z, p, gate=bad)
+    od, z = _inputs(26, 256, 12, dev)           # S not a multiple of 8
+    with pytest.raises(ValueError):
+        fm.fused_mlp_sigma_rays(od, z, p, gate=_gate("on", 256, 8, dev))
+
+
+@pytest.mark.parametrize("n_pts", [128, 100_003, 2 ** 18])
+def test_points_kernel_matches_plain(dev, n_pts):
+    """K7 on a plane of points (ragged counts included) against its plain
+    version, and the points kernel's sigma equals K3's at depth 0."""
+    p = _packed(27, dev)
+    g = torch.Generator(dev).manual_seed(28)
+    x = (torch.rand(3, n_pts, generator=g, device=dev) * 4 - 2).contiguous()
+    before = fm.fused_mlp_sigma.launches
+    got = fm.fused_mlp_sigma(x, p)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_sigma.launches == before + 1
+    assert got.shape == (n_pts,) and got.dtype == torch.float32
+    _close(got, fm.fused_mlp_sigma_plain(x, p))
+    od = torch.cat([x, torch.zeros(5, n_pts, device=dev)]).contiguous()
+    od[3] = 1.0
+    k3 = fm.fused_mlp_sigma_rays(od, torch.zeros(1, n_pts, device=dev), p)
+    assert torch.equal(got, k3[0])
+
+
+def test_culled_frame_gates_change_nothing(dev):
+    """The culled frame on the compact field at 96x96 (64+128 samples):
+    with the pre-cull and gate-fine on it equals the frame with both off
+    (gated samples carry zero weight), the gates engaged, and the frame is
+    close to the dense exact one."""
+    import dataclasses
+    H = W = 96
+    K = np.array([[1.39 * W, 0, W / 2], [0, 1.39 * W, H / 2], [0, 0, 1]],
+                 np.float32)
+    from nerf_pytorch_paeng_tpu_torch.data.render_pose import get_render_pose
+    model = NeRF()
+    model.load_state_dict(compact_field_state_dict(r=1.5, k=20.0))
+    cfg = NerfConfig(perturb=0.0)
+    packed = fm.pack_nerf(model.to(dev), cfg)
+    pose = torch.from_numpy(get_render_pose(12)[5])
+    frames = {}
+    for name, kw in (("gated", {}),
+                     ("ungated", dict(render_precull="off",
+                                      render_gate_fine="off")),
+                     ("dense", dict(render_cull="none"))):
+        render = make_frame_renderer(dataclasses.replace(cfg, **kw), H, W, K,
+                                     dev, stratified=False)
+        frames[name] = render(packed, pose)
+        if name == "gated":
+            st = render.stats[-1]
+            assert 0 < st["n_act"] < H * W
+            assert float(st["gate_frac_coarse"]) > 0
+            assert float(st["gate_frac_fine"]) > 0
+    for a, b in zip(frames["gated"], frames["ungated"]):
+        assert float((a - b).abs().max()) <= 1e-5
+    mse = float(torch.mean((frames["gated"][0] - frames["dense"][0]) ** 2))
+    assert -10 * np.log10(max(mse, 1e-20)) >= 40.0

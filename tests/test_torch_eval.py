@@ -83,7 +83,7 @@ def test_cli_overrides_and_device_knob():
 
 
 @pytest.mark.parametrize("knob", [("use_pallas", "false"),
-                                  ("render_cull", "auto")])
+                                  ("train_precull", "auto")])
 def test_unported_tpu_knobs_are_refused(knob, tmp_path):
     """A TPU knob of the JAX package fails loudly instead of being
     ignored, on the command line and in a config file."""
@@ -136,6 +136,18 @@ def test_synth_scene_matches_jax():
         np.testing.assert_allclose(x, y, rtol=1e-6, atol=1e-6)
 
 
+def test_synth_scene_camera_angle(tmp_path):
+    """A scene written at lego's field of view loads with lego's focal
+    length (the loader's own formula, within float32 rounding)."""
+    angle = 0.6911112070083618
+    save_as_blender_dataset(str(tmp_path), n_train=1, n_val=1, n_test=1,
+                            H=8, W=10, camera_angle_x=angle)
+    _, (K, _), (H, W), _ = load_blender(str(tmp_path), True, 0, 1)
+    assert (H, W) == (8, 10)
+    np.testing.assert_allclose(K[0, 0], 0.5 * 10 / np.tan(0.5 * angle),
+                               rtol=1e-6)
+
+
 def test_png_round_trip_matches_imageio(tmp_path):
     import imageio.v2 as imageio
     from nerf_pytorch_paeng_tpu_torch.utils.image import imread, imwrite
@@ -184,7 +196,7 @@ def test_eval_only_cli_end_to_end(synth_root, tmp_path):
     assert "test view 1:" in proc.stdout
 
 
-@pytest.mark.parametrize("flags", [["--render_only", "true"],
+@pytest.mark.parametrize("flags", [["--data_type", "custom"],
                                    ["--data_type", "llff"]])
 def test_unported_modes_exit_nonzero(flags, capsys):
     rc = main(["--config", str(ROOT / "configs/blender/lego.txt"),

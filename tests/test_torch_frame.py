@@ -34,7 +34,7 @@ from torch_port_util import np_nerf_params, to_jax
 H = W = 16
 KW = dict(netDepth=8, netWidth=256, L_x=10, L_d=4, N_samples_c=8,
           N_samples_f=8, near=2.0, far=6.0, perturb=0.0,
-          compute_dtype="float32")
+          compute_dtype="float32", render_cull="none")
 
 
 def _outliers(name, ours, ref, tol, cap):
@@ -57,7 +57,7 @@ def scene():
 @pytest.mark.parametrize("view", [0, 1])
 def test_dense_frame_matches_jax(scene, view):
     params, model, K, poses = scene
-    jcfg = JaxConfig(use_pallas=True, render_cull="none", **KW)
+    jcfg = JaxConfig(use_pallas=True, **KW)
     jrender = jax_mfr(JaxNeRF(compute_dtype=jnp.float32), jcfg, H, W, K,
                       stratified=False)
     jrgb, jdisp = jrender(to_jax(params), jnp.asarray(poses[view][:3, :4]),
@@ -146,5 +146,6 @@ def test_config_knobs_are_the_jax_packages():
     assert set(ours) - set(theirs) == {"device"}
     for k, v in ours.items():
         assert k == "device" or theirs[k] == v, k
-    for name in ("use_pallas", "render_cull", "sp_shards", "train_precull"):
+    for name in ("use_pallas", "use_rays_train", "sp_shards",
+                 "train_precull"):
         assert name in theirs and name not in ours, name
