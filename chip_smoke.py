@@ -18,7 +18,15 @@
    row) blocks on: gated blocks exactly 0, active blocks bit-equal to the
    ungated kernel and within the tolerance of the gated plain version,
    timed at that gate and at an all-on gate beside the bound of the
-   active work; the points kernel K7 on the 128^3 support grid.
+   active work; the points kernel K7 on the 128^3 support grid; the gated
+   training pair at the training batch (4096 rays; 64 and 192 samples)
+   under an all-on, a seeded half-on and an all-off gate: K5 with float32
+   outputs (gated blocks 0, active blocks bit-equal to K1, within the
+   tolerance of the gated plain version) and the gated backward K6 (all on
+   bit-equal to K2, half on within K2's tolerance of the gated plain
+   version and of K2 with the gated samples' cotangents zeroed, all off
+   zero, two launches bit-equal), each timed beside the active work's
+   bound.
 3. Eval phase: writes a synthetic 800x800 scene in the blender layout, at
    lego's field of view, and a seeded reference-format checkpoint, then
    runs the port's
@@ -28,10 +36,15 @@
 4. Training phase: the port's training entry (``driver.main_worker``) on
    configs/blender/lego.txt at full width (4096 rays, 64+128 samples,
    per-image sampling) on the same scene: every step must launch K1 and
-   K2 twice (once per pass), the losses must be finite and fall; step
-   times, one step under the profiler and the peak device memory.  Then
-   N steps, a checkpoint, a resume to 2N in a fresh ``main_worker``,
-   against 2N uninterrupted steps: the saved states must be bit-equal.
+   K2 twice (once per pass), the losses must be finite and fall; the
+   training pre-cull's policy (``train_precull auto``) measures the
+   random weights' support once (two K7 launches) and must keep them
+   ungated; step times, one step under the profiler and the peak device
+   memory.  Then N steps, a checkpoint, a resume to 2N in a fresh
+   ``main_worker``, against 2N uninterrupted steps: the saved states must
+   be bit-equal (with ``--train_precull off``: a gated run restarts the
+   refresh cadence at the resumed step, so its resume is not bit-exact,
+   as in the JAX package).
 5. Render phase: a checkpoint of the hand-built compact field
    (``utils/synth.compact_field_state_dict``, an L1 ball of radius 1.5),
    then the port's ``--render_only`` entry on configs/blender/lego.txt at
@@ -47,6 +60,20 @@
    small blocks under the sample-axis split) with the seeded random
    weights, every unit live: gated blocks 0, active blocks bit-equal to
    the ungated kernel and within the tolerance of the plain version.
+6. Gated training phase: the training entry resumes from a checkpoint of
+   the compact field (an L1 ball of radius 1.0) with a fresh Adam state and
+   trains 60 steps with ``--train_precull auto --train_precull_every 20``:
+   the first refresh must decide GATED, every gated step must launch K5
+   and K6 twice, the losses must be finite; the same 60 steps with
+   ``--train_precull off``, with ``--train_precull_tile 128`` and on the
+   radius-1.5 ball (whose predicted skipped share is near the policy's
+   floor; its decision is reported) for the step times; one gated step
+   under the profiler.  One step from the same state, gated against
+   ungated: the loss bit-equal, the updated weights within two learning
+   rates (Adam's first step moves a weight by about lr times the sign of
+   its gradient, and the sum order differs).  Last, K5 and K6 on the very
+   inputs of that gated step (rays, depths, cotangents, gates) with the
+   seeded random weights, against their plain versions.
 
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -91,6 +118,14 @@ SUPPORT_GRID = 128                # the support grid on the card (eval/frame.py)
 LEGO_CAMERA_ANGLE_X = 0.6911112070083618   # lego's transforms_*.json
 TRAIN_STEPS = 60
 RESUME_STEPS = 5
+GATED_START = 1000                # the compact field's checkpoint step
+GATED_EVERY = 20                  # --train_precull_every of the gated phase
+# the gated phase's compact field: an L1 ball of radius 1.0.  The render
+# phase's radius 1.5 fills most of a training view at lego's field of view,
+# so the policy predicts a skipped share below its 0.15 floor and declines
+# (0.133 on a 64^3 grid, CPU estimate); that run is kept as the policy's
+# fallback case.
+GATED_RADIUS = 1.0
 
 
 def log(*a):
@@ -354,6 +389,14 @@ def loss_like_cotangents(outs, seed: int, device):
     return cots
 
 
+def bwd_bytes(fm, od, z, gate=None) -> int:
+    """Bytes the backward must move: rays, depths, four cotangents (and the
+    gate) read once, the packed weights read once, the grads written."""
+    return ((od.numel() + 5 * z.numel()) * 4
+            + (0 if gate is None else gate.numel() * 4)
+            + fm.W_TOTAL * 2 + fm.B_TOTAL * 4 + (fm.W_TOTAL + fm.B_TOTAL) * 4)
+
+
 def train_kernel_phase(fm, fv, packed, cfg, device):
     """K1 (float32 outputs) and K2 at the training batch: 4096 rays, the
     coarse pass's 64 and the fine pass's 192 samples."""
@@ -386,9 +429,8 @@ def train_kernel_phase(fm, fv, packed, cfg, device):
             fm._with_views(p["w"].cpu(), p["b"].cpu()))
         (rel, limit, at), cos, max_abs = grad_errors(fm, got, want, other)
         flop = fm.bwd_flop_per_sample(cfg.L_x, cfg.L_d) * s * n
-        nbytes = (od.numel() + 5 * z.numel()) * 4 + p["w"].numel() * 2 \
-            + p["b"].numel() * 4 + (fm.W_TOTAL + fm.B_TOTAL) * 4
-        t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        t_ops = flop / PEAK_BF16_FLOPS * 1e3
+        t_bytes = bwd_bytes(fm, od, z) / PEAK_BYTES * 1e3
         log(f"kernel fused_mlp_eval_rays (float32 out): N={n} S={s} "
             f"max_abs={k1_abs:.3e} rel_l2={k1_rel:.3e} ms={k1_ms:.3f} "
             f"plain_ms={k1_plain_ms:.3f} bound_ms={k1_bound:.3f} "
@@ -416,6 +458,142 @@ def train_kernel_phase(fm, fv, packed, cfg, device):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None}
     return k2_row, shapes
+
+
+def k6_check(fm, fv, od, z, cots, p, gate, what: str):
+    """K6 at one gate against its plain version on the card, with the
+    plain version on the CPU as the floor (``grad_errors``); returns (the
+    kernel's grads, (rel, limit, name), cos, max abs, plain ms)."""
+    got = fv.fused_mlp_bwd_rays(od, z, *cots, p, gate=gate)
+    plain_ms, want = cuda_ms(
+        lambda: fv.fused_mlp_bwd_rays_plain(od, z, *cots, p, gate=gate),
+        reps=1, warmup=0)
+    other = fv.fused_mlp_bwd_rays_plain(
+        od.cpu(), z.cpu(), *(c.cpu() for c in cots),
+        fm._with_views(p["w"].cpu(), p["b"].cpu()), gate=gate.cpu())
+    (rel, limit, at), cos, max_abs = grad_errors(fm, got, want, other)
+    check(rel <= limit and cos >= GRAD_TOL["cos"],
+          f"K6 {what} disagrees with its plain version ({at}: {rel} > "
+          f"{limit} or cos {cos})")
+    return got, (rel, limit, at), cos, max_abs, plain_ms, other
+
+
+def gated_train_kernel_phase(fm, fv, packed, cfg, device):
+    """The gated training pair at the training batch (4096 rays; the coarse
+    pass's 64 and the fine pass's 192 samples), seeded random weights and
+    loss-like cotangents, under three gates: all on, a seeded half on, all
+    off.  K5 with float32 outputs, and K6."""
+    n, p = TRAIN_RAYS, packed["fine"]
+    rows, shapes = {}, []
+    for s in (cfg.N_samples_c, cfg.N_samples_c + cfg.N_samples_f):
+        od, z = seeded_rays(n, s, seed=4000 + s, device=device)
+        size = -(-n // 128) * (s // 8)
+        g = torch.Generator(device).manual_seed(5000 + s)
+        gates = {
+            "half": (torch.rand(size, generator=g, device=device) < 0.5)
+            .to(torch.int32),
+            "on": torch.ones(size, dtype=torch.int32, device=device),
+            "off": torch.zeros(size, dtype=torch.int32, device=device)}
+        on = fm.gate_mask(gates["half"], s, n)
+        share = float(on.float().mean())
+
+        # K5, float32 outputs
+        k5_ms, k5 = cuda_ms(
+            lambda: fm.fused_mlp_eval_rays(od, z, p, gate=gates["half"]),
+            reps=5)
+        k5_on_ms, _ = cuda_ms(
+            lambda: fm.fused_mlp_eval_rays(od, z, p, gate=gates["on"]), reps=3)
+        k1 = fm.fused_mlp_eval_rays(od, z, p)
+        k5_plain_ms, k5_plain = cuda_ms(
+            lambda: fm.fused_mlp_eval_rays_plain(od, z, p, gate=gates["half"]),
+            reps=1)
+        for got, ung in zip(k5, k1):
+            check(not bool(got[~on].any()),
+                  f"K5 float32 at ({n}, {s}): a gated block is not 0")
+            check(torch.equal(got[on], ung[on]), f"K5 float32 at ({n}, {s}): "
+                  "active blocks differ from K1")
+        k5_abs, k5_rel = errors([o[on] for o in k5], [o[on] for o in k5_plain])
+        check(k5_abs <= KERNEL_TOL["max_abs"] and k5_rel <= KERNEL_TOL["rel_l2"],
+              f"K5 float32 at ({n}, {s}) disagrees with its plain version")
+        k5_bytes = ((od.numel() + z.numel() + size) * 4 + p["w"].numel() * 2
+                    + p["b"].numel() * 4 + 4 * s * n * 4)
+        k5_b, k5_by = bound(gated_flop(gates["half"], n, s,
+                                       fm.eval_flop_per_sample(cfg.L_x),
+                                       fm.eval_flop_per_ray(cfg.L_d)), k5_bytes)
+        k5_b_on, _ = bound(gated_flop(gates["on"], n, s,
+                                      fm.eval_flop_per_sample(cfg.L_x),
+                                      fm.eval_flop_per_ray(cfg.L_d)), k5_bytes)
+
+        # K6
+        cots = loss_like_cotangents(k1, seed=6000 + s, device=device)
+        k2 = fv.fused_mlp_bwd_rays(od, z, *cots, p)
+        times, grads = {}, {}
+        for kind in ("half", "on", "off"):
+            times[kind], grads[kind] = cuda_ms(
+                lambda: fv.fused_mlp_bwd_rays(od, z, *cots, p,
+                                              gate=gates[kind]), reps=3)
+        again = fv.fused_mlp_bwd_rays(od, z, *cots, p, gate=gates["half"])
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(grads["on"], k2)),
+              f"K6 at ({n}, {s}): an all-on gate does not give K2's bits")
+        check(all(torch.equal(a, b) for a, b in zip(grads["half"], again)),
+              f"K6 at ({n}, {s}): two launches differ")
+        check(not any(bool(t.any()) for t in grads["off"]),
+              f"K6 at ({n}, {s}): an all-off gate gives nonzero gradients")
+        _, (rel, limit, at), cos, max_abs, plain_ms, other = k6_check(
+            fm, fv, od, z, cots, p, gates["half"], f"at ({n}, {s}), half on")
+        zeroed = fv.fused_mlp_bwd_rays(
+            od, z, *(c.masked_fill(~on, 0.0) for c in cots), p)
+        (zrel, zlimit, zat), zcos, _ = grad_errors(fm, grads["half"], zeroed,
+                                                   other)
+        check(zrel <= zlimit and zcos >= GRAD_TOL["cos"],
+              f"K6 at ({n}, {s}) differs from K2 with the gated cotangents "
+              f"zeroed ({zat}: {zrel} > {zlimit} or cos {zcos})")
+        per = fm.bwd_flop_per_sample(cfg.L_x, cfg.L_d)
+        b_half, b_by = bound(per * int(on.sum()), bwd_bytes(fm, od, z,
+                                                           gates["half"]))
+        b_on, _ = bound(per * s * n, bwd_bytes(fm, od, z, gates["on"]))
+        log(f"kernel fused_mlp_eval_rays gated (float32 out): N={n} S={s} "
+            f"gate on {share:.3f}: gated blocks 0, active blocks bit-equal "
+            f"to K1, vs plain max_abs={k5_abs:.3e} rel_l2={k5_rel:.3e}; "
+            f"ms={k5_ms:.3f} plain_ms={k5_plain_ms:.3f} bound_ms={k5_b:.3f}; "
+            f"all on ms={k5_on_ms:.3f} bound_ms={k5_b_on:.3f}")
+        log(f"kernel fused_mlp_bwd_rays gated: N={n} S={s} gate on "
+            f"{share:.3f}: all on bit-equal to K2, two launches bit-equal, "
+            f"all off zero; half vs plain worst rel_l2={rel:.3e} against "
+            f"{limit:.3e} ({at}) min cos={cos:.6f} max_abs={max_abs:.3e}; "
+            f"vs K2 with zeroed cotangents rel_l2={zrel:.3e} against "
+            f"{zlimit:.3e} ({zat}) cos={zcos:.6f}; ms half {times['half']:.3f}"
+            f" (bound {b_half:.3f}, plain {plain_ms:.3f}), all on "
+            f"{times['on']:.3f} (bound {b_on:.3f}), all off "
+            f"{times['off']:.3f}")
+        shapes.append(dict(N=n, S=s, gate_on_share=share, k5_ms=k5_ms,
+                           k5_all_on_ms=k5_on_ms, k5_plain_ms=k5_plain_ms,
+                           k5_bound_ms=k5_b, k5_all_on_bound_ms=k5_b_on,
+                           k5_max_abs=k5_abs, k6_ms=times["half"],
+                           k6_all_on_ms=times["on"],
+                           k6_all_off_ms=times["off"], k6_plain_ms=plain_ms,
+                           k6_bound_ms=b_half, k6_all_on_bound_ms=b_on,
+                           k6_rel_l2=rel, k6_rel_l2_limit=limit, k6_cos=cos,
+                           k6_max_abs=max_abs, k6_vs_zeroed_k2_rel_l2=zrel))
+        rows["fused_mlp_eval_rays_gated_f32"] = {
+            "name": "fused_mlp_eval_rays_gated_f32", "route": "cuda",
+            "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp.cu",
+            "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp.py:453",
+            "launches": None, "max_abs_err": k5_abs, "ms": k5_ms,
+            "plain_ms": k5_plain_ms, "bound_ms": k5_b, "bound_by": k5_by,
+            "library_ms": None, "gate_on_share": share,
+            "all_on_ms": k5_on_ms, "all_on_bound_ms": k5_b_on}
+        rows["fused_mlp_bwd_rays_gated"] = {
+            "name": "fused_mlp_bwd_rays_gated", "route": "cuda",
+            "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp_vjp.cu",
+            "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp_vjp.py:277",
+            "launches": None, "max_abs_err": max_abs, "ms": times["half"],
+            "plain_ms": plain_ms, "bound_ms": b_half, "bound_by": b_by,
+            "library_ms": None, "gate_on_share": share,
+            "all_on_ms": times["on"], "all_on_bound_ms": b_on,
+            "all_off_ms": times["off"]}
+    return rows, shapes
 
 
 def psnr(a, b) -> float:
@@ -458,7 +636,9 @@ def profile_call(fn, what: str, device) -> dict:
 
 def launch_counters() -> dict:
     """Every kernel's launch counter, by kernel name: (wrapper, attribute).
-    The rays wrappers count their gated launches (K4, K5) apart."""
+    The rays wrappers count their gated launches (K4, K5, K6) apart; K5's
+    two rows (bf16 outputs on the render path, float32 on the gated
+    training path) share its counter and are read on their own paths."""
     from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp as fm
     from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp_vjp as fv
     return {"fused_mlp_sigma_rays": (fm.fused_mlp_sigma_rays, "launches"),
@@ -468,6 +648,10 @@ def launch_counters() -> dict:
                                            "gated_launches"),
             "fused_mlp_eval_rays_gated": (fm.fused_mlp_eval_rays,
                                           "gated_launches"),
+            "fused_mlp_eval_rays_gated_f32": (fm.fused_mlp_eval_rays,
+                                              "gated_launches"),
+            "fused_mlp_bwd_rays_gated": (fv.fused_mlp_bwd_rays,
+                                         "gated_launches"),
             "fused_mlp_sigma": (fm.fused_mlp_sigma, "launches")}
 
 
@@ -601,6 +785,16 @@ def train_phase(work: str, data_root: str, device):
     for name in ("fused_mlp_eval_rays", "fused_mlp_bwd_rays"):
         check(launches[name] == 2 * TRAIN_STEPS,
               f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps")
+    # the pre-cull policy measured the random weights' support once (one
+    # refresh in 60 steps at the default cadence) and kept them ungated
+    policy = policy_rows(cfg)
+    check(launches["fused_mlp_sigma"] == 2 and len(policy) == 1
+          and policy[0][3] == "0", f"random weights: support grids "
+          f"{launches['fused_mlp_sigma']}, policy rows {policy}")
+    check(all(g is None for g in res["gate_frac"]),
+          "random weights trained gated")
+    log(f"train: pre-cull policy rows (iter,bounds_valid,gate_frac_pred,"
+        f"gated) {policy}")
     losses = res["loss"]
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           "non-finite training losses")
@@ -626,11 +820,21 @@ def train_phase(work: str, data_root: str, device):
     pose = torch.as_tensor(ext[i0][:3, :4], device=device)
     step(state, img, pose)                     # warm-up
     prof = profile_call(lambda: step(state, img, pose), "train step", device)
-    return launches, dict(losses=losses, step_ms=step_ms,
+    return launches, dict(losses=losses, step_ms=step_ms, policy=policy,
                           median_step_ms=steady,
                           steps_per_s=1e3 / steady,
                           rays_per_s=TRAIN_RAYS * 1e3 / steady,
                           wall_s=wall, peak_gb=peak_gb, profile=prof)
+
+
+def policy_rows(cfg) -> list:
+    """The pre-cull policy's CSV rows (iter, bounds_valid, gate_frac_pred,
+    gated), as lists of strings."""
+    path = os.path.join(cfg.logdir, cfg.exp_name, "precull_policy.csv")
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == "iter,bounds_valid,gate_frac_pred,gated", lines[0])
+    return [line.split(",") for line in lines[1:]]
 
 
 def resume_phase(work: str, data_root: str, device) -> dict:
@@ -643,7 +847,8 @@ def resume_phase(work: str, data_root: str, device) -> dict:
 
     def run(exp, *extra):
         cfg = load_config(train_args(work, data_root, exp, 2 * n,
-                                     "--idx_print", "0", *extra))
+                                     "--idx_print", "0", "--train_precull",
+                                     "off", *extra))
         driver.main_worker(cfg)
         return cfg
 
@@ -875,6 +1080,250 @@ def render_phase(fm, packed_rand, work: str, data_root: str, device):
         kernels_vs_plain_psnr=p_plain, profile=prof), path
 
 
+def compact_checkpoint(cfg, step: int, device, r: float) -> None:
+    """A reference-format checkpoint of the compact field (an L1 ball of
+    radius ``r``, valid support bounds) with a fresh Adam state at
+    ``step``."""
+    from nerf_pytorch_paeng_tpu_torch.models.nerf import NeRF
+    from nerf_pytorch_paeng_tpu_torch.train import TrainState, make_optimizer
+    from nerf_pytorch_paeng_tpu_torch.train.checkpoint import save_checkpoint
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import \
+        compact_field_state_dict
+    model = NeRF()
+    model.load_state_dict(compact_field_state_dict(r=r, k=20.0))
+    model.to(device)
+    save_checkpoint(cfg.logdir, cfg.exp_name,
+                    TrainState(model, make_optimizer(model, cfg), step))
+
+
+def gated_run(work, data_root, device, label: str, *extra,
+              r: float = GATED_RADIUS) -> dict:
+    """``main_worker`` from the compact field's checkpoint for TRAIN_STEPS
+    steps with the pre-cull knobs ``extra``; its launches, per-step times,
+    gate fractions and policy rows."""
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    cfg = load_config(train_args(
+        work, data_root, f"smoke_{label}", GATED_START + TRAIN_STEPS,
+        "--iter_start", str(GATED_START), "--idx_print", "20",
+        "--idx_save", "0", "--train_precull_every", str(GATED_EVERY),
+        *extra))
+    compact_checkpoint(cfg, GATED_START, device, r)
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = driver.main_worker(cfg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    losses = res["loss"]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"{label}: non-finite losses")
+    step_ms = [t * 1e3 for t in res["step_s"]]
+    gated = [g is not None for g in res["gate_frac"]]
+    ms_gated = [t for t, g in zip(step_ms[5:], gated[5:]) if g]
+    ms_ungated = [t for t, g in zip(step_ms[5:], gated[5:]) if not g]
+    gfs = [g for g in res["gate_frac"] if g is not None]
+    out = dict(cfg=cfg, launches=launches, loss_first=losses[0],
+               loss_last=losses[-1], gated_steps=sum(gated),
+               gate_frac_min=min(gfs, default=None),
+               gate_frac_max=max(gfs, default=None),
+               median_step_ms=statistics.median(step_ms[5:]),
+               median_gated_step_ms=(statistics.median(ms_gated)
+                                     if ms_gated else None),
+               median_ungated_step_ms=(statistics.median(ms_ungated)
+                                       if ms_ungated else None),
+               wall_s=wall,
+               peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    if os.path.isfile(os.path.join(cfg.logdir, cfg.exp_name,
+                                   "precull_policy.csv")):
+        out["policy"] = policy_rows(cfg)
+    log(f"gated train [{label}]: launches {launches}; gated steps "
+        f"{sum(gated)} of {TRAIN_STEPS}; gate_frac "
+        f"{['%.4f' % g for g in gfs[::10]]} (every 10th gated step); "
+        f"policy rows {out.get('policy')}; step device ms median of 6.. "
+        f"{out['median_step_ms']:.2f} (gated {out['median_gated_step_ms']}, "
+        f"ungated {out['median_ungated_step_ms']}); loss first "
+        f"{losses[0]:.5f} last {losses[-1]:.5f}; wall {wall:.1f} s; peak "
+        f"{out['peak_gb']:.2f} GB")
+    return out
+
+
+def record_pair(fv, calls: list):
+    """Wrap ``fused_mlp_train_rays`` (which the gated passes import at call
+    time) to keep each call's rays, depths and gate in ``calls``, and, from
+    hooks on its four outputs, the cotangents its backward receives;
+    returns the function that undoes it."""
+    pair = fv.fused_mlp_train_rays
+
+    def rec(w, b, od, z_t, *a, gate=None, **kw):
+        outs = pair(w, b, od, z_t, *a, gate=gate, **kw)
+        entry = dict(od=od, z=z_t, gate=gate, cots=[None] * 4)
+        calls.append(entry)
+        for i, t in enumerate(outs):
+            t.register_hook(lambda g, i=i, e=entry: e["cots"].__setitem__(
+                i, g.detach().float().contiguous()))
+        return outs
+
+    fv.fused_mlp_train_rays = rec
+
+    def undo():
+        fv.fused_mlp_train_rays = pair
+    return undo
+
+
+def gated_path_kernels(fm, fv, calls, packed) -> dict:
+    """K5 (float32 outputs) and K6 on the inputs one gated training step
+    gave them (both passes), with the seeded random weights: K5's gated
+    blocks 0, active blocks bit-equal to K1 and within ``KERNEL_TOL`` of
+    the plain version; K6 within K2's tolerance of its plain version.  The
+    step's cotangents are the compact field's: with the random weights
+    they are data of the same shapes and gates."""
+    out = {"fused_mlp_eval_rays_gated_f32": [], "fused_mlp_bwd_rays_gated": []}
+    check(len(calls) == 2, f"{len(calls)} gated passes recorded, not 2")
+    p = packed["fine"]
+    for c in calls:
+        od, z, gate, cots = c["od"], c["z"], c["gate"], c["cots"]
+        check(gate is not None and all(t is not None for t in cots),
+              "a pass of the gated step ran ungated or lost a cotangent")
+        s, n = z.shape
+        on = fm.gate_mask(gate, s, n)
+        share = float(on.float().mean())
+        got = fm.fused_mlp_eval_rays(od, z, p, gate=gate)
+        ung = fm.fused_mlp_eval_rays(od, z, p)
+        want = fm.fused_mlp_eval_rays_plain(od, z, p, gate=gate)
+        for g, u in zip(got, ung):
+            check(not bool(g[~on].any()) and torch.equal(g[on], u[on]),
+                  f"path K5 float32 at ({n}, {s}): gated blocks or active "
+                  "blocks wrong")
+        max_abs, rel_l2 = errors([g[on] for g in got], [w[on] for w in want])
+        check(max_abs <= KERNEL_TOL["max_abs"]
+              and rel_l2 <= KERNEL_TOL["rel_l2"],
+              f"path K5 float32 at ({n}, {s}) disagrees with plain")
+        out["fused_mlp_eval_rays_gated_f32"].append(
+            dict(N=n, S=s, gate_on_share=share, max_abs=max_abs,
+                 rel_l2=rel_l2))
+        log(f"path kernel fused_mlp_eval_rays gated (float32 out): N={n} "
+            f"S={s} gate on {share:.3f}: gated blocks 0, active blocks "
+            f"bit-equal to K1, vs plain max_abs={max_abs:.3e} "
+            f"rel_l2={rel_l2:.3e}")
+        _, (rel, limit, at), cos, max_abs, _, _ = k6_check(
+            fm, fv, od, z, cots, p, gate, f"path at ({n}, {s})")
+        out["fused_mlp_bwd_rays_gated"].append(
+            dict(N=n, S=s, gate_on_share=share, rel_l2=rel, limit=limit,
+                 worst=at, cos=cos, max_abs=max_abs))
+        log(f"path kernel fused_mlp_bwd_rays gated: N={n} S={s} gate on "
+            f"{share:.3f}: vs plain worst rel_l2={rel:.3e} against "
+            f"{limit:.3e} ({at}) min cos={cos:.6f} max_abs={max_abs:.3e}")
+    return out
+
+
+def gated_train_phase(fm, fv, packed_rand, work: str, data_root: str,
+                      device):
+    """Gated training from the compact field's checkpoint: the gated run
+    (the main path of K5 float32 and K6), the same steps ungated and with
+    128-ray gate tiles, a profiled gated step, the one-step A/B and the
+    kernels on the step's own inputs."""
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.train import create_train_state
+    from nerf_pytorch_paeng_tpu_torch.train.checkpoint import \
+        restore_checkpoint
+    from nerf_pytorch_paeng_tpu_torch.train.precull import \
+        make_train_support_program
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_image_train_step
+
+    runs = {"gated": gated_run(work, data_root, device, "gated",
+                               "--train_precull", "auto")}
+    g = runs["gated"]
+    launches, policy, n_gated = g["launches"], g["policy"], g["gated_steps"]
+    n_refresh = len(policy)
+    check(policy[0][3] == "1", f"the first refresh did not gate: {policy}")
+    check(n_gated >= GATED_EVERY, f"only {n_gated} gated steps")
+    for name in ("fused_mlp_eval_rays_gated_f32", "fused_mlp_bwd_rays_gated"):
+        check(launches[name] == 2 * n_gated,
+              f"{name}: {launches[name]} launches in {n_gated} gated steps")
+    for name in ("fused_mlp_eval_rays", "fused_mlp_bwd_rays"):
+        check(launches[name] == 2 * (TRAIN_STEPS - n_gated),
+              f"{name}: {launches[name]} launches in "
+              f"{TRAIN_STEPS - n_gated} ungated steps")
+    check(launches["fused_mlp_sigma"] == 2 * n_refresh,
+          f"K7: {launches['fused_mlp_sigma']} launches in {n_refresh} "
+          "refreshes")
+    runs["ungated"] = gated_run(work, data_root, device, "ungated",
+                                "--train_precull", "off")
+    check(runs["ungated"]["gated_steps"] == 0, "--train_precull off gated")
+    runs["tile128"] = gated_run(work, data_root, device, "tile128",
+                                "--train_precull", "auto",
+                                "--train_precull_tile", "128")
+    check(runs["tile128"]["gated_steps"] >= GATED_EVERY,
+          "--train_precull_tile 128 did not gate")
+    # the render phase's wider ball: the policy's own decision, reported
+    runs["r1.5"] = gated_run(work, data_root, device, "r15",
+                             "--train_precull", "auto", r=1.5)
+
+    # one step from the compact field's state, gated and ungated, same
+    # image, pose and draws; the gated one's kernel inputs recorded
+    cfg = g["cfg"]
+    images, (K, ext), (H, W), i_split = load_blender(
+        data_root, cfg.bkg_white, cfg.downsample, cfg.testskip)
+    i_train = i_split[0]
+    prog, _ = make_train_support_program(
+        cfg, poses=np.asarray(ext)[i_train, :3, :4], K=K, hw=(H, W),
+        device=device)
+    step = make_image_train_step(cfg, schedule_from_cfg(cfg), H, W, K)
+    i0 = int(i_train[0])
+    img = torch.as_tensor(images[i0], device=device)
+    pose = torch.as_tensor(ext[i0][:3, :4], device=device)
+
+    def state():
+        st = create_train_state(cfg, device)
+        return restore_checkpoint(cfg.logdir, cfg.exp_name, GATED_START, st)
+
+    st_u, st_g = state(), state()
+    w0 = {k: v.clone() for k, v in st_g.model.state_dict().items()}
+    support = prog(st_g.model)
+    check(bool(support[0][3][0]) and bool(support[1][3][0]),
+          "the compact field's bounds are invalid")
+    m_u = step(st_u, img, pose)
+    calls = []
+    undo = record_pair(fv, calls)
+    try:
+        m_g = step(st_g, img, pose, support=support)
+    finally:
+        undo()
+    torch.cuda.synchronize(device)
+    lr = float(st_g.optimizer.param_groups[0]["lr"])
+    check(torch.equal(m_u["loss"], m_g["loss"]),
+          f"gated loss {float(m_g['loss'])!r} != ungated "
+          f"{float(m_u['loss'])!r}")
+    du = torch.cat([(v - w0[k]).flatten()
+                    for k, v in st_u.model.state_dict().items()])
+    dg = torch.cat([(v - w0[k]).flatten()
+                    for k, v in st_g.model.state_dict().items()])
+    ab_max = float((du - dg).abs().max())
+    ab_rel = float((du - dg).norm() / du.norm())
+    log(f"gated train A/B, one step from the same state: loss "
+        f"{float(m_u['loss'])!r} both (bit-equal), gate_frac "
+        f"{float(m_g['gate_frac']):.4f}; updates differ by max abs "
+        f"{ab_max:.3e} (limit 2 lr = {2 * lr:.3e}), rel L2 {ab_rel:.3e}")
+    check(ab_max <= 2 * lr * (1 + 1e-3), "gated vs ungated updates")
+    path = gated_path_kernels(fm, fv, calls, packed_rand)
+    del calls
+
+    # one gated step under the profiler (after a warm-up)
+    st = state()
+    step(st, img, pose, support=support)
+    prof = profile_call(lambda: step(st, img, pose, support=support),
+                        "gated train step", device)
+    summary = {k: {kk: vv for kk, vv in r.items() if kk != "cfg"}
+               for k, r in runs.items()}
+    return launches, dict(runs=summary, ab=dict(
+        loss=float(m_u["loss"]), gate_frac=float(m_g["gate_frac"]),
+        update_max_abs=ab_max, update_rel_l2=ab_rel, lr=lr),
+        profile=prof, path=path)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -910,6 +1359,9 @@ def main() -> int:
     rows = kernel_phase(fm, packed, cfg, device)
     rows["fused_mlp_bwd_rays"], train_shapes = train_kernel_phase(
         fm, fv, packed, cfg, device)
+    gated_rows, gated_shapes = gated_train_kernel_phase(fm, fv, packed, cfg,
+                                                        device)
+    rows.update(gated_rows)
     rows.update(gated_kernel_phase(fm, packed, cfg, device))
     rows["fused_mlp_sigma"] = points_kernel_phase(fm, packed, cfg, device)
 
@@ -927,24 +1379,40 @@ def main() -> int:
             fm, packed, work, data_root, device)
         train_launches, train_stats = train_phase(work, data_root, device)
         resume = resume_phase(work, data_root, device)
+        gated_launches, gated_stats = gated_train_phase(
+            fm, fv, packed, work, data_root, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each path's own run, counters at 0 before it: K3 and K1 on the eval
-    # path, K7, K4 and K5 on the render path, K1 and K2 on the training path
+    # path, K7, K4 and K5 (bf16 outputs) on the render path, K1, K2 and K7
+    # on the training path, K5 (float32 outputs), K6 and K7 on the gated
+    # training path.  K5's two rows share a counter: each reads its path.
+    paths = {"eval": eval_launches, "render": render_launches,
+             "train": train_launches, "gated_train": gated_launches}
+    only = {"fused_mlp_eval_rays_gated": ("render",),
+            "fused_mlp_eval_rays_gated_f32": ("gated_train",)}
     for name, row in rows.items():
-        row["launches"] = (eval_launches[name] + render_launches[name]
-                           + train_launches[name])
+        row["launches"] = sum(paths[p][name] for p in only.get(name, paths))
         check(row["launches"] > 0, f"{name} never launched on a main path")
     # K4 and K5: the worst of the kernel phase and the render path's inputs
     for name, (max_abs, shapes) in path.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
         rows[name]["path_shapes"] = shapes
+    # K5 (float32) and K6: the same with the gated training step's inputs
+    for name, recs in gated_stats["path"].items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        *(r["max_abs"] for r in recs))
+        rows[name]["path_shapes"] = [(r["N"], r["S"], r["gate_on_share"])
+                                     for r in recs]
 
     log(json.dumps({"slice": stats}))
     log(json.dumps({"render": {**render_stats, "launches": render_launches}}))
     log(json.dumps({"train": {**train_stats, "launches": train_launches,
                               "kernel_shapes": train_shapes,
                               "resume": resume}}))
+    log(json.dumps({"gated_train": {**gated_stats,
+                                    "launches": gated_launches,
+                                    "kernel_shapes": gated_shapes}}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,13 @@ the same dialect (inline ``#`` comments, bare action flags such as
 ``bkg_white_true``, bracketed lists) and every option under the same name,
 so one config file drives both packages.  Of the JAX package's additions it
 keeps those the ported slices read (``seed``, ``eval_only``, ``render_only``,
-``compute_dtype``, ``log_dir``, ``lpips_weights`` and the seven knobs of
-the culled frame renderer, ``render_cull`` ... ``render_gate_fine``) and
-adds one knob, ``device``.  The JAX package's other TPU knobs
-(``use_pallas``, sharding, training pre-cull, ...) are not fields here: a
-config file or command line that sets one fails instead of being ignored.
+``compute_dtype``, ``log_dir``, ``lpips_weights``, the seven knobs of
+the culled frame renderer, ``render_cull`` ... ``render_gate_fine``, and
+the five of occupancy-gated training, ``train_precull`` ...
+``train_precull_backoff_max``) and adds one knob, ``device``.  The JAX
+package's other TPU knobs (``use_pallas``, sharding, ``scan_chunk``, ...)
+are not fields here: a config file or command line that sets one fails
+instead of being ignored.
 """
 from __future__ import annotations
 
@@ -121,6 +123,18 @@ class NerfConfig:
     # fine-pass row gating by the fine module's own support bounds (K5)
     render_gate_fine: str = "auto"
 
+    # ====== Occupancy-gated training (train/precull.py; the JAX package's
+    # config.py documents each).  "auto" gates where the policy says it
+    # pays; the support bounds are refreshed every train_precull_every
+    # steps; tile 0 = auto (512 at 4096 rays); below min_gate predicted
+    # skipped share the step runs ungated; declined refreshes back off up
+    # to every * backoff_max.
+    train_precull: str = "auto"
+    train_precull_every: int = 256
+    train_precull_tile: int = 0
+    train_precull_min_gate: float = 0.15
+    train_precull_backoff_max: int = 8
+
     # ====== Port only: where tensors live ("cuda", "cuda:N" or "cpu")
     device: str = "cuda"
 
@@ -144,6 +158,9 @@ class NerfConfig:
             ("render_precull", str(self.render_precull).lower() in tri_state),
             ("render_gate_fine",
              str(self.render_gate_fine).lower() in tri_state),
+            ("train_precull", str(self.train_precull).lower() in tri_state),
+            ("train_precull_tile", self.train_precull_tile >= 0
+             and self.train_precull_tile % 128 == 0),
         )
         for name, ok in checks:
             if not ok:

@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``driver.main_worker`` on blender data:
 the coarse+fine model, Adam under the warmup-cosine schedule, global ray
 batching or per-image sampling, resume (``iter_start``, ``-1`` for the
 latest checkpoint) and the loop with the ``idx_print``, ``idx_vis``,
-``idx_save``, ``idx_test`` and ``idx_render`` hooks.  Checkpoints are the
+``idx_save``, ``idx_test`` and ``idx_render`` hooks, and occupancy-gated
+training (``train_precull``) with its refresh policy.  Checkpoints are the
 reference format, ``logs/<exp>/<exp>_<step>.pth.tar``
 (``train/checkpoint.py``).  With ``eval_only`` and/or ``render_only`` it
 restores the weights saved at ``testing_idx``, packs them once for the
@@ -19,6 +20,7 @@ custom loaders.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import sys
 import time
@@ -33,8 +35,12 @@ from .eval.render import run_render
 from .eval.test import run_test
 from .kernels.fused_mlp import pack_nerf
 from .models.nerf import NeRF
+from .ops.rays import get_rays
 from .train import RayPool, build_ray_pool, create_train_state
 from .train import checkpoint as ckpt
+from .train.precull import (make_gate_frac_estimator,
+                            make_train_support_program, train_precull_enabled,
+                            train_precull_mode)
 from .train.schedule import schedule_from_cfg
 from .train.step import make_image_train_step, make_train_step
 from .utils.device import resolve_device
@@ -80,10 +86,80 @@ class _StepClock:
                 for a, b in zip(self.marks, self.marks[1:])]
 
 
+class _SupportPolicy:
+    """The refresh of occupancy-gated training: support bounds of both
+    modules from the live weights, the predicted skipped share on a fixed
+    probe batch, and the decision whether the next steps run gated.
+
+    The probe batch is drawn once with ``np.random.default_rng(seed + 7)``
+    exactly as the JAX package's driver draws it (up to 4 training views,
+    then pixels of each), so both predict the same ``gate_frac``.  Each
+    refresh makes one host read (both validity flags and the prediction),
+    appends ``iter,bounds_valid,gate_frac_pred,gated`` to
+    ``logs/<exp>/precull_policy.csv`` (truncated on a fresh run, appended
+    on a resume) and prints the decision when it changes."""
+
+    def __init__(self, cfg, K, extrinsics, hw, i_train, device):
+        H, W = hw
+        self.cfg = cfg
+        self.prog, _ = make_train_support_program(
+            cfg, poses=np.asarray(extrinsics)[i_train, :3, :4],
+            K=np.asarray(K), hw=(H, W), device=device)
+        self.est = make_gate_frac_estimator(cfg)
+        n_est = cfg.N_rays
+        rng = np.random.default_rng(cfg.seed + 7)
+        sel = rng.choice(i_train, size=min(4, len(i_train)), replace=False)
+        eo, ed = [], []
+        for p in sel:
+            ro, rd = get_rays(H, W, K, torch.as_tensor(
+                np.asarray(extrinsics[p])[:3, :4], dtype=torch.float32))
+            pix = rng.choice(H * W, size=-(-n_est // len(sel)), replace=False)
+            eo.append(ro.reshape(-1, 3).numpy()[pix])
+            ed.append(rd.reshape(-1, 3).numpy()[pix])
+        self.rays_o = torch.as_tensor(np.concatenate(eo)[:n_est], device=device)
+        self.rays_d = torch.as_tensor(np.concatenate(ed)[:n_est], device=device)
+        self.gated = None           # the first refresh always prints
+        self.path = os.path.join(cfg.logdir, cfg.exp_name,
+                                 "precull_policy.csv")
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        if cfg.iter_start == 0 or not os.path.isfile(self.path):
+            with open(self.path, "w") as f:
+                f.write("iter,bounds_valid,gate_frac_pred,gated\n")
+
+    def refresh(self, model, it: int):
+        """The bounds to gate with from step ``it`` on, or None (ungated):
+        None while the bounds are invalid or the predicted skipped share
+        cannot repay the sort and the smaller tiles."""
+        bc, bf = self.prog(model)
+        gf = self.est(bc, bf, self.rays_o, self.rays_d)
+        vc, vf, gfh = torch.stack([bc[3][0].float(), bf[3][0].float(),
+                                   gf.float()]).tolist()   # one host read
+        valid = bool(vc) and bool(vf)
+        on = valid and gfh >= self.cfg.train_precull_min_gate
+        with open(self.path, "a") as f:
+            f.write(f"{it},{int(valid)},{gfh:.4f},{int(on)}\n")
+        if on != self.gated:
+            self.gated = on
+            why = f"predicted gate_frac {gfh:.3f}" if valid \
+                else "bounds invalid"
+            print(f">> train_precull -> {'GATED' if on else 'ungated'} "
+                  f"({why}) @ iter {it}")
+        return (bc, bf) if on else None
+
+
 def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
           device: torch.device) -> dict:
     """Steps ``iter_start + 1 .. iter_N``; returns the final step, every
-    step's loss and time (``step_s``, see ``_StepClock``)."""
+    step's loss, time (``step_s``, see ``_StepClock``) and skipped block
+    share (``gate_frac``, None where the step ran ungated).
+
+    Occupancy-gated training (``train_precull``): the support bounds are
+    refreshed before step ``iter_start + 1`` and then every
+    ``train_precull_every`` steps, the interval doubling (up to
+    ``train_precull_backoff_max`` times) while the policy declines.  A
+    resumed run restarts that cadence at its first step, so a gated run's
+    resume is not bit-exact with the uninterrupted run (as in the JAX
+    package)."""
     i_train, _, i_test = i_split
     H, W = hw
     state = create_train_state(cfg, device)
@@ -116,6 +192,16 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
             device=device)
         step_fn = make_image_train_step(cfg, schedule, H, W, K)
 
+    policy = None
+    if train_precull_enabled(cfg):
+        policy = _SupportPolicy(cfg, K, extrinsics, hw, i_train, device)
+        print(f">> train_precull on (refresh every "
+              f"{cfg.train_precull_every} iters)")
+    elif train_precull_mode(cfg) == "on":
+        print(">> train_precull requested but inapplicable here (needs "
+              "blender data, the ray-major kernel shapes and a usable "
+              "support grid) — running ungated")
+
     logger = MetricLogger(cfg.logdir, cfg.exp_name,
                           fresh=(cfg.iter_start == 0))
     rng = np.random.default_rng(cfg.seed + 2)
@@ -128,17 +214,29 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
 
     first = cfg.iter_start + 1
     losses = torch.empty(max(cfg.iter_N - cfg.iter_start, 0), device=device)
+    gate_fracs = torch.full_like(losses, float("nan"))   # nan: ungated
+    support, next_refresh, backoff = None, first, 1
     clock = _StepClock(device)
     clock.mark()
     for i in range(first, cfg.iter_N + 1):
+        if policy is not None and i >= next_refresh:
+            support = policy.refresh(state.model, i)
+            # declined refreshes stretch the interval (no bounds are in use
+            # while ungated, so staleness costs nothing); engaging resets it
+            backoff = 1 if support is not None else min(
+                backoff * 2, max(int(cfg.train_precull_backoff_max), 1))
+            next_refresh = i + max(int(cfg.train_precull_every), 1) * backoff
         if cfg.global_batch:
-            metrics = step_fn(state, *ray_pool.next_batch(cfg.N_rays))
+            metrics = step_fn(state, *ray_pool.next_batch(cfg.N_rays),
+                              support=support)
         else:
             k = slot[int(rng.choice(i_train))]
             metrics = step_fn(state, train_imgs[k], train_poses[k],
-                              precrop=i < cfg.precrop_iters)
+                              precrop=i < cfg.precrop_iters, support=support)
         clock.mark()
         losses[i - first] = metrics["loss"]     # on the device, no sync
+        if "gate_frac" in metrics:
+            gate_fracs[i - first] = metrics["gate_frac"]
         show = bool(cfg.idx_print and i % cfg.idx_print == 0)
         if show or (cfg.idx_vis and i % cfg.idx_vis == 0):
             # update i ran with schedule(i - 1)
@@ -155,7 +253,9 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
                        cfg, device)
     logger.close()
     print(">> training done")
-    return dict(step=state.step, loss=losses.tolist(), step_s=clock.seconds())
+    return dict(step=state.step, loss=losses.tolist(), step_s=clock.seconds(),
+                gate_frac=[None if math.isnan(g) else g
+                           for g in gate_fracs.tolist()])
 
 
 def main_worker(cfg: NerfConfig) -> dict:

@@ -67,12 +67,11 @@ import torch
 
 from ..kernels.fused_mlp import (fused_mlp_eval_rays, fused_mlp_sigma,
                                  fused_mlp_sigma_rays)
-from ..ops.occupancy import (ray_support_interval, segment_in_cube,
-                             support_bounds_from_sigma)
+from ..ops.occupancy import support_bounds_from_sigma
 from ..ops.rays import get_rays
 from ..ops.render import (GATE_ROWS, hierarchical_z_vals, pack_od, span_sort,
-                          tile_row_gate, truncation_bounds,
-                          truncation_window)
+                          tile_row_gate, train_support_intervals,
+                          truncation_bounds, truncation_window)
 from ..ops.sampling import stratified_z_vals
 from ..ops.volume import _disp_from, volume_render_rays_t, weights_from_sigma_t
 
@@ -237,15 +236,6 @@ def _row_envelopes(near: float, far: float, s: int, s_rows: int, device):
                          dtype=torch.float32, device=device))
 
 
-def _support_interval(rays_o, rays_d, bounds, half, near, far):
-    """The rays' support intervals; rays leaving the cube get [near, far]
-    (the grid certifies nothing outside it)."""
-    t_lo, t_hi = ray_support_interval(rays_o, rays_d, *bounds, near, far)
-    inside = segment_in_cube(rays_o, rays_d, half, near, far)
-    return (torch.where(inside, t_lo, torch.full_like(t_lo, near)),
-            torch.where(inside, t_hi, torch.full_like(t_hi, far)))
-
-
 def _gated_sigma_t(packed_coarse, rays_o, rays_d, z_vals, pc, half: float,
                    near: float, far: float, L_x: int,
                    sigma_fn: Callable = fused_mlp_sigma_rays):
@@ -264,7 +254,8 @@ def _gated_sigma_t(packed_coarse, rays_o, rays_d, z_vals, pc, half: float,
     valid) bounds -> (sigma [S, M] bf16 logits in the original ray order,
     gate): active blocks as the ungated kernel gives them, gated ones 0."""
     m, s = z_vals.shape
-    t_lo, t_hi = _support_interval(rays_o, rays_d, pc, half, near, far)
+    t_lo, t_hi = train_support_intervals(rays_o, rays_d, pc, half, near,
+                                         far)
     row_lo, row_hi = _row_envelopes(near, far, s, GATE_ROWS, z_vals.device)
     hit = t_lo <= t_hi + 1e-4 * (far - near)
     act = ((t_lo[:, None] <= row_hi[None]) & (t_hi[:, None] >= row_lo[None])
@@ -288,7 +279,8 @@ def _gated_fine_rays(packed_fine, rays_o, rays_d, z_all, fb, half: float,
     z_all [M, S] -> ((r, g, b, sigma) [S, M] in the original ray order,
     gate)."""
     m, s = z_all.shape
-    t_lo, t_hi = _support_interval(rays_o, rays_d, fb, half, near, far)
+    t_lo, t_hi = train_support_intervals(rays_o, rays_d, fb, half, near,
+                                         far)
     margin = 1e-4 * (far - near)
     act = ((z_all >= t_lo[:, None] - margin)
            & (z_all <= t_hi[:, None] + margin))

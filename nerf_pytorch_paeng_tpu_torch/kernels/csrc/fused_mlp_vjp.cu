@@ -1,11 +1,14 @@
-// Backward of the fused NeRF MLP along rays, for Hopper (sm_90a): K2.
+// Backward of the fused NeRF MLP along rays, for Hopper (sm_90a): K2 and K6.
 //
-//   nerf_bwd_rays  replaces the JAX package's TPU kernel
+//   nerf_bwd_rays  replaces the JAX package's TPU kernels
 //                  kernels/fused_mlp_vjp.py::_bwd_rays_kernel (_bwd_rays_call,
-//                  gate=None): for every sample of every ray, recompute the
-//                  forward (nothing is kept from nerf_eval_rays) and chain the
+//                  gate=None; K2) and _bwd_rays_kernel_gated (gate given; K6):
+//                  for every sample of every ray, recompute the forward
+//                  (nothing is kept from nerf_eval_rays) and chain the
 //                  cotangents of (r, g, b, sigma) back to float32 gradients of
 //                  all 26 packed weights and biases, summed over all points.
+//                  With a gate, the samples of every gated-off block add
+//                  nothing and are not computed.
 //
 // Inputs: od [8, N] and z [S, N] float32 as for nerf_eval_rays, the four
 // cotangents [S, N] float32, the packed bf16 weights and float32 biases of
@@ -48,7 +51,22 @@
 //     fixed order.  No atomics anywhere: two launches on the same inputs
 //     give the same bits, which a bit-exact resume relies on.
 // Points go through in chunks of at most 1024 tiles (131072 points, a
-// 1.3 GB stash), the stash reused from chunk to chunk.  The stash traffic
+// 1.3 GB stash), the stash reused from chunk to chunk.
+//
+// The gate (K6): int32 [ceil(N / 128) * (S / 8)], tile-major over (128-ray
+// block, 8-sample row), as the forward kernels read it.  The TPU kernel skips
+// a grid step; here skipping a chain tile alone would leave the weight-gradient
+// kernel contracting over stash rows that hold another chunk's points.  So
+// compact_tiles_kernel (one block, a prefix sum over the gate, no atomics)
+// first writes the list of active (sample, ray-tile) chain tiles in K2's order
+// and its length to device memory.  The chain kernel walks that list instead
+// of the tile range and stashes compactly; its per-block bias and head partials
+// see active tiles only; the weight-gradient kernel contracts over the active
+// points of its chunk.  The chunks are K2's (the launch count is set by all
+// S x ray tiles, so the host never reads the active count): a chunk past the
+// list's end runs blocks that write zero partials and exit.  An all-on gate
+// gives the identity list, hence K2's tile order, chunking and reduction, and
+// K2's bits.  The stash traffic
 // (~10 KB written and ~20 KB read per point) is this design's cost beside
 // the tensor-core rate; PERF.md has the times.  First cut: wmma, no
 // wgmma/TMA.
@@ -174,13 +192,56 @@ __device__ void epilogue_delta(Acc<WIDTH>& acc, const bf16* mask, const float* g
   }
 }
 
+// K6: list[0 .. *count) <- the chain tiles (k * ray_tiles + ray tile, K2's
+// order) whose gate entry is on.  One block: each thread counts a contiguous
+// run of tiles, a prefix sum over the block places each run.
+constexpr int COMPACT_THREADS = 1024;
+
+__global__ void __launch_bounds__(COMPACT_THREADS)
+compact_tiles_kernel(const int* __restrict__ gate, int ray_tiles, int s, int* list,
+                     int* count) {
+  __shared__ int scan[COMPACT_THREADS];
+  const int tid = threadIdx.x;
+  const long total = (long)s * ray_tiles;
+  const long per = (total + COMPACT_THREADS - 1) / COMPACT_THREADS;
+  const long t0 = tid * per, t1 = t0 + per < total ? t0 + per : total;
+  const int rows = s >> 3;
+  auto on = [&](long t) {
+    const int k = (int)(t / ray_tiles), rt = (int)(t % ray_tiles);
+    return gate[(long)rt * rows + (k >> 3)] != 0;
+  };
+  int c = 0;
+  for (long t = t0; t < t1; ++t) c += on(t);
+  scan[tid] = c;
+  __syncthreads();
+  for (int off = 1; off < COMPACT_THREADS; off <<= 1) {  // inclusive prefix sum
+    const int v = tid >= off ? scan[tid - off] : 0;
+    __syncthreads();
+    scan[tid] += v;
+    __syncthreads();
+  }
+  int at = scan[tid] - c;
+  for (long t = t0; t < t1; ++t)
+    if (on(t)) list[at++] = (int)t;
+  if (tid == COMPACT_THREADS - 1) *count = scan[tid];
+}
+
+// the chain tiles of the chunk starting at tile0 (list position with a gate):
+// ntiles, cut to the active count where it is given
+__device__ __forceinline__ int chunk_tiles(const int* count, long tile0, int ntiles) {
+  if (count == nullptr) return ntiles;
+  const long left = (long)*count - tile0;
+  return left <= 0 ? 0 : (left < ntiles ? (int)left : ntiles);
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_chain_kernel(const float* __restrict__ od, const float* __restrict__ z,
                  const float* __restrict__ gr, const float* __restrict__ gg,
                  const float* __restrict__ gb, const float* __restrict__ gs,
                  const bf16* __restrict__ w, const float* __restrict__ b,
                  const bf16* __restrict__ wt, bf16* stash, float* part1, int n,
-                 int L_x, int L_d, long tile0, int ntiles, long pc) {
+                 int L_x, int L_d, long tile0, int ntiles, long pc,
+                 const int* __restrict__ list, const int* __restrict__ count) {
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* base = smem;
   bf16* act = reinterpret_cast<bf16*>(base);
@@ -217,12 +278,13 @@ bwd_chain_kernel(const float* __restrict__ od, const float* __restrict__ z,
   auto s_g = [&](int i) { return stash + (ST_G0 + (long)WIDTH * i) * pc; };
 
   const int ray_tiles = (n + TILE - 1) / TILE;
+  ntiles = chunk_tiles(count, tile0, ntiles);
   const int t_begin = (int)((long)blockIdx.x * ntiles / gridDim.x);
   const int t_end = (int)((long)(blockIdx.x + 1) * ntiles / gridDim.x);
   float* zrow = scratch;
 #pragma unroll 1
   for (int t = t_begin; t < t_end; ++t) {
-    const long tg = tile0 + t;
+    const long tg = list ? (long)list[tile0 + t] : tile0 + t;
     const int k = (int)(tg / ray_tiles), ray0 = (int)(tg % ray_tiles) * TILE;
     const long q0 = (long)t * TILE;   // first stash row of this tile
     __syncthreads();                  // the previous tile is done with smem
@@ -355,7 +417,8 @@ constexpr int N_WJOBS = 12;
 constexpr int N_WTILES = 39;   // sum over the jobs of ceil(kin/TM) * ceil(nout/TN)
 
 __global__ void __launch_bounds__(THREADS, 1)
-wgrad_kernel(const bf16* __restrict__ stash, long pc, int npts, float* __restrict__ part2) {
+wgrad_kernel(const bf16* __restrict__ stash, long pc, int ntiles, float* __restrict__ part2,
+             const int* __restrict__ count, long tile0) {
   extern __shared__ __align__(128) unsigned char smem[];
   int tile = blockIdx.x, j = 0, tm = 0, tn = 0;
   WJob job = wjob(0);
@@ -373,7 +436,7 @@ wgrad_kernel(const bf16* __restrict__ stash, long pc, int npts, float* __restric
   const int mrows = min(TM, job.kin - m0), ncols = min(TN, job.nout - n0);
   const bf16* A = stash + job.a * pc + m0;   // row p at A + p * kin
   const bf16* G = stash + job.g * pc + n0;   // row p at G + p * nout
-  const int nsteps = npts / PK;
+  const int nsteps = chunk_tiles(count, tile0, ntiles) * TILE / PK;
   const int st0 = (int)((long)blockIdx.y * nsteps / gridDim.y);
   const int st1 = (int)((long)(blockIdx.y + 1) * nsteps / gridDim.y);
 
@@ -487,28 +550,40 @@ Plan make_plan(int n, int s) {
 
 // Workspace the caller allocates for nerf_bwd_rays at (n, s), in elements:
 // sizes[0] transposed weights (bf16), [1] stash (bf16), [2] chain partials
-// (float32), [3] weight-gradient partials (float32).
+// (float32), [3] weight-gradient partials (float32), [4] with a gate: the
+// active tile list and its length (int32).
 extern "C" void nerf_bwd_rays_workspace(int n, int s, long* sizes) {
   const Plan p = make_plan(n, s);
   sizes[0] = WT_TOTAL;
   sizes[1] = (long)p.chunk * TILE * ST_PER_POINT;
   sizes[2] = (long)p.nchunks * p.g1 * PART1;
   sizes[3] = (long)p.nchunks * p.nsplit * WG_TOTAL;
+  sizes[4] = p.tiles + 1;
 }
 
+// gate null: K2; gate given (S % 8 == 0): K6, with tiles the sizes[4] ints
 extern "C" int nerf_bwd_rays(const float* od, const float* z, const float* gr, const float* gg,
                              const float* gb, const float* gs, const void* w, const float* b,
                              void* wt, void* stash, float* part1, float* part2, float* dw,
-                             float* db, int n, int s, int L_x, int L_d, void* stream) {
+                             float* db, const int* gate, int* tiles, int n, int s, int L_x,
+                             int L_d, void* stream) {
   const Plan p = make_plan(n, s);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* wb = reinterpret_cast<const bf16*>(w);
   bf16* wtb = reinterpret_cast<bf16*>(wt);
   bf16* sb = reinterpret_cast<bf16*>(stash);
   const long pc = (long)p.chunk * TILE;
+  const int* list = gate ? tiles : nullptr;
+  const int* count = gate ? tiles + p.tiles : nullptr;
   int rc;
   if ((rc = launch_prep(bwd_chain_kernel, SMEM_CHAIN))) return rc;
   if ((rc = launch_prep(wgrad_kernel, SMEM_WGRAD))) return rc;
+  if (gate) {
+    if (s % 8 != 0 || tiles == nullptr) return (int)cudaErrorInvalidValue;
+    compact_tiles_kernel<<<1, COMPACT_THREADS, 0, st>>>(gate, (n + TILE - 1) / TILE, s, tiles,
+                                                        tiles + p.tiles);
+    if ((rc = (int)cudaGetLastError())) return rc;
+  }
   transpose_kernel<<<(int)((WT_TOTAL + 255) / 256), 256, 0, st>>>(wb, wtb);
   if ((rc = (int)cudaGetLastError())) return rc;
   for (int c = 0; c < p.nchunks; ++c) {
@@ -516,10 +591,10 @@ extern "C" int nerf_bwd_rays(const float* od, const float* z, const float* gr, c
     const int ntc = (int)(p.tiles - t0 < p.chunk ? p.tiles - t0 : p.chunk);
     bwd_chain_kernel<<<p.g1, THREADS, SMEM_CHAIN, st>>>(od, z, gr, gg, gb, gs, wb, b, wtb, sb,
                                                         part1 + (long)c * p.g1 * PART1, n, L_x,
-                                                        L_d, t0, ntc, pc);
+                                                        L_d, t0, ntc, pc, list, count);
     if ((rc = (int)cudaGetLastError())) return rc;
     wgrad_kernel<<<dim3(N_WTILES, p.nsplit), THREADS, SMEM_WGRAD, st>>>(
-        sb, pc, ntc * TILE, part2 + (long)c * p.nsplit * WG_TOTAL);
+        sb, pc, ntc, part2 + (long)c * p.nsplit * WG_TOTAL, count, t0);
     if ((rc = (int)cudaGetLastError())) return rc;
   }
   reduce_kernel<<<(int)((W_TOTAL + B_TOTAL + 255) / 256), 256, 0, st>>>(

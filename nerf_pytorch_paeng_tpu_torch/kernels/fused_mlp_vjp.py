@@ -1,5 +1,5 @@
 """The training pair of the fused NeRF MLP along rays: K1 forward, K2
-backward.
+backward, and the occupancy-gated pair K5 forward, K6 backward.
 
 - ``fused_mlp_bwd_rays`` (source: ``csrc/fused_mlp_vjp.cu``) replaces the
   JAX package's ``kernels/fused_mlp_vjp.py::_bwd_rays_kernel``: it
@@ -8,28 +8,35 @@ backward.
   packed weights and biases, summed over all samples of all rays.  Its
   plain PyTorch version ``fused_mlp_bwd_rays_plain`` follows
   ``_recompute_and_backprop`` step by step, with the same rounding points.
+  With ``gate=`` (the layout of ``fused_mlp.py``'s gate) it is K6, which
+  replaces ``_bwd_rays_kernel_gated``: the samples of every (128-ray tile,
+  8-sample row) block whose entry is 0 add nothing, and are not computed.
 - ``fused_mlp_train_rays`` pairs the full-field kernel
   (``fused_mlp.fused_mlp_eval_rays``, float32 outputs) with that backward
   in a ``torch.autograd.Function``: the differentiable float32 packing
   (``fused_mlp.pack_flat``) goes in, its gradients come out in the packed
   layout, and autograd carries them back to the module's parameters.  No
   input gradients: the rays are data and the depths carry no gradient.
+  With ``gate=`` both directions are gated (K5 and K6); the gate is an
+  int32 input without a gradient.
 
 Dispatch as in ``fused_mlp.py``: CPU tensors go to the plain version, CUDA
 tensors to the kernel or the wrapper raises; ``fused_mlp_bwd_rays.launches``
-counts the kernel's launches (one per call).
+counts K2's launches and ``fused_mlp_bwd_rays.gated_launches`` K6's (one
+per call).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..ops.posenc import build_emb
 from .fused_mlp import (B_TOTAL, EMBD_ROWS, EMBX_ROWS, W_TOTAL, _check,
-                        _cuda_lib, _raise_on, _with_views, fused_mlp_eval_rays)
+                        _cuda_lib, _ptr, _raise_on, _with_views,
+                        fused_mlp_eval_rays, gate_mask)
 
 
 def _grads_check(z_t, grads):
@@ -44,13 +51,17 @@ def fused_mlp_bwd_rays_plain(od: torch.Tensor, z_t: torch.Tensor,
                              gr: torch.Tensor, gg: torch.Tensor,
                              gb: torch.Tensor, gs: torch.Tensor,
                              packed: Dict[str, torch.Tensor], L_x: int = 10,
-                             L_d: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
+                             L_d: int = 4, gate: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernel -> (dw [W_TOTAL],
     db [B_TOTAL]) float32, one sample row at a time.  Operands in the
     packed weights' type, float32 accumulation; cotangents, masked deltas
     and dfeat rounded to that type before their products (as
-    ``fused_mlp_vjp.py:54-119`` of the JAX package)."""
+    ``fused_mlp_vjp.py:54-119`` of the JAX package).  With ``gate`` a row
+    computes only the rays whose block the gate leaves on (all of them
+    where every block of the row is on, none where every one is off)."""
     s, n = z_t.shape
+    on = None if gate is None else gate_mask(gate, s, n)
     cdt = packed["w"].dtype
 
     def rnd(t):
@@ -69,8 +80,14 @@ def fused_mlp_bwd_rays_plain(od: torch.Tensor, z_t: torch.Tensor,
         return rnd(torch.where(h > 0, dh, torch.zeros_like(dh)))
 
     for k in range(s):
-        embx = rnd(build_emb(o + d * z_t[k][:, None].float(), L_x,
-                             EMBX_ROWS))
+        rays = slice(None)
+        if on is not None and not bool(on[k].all()):
+            if not bool(on[k].any()):
+                continue
+            rays = on[k].nonzero()[:, 0]
+        gk = [t[k][rays] for t in (gr, gg, gb, gs)]
+        x = o[rays] + d[rays] * z_t[k][rays][:, None].float()
+        embx = rnd(build_emb(x, L_x, EMBX_ROWS))
         hs = [rnd(torch.relu(embx @ p["w0"] + p["b0"]))]
         for i in range(1, 8):
             pre = hs[-1] @ p[f"w{i}" if i != 5 else "w5h"] + p[f"b{i}"]
@@ -79,15 +96,15 @@ def fused_mlp_bwd_rays_plain(od: torch.Tensor, z_t: torch.Tensor,
             hs.append(rnd(torch.relu(pre)))
         h7 = hs[7]
         feat = rnd(h7 @ p["wfeat"] + p["bfeat"])
-        hv = rnd(torch.relu(feat @ p["wvf"] + hv_dir))
+        hv = rnd(torch.relu(feat @ p["wvf"] + hv_dir[rays]))
 
-        g_rgb = rnd(torch.stack([gr[k], gg[k], gb[k]], -1).float())  # [N,3]
-        g_sig = rnd(gs[k].float())[:, None]                          # [N,1]
+        g_rgb = rnd(torch.stack(gk[:3], -1).float())                 # [N,3]
+        g_sig = rnd(gk[3].float())[:, None]                          # [N,1]
         grad["wcol"] += hv.T @ g_rgb
         grad["bcol"] += g_rgb.sum(0)
         dhv = masked(hv, g_rgb @ p["wcol"].T)
         grad["wvf"] += feat.T @ dhv
-        grad["wvd"] += embd.T @ dhv
+        grad["wvd"] += embd[rays].T @ dhv
         grad["bv"] += dhv.sum(0)
         dfeat = rnd(dhv @ p["wvf"].T)
         grad["wfeat"] += h7.T @ dfeat
@@ -119,7 +136,7 @@ def _library() -> ctypes.CDLL:
     lib.nerf_bwd_rays_workspace.argtypes = [i, i, ctypes.POINTER(
         ctypes.c_long)]
     lib.nerf_bwd_rays_workspace.restype = None
-    lib.nerf_bwd_rays.argtypes = [p] * 14 + [i, i, i, i, p]
+    lib.nerf_bwd_rays.argtypes = [p] * 16 + [i, i, i, i, p]
     lib.nerf_bwd_rays.restype = i
     return lib
 
@@ -127,70 +144,83 @@ def _library() -> ctypes.CDLL:
 def fused_mlp_bwd_rays(od: torch.Tensor, z_t: torch.Tensor,
                        gr: torch.Tensor, gg: torch.Tensor, gb: torch.Tensor,
                        gs: torch.Tensor, packed: Dict[str, torch.Tensor],
-                       L_x: int = 10, L_d: int = 4
+                       L_x: int = 10, L_d: int = 4,
+                       gate: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gradients of the full field along rays: od [8, N], z_t [S, N] and
     the float32 cotangents of (r, g, b, sigma), each [S, N] ->
-    (dw [W_TOTAL], db [B_TOTAL]) float32 in the packed layout."""
-    s, n = _check(od, z_t, packed, L_x, L_d, torch.float32)
+    (dw [W_TOTAL], db [B_TOTAL]) float32 in the packed layout.  With
+    ``gate`` (K6) the gated-off blocks' samples add nothing."""
+    s, n = _check(od, z_t, packed, L_x, L_d, torch.float32, gate)
     grads = (gr, gg, gb, gs)
     _grads_check(z_t, grads)
     if od.device.type == "cpu":
-        return fused_mlp_bwd_rays_plain(od, z_t, *grads, packed, L_x, L_d)
+        return fused_mlp_bwd_rays_plain(od, z_t, *grads, packed, L_x, L_d,
+                                        gate)
     lib = _cuda_lib(od, packed, _library)
     dev = od.device
     dw = torch.empty(W_TOTAL, device=dev)
     db = torch.empty(B_TOTAL, device=dev)
     if s * n == 0:
         return dw.zero_(), db.zero_()
-    sizes = (ctypes.c_long * 4)()
+    sizes = (ctypes.c_long * 5)()
     with torch.cuda.device(dev):
         lib.nerf_bwd_rays_workspace(n, s, sizes)
         wt = torch.empty(sizes[0], dtype=torch.bfloat16, device=dev)
         stash = torch.empty(sizes[1], dtype=torch.bfloat16, device=dev)
         part1 = torch.empty(sizes[2], device=dev)
         part2 = torch.empty(sizes[3], device=dev)
+        # K6: the list of active chain tiles and its length
+        tiles = (None if gate is None else
+                 torch.empty(sizes[4], dtype=torch.int32, device=dev))
         rc = lib.nerf_bwd_rays(
             od.data_ptr(), z_t.data_ptr(), *(g.data_ptr() for g in grads),
             packed["w"].data_ptr(), packed["b"].data_ptr(), wt.data_ptr(),
             stash.data_ptr(), part1.data_ptr(), part2.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), n, s, L_x, L_d,
-            torch.cuda.current_stream().cuda_stream)
+            dw.data_ptr(), db.data_ptr(), _ptr(gate), _ptr(tiles), n, s,
+            L_x, L_d, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "nerf_bwd_rays")
-    fused_mlp_bwd_rays.launches += 1
+    if gate is None:
+        fused_mlp_bwd_rays.launches += 1
+    else:
+        fused_mlp_bwd_rays.gated_launches += 1
     return dw, db
 
 
-fused_mlp_bwd_rays.launches = 0
+fused_mlp_bwd_rays.launches = fused_mlp_bwd_rays.gated_launches = 0
 
 
 class _TrainRays(torch.autograd.Function):
-    """K1 forward (float32 logits), K2 backward (float32 packed grads)."""
+    """K1 forward (float32 logits), K2 backward (float32 packed grads); with
+    a gate K5 and K6."""
 
     @staticmethod
-    def forward(ctx, w, b, od, z_t, L_x, L_d, weight_dtype):
+    def forward(ctx, w, b, od, z_t, L_x, L_d, weight_dtype, gate):
         packed = _with_views(w.to(weight_dtype), b)
-        ctx.save_for_backward(packed["w"], b, od, z_t)
+        ctx.save_for_backward(packed["w"], b, od, z_t, gate)
         ctx.encodings = (L_x, L_d)
         return fused_mlp_eval_rays(od, z_t, packed, L_x, L_d,
-                                   out_dtype=torch.float32)
+                                   out_dtype=torch.float32, gate=gate)
 
     @staticmethod
     def backward(ctx, *gout):
-        w, b, od, z_t = ctx.saved_tensors
+        w, b, od, z_t, gate = ctx.saved_tensors
         grads = [torch.zeros_like(z_t) if g is None
                  else g.float().contiguous() for g in gout]
         dw, db = fused_mlp_bwd_rays(od, z_t, *grads, _with_views(w, b),
-                                    *ctx.encodings)
-        return dw, db, None, None, None, None, None
+                                    *ctx.encodings, gate=gate)
+        return dw, db, None, None, None, None, None, None
 
 
 def fused_mlp_train_rays(w: torch.Tensor, b: torch.Tensor, od: torch.Tensor,
                          z_t: torch.Tensor, L_x: int = 10, L_d: int = 4,
-                         weight_dtype: torch.dtype = torch.bfloat16):
+                         weight_dtype: torch.dtype = torch.bfloat16,
+                         gate: Optional[torch.Tensor] = None):
     """Differentiable full field along rays: float32 packed ``w``, ``b``
     (``fused_mlp.pack_flat``), od [8, N], z_t [S, N] -> (r, g, b, sigma),
     each [S, N] float32.  The kernels see the weights in ``weight_dtype``
     (the CUDA kernels take bf16); the gradients of ``w`` and ``b`` come
-    back float32."""
-    return _TrainRays.apply(w, b, od, z_t, L_x, L_d, weight_dtype)
+    back float32.  ``gate`` (int32, ``fused_mlp.py``'s layout) gates both
+    directions: gated blocks store 0 and add no gradient, which is exact
+    when their samples' density logits are <= 0."""
+    return _TrainRays.apply(w, b, od, z_t, L_x, L_d, weight_dtype, gate)

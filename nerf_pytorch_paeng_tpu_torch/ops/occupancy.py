@@ -1,7 +1,7 @@
 """Conservative support bounds of a density field, for the culled frame
 renderer's pre-cull (counterpart of the JAX package's ``ops/occupancy.py``:
-``support_bounds_from_sigma``, ``ray_support_interval``,
-``ray_hits_bounds``, ``segment_in_cube``).
+``support_bounds_from_sigma``, ``frustum_union_mask``,
+``ray_support_interval``, ``ray_hits_bounds``, ``segment_in_cube``).
 
 A ray segment that never touches ``{x : sigma_raw(x) > 0}`` has zero
 alpha at every sample, including the last one whose 1e10 bin distance
@@ -87,6 +87,49 @@ def support_bounds_from_sigma(sigma_plane_fn: Callable, half_side: float,
         + cell * 3.0 ** 0.5 / 2
     valid = any_occ & ~touches
     return lo, hi, r.reshape(1), valid.reshape(1)
+
+
+def frustum_union_mask(poses, K, H: int, W: int, near: float, far: float,
+                       half_side: float, grid: int, device=None
+                       ) -> torch.Tensor:
+    """[G, G, G] bool: the grid cells that may hold a training sample.  A
+    cell is in when its centre lies in the union of the cameras' [near,
+    far] frusta fattened by the cell half-diagonal r (depth by r, the pixel
+    bounds by the factor 1 + r/t and the term f r / t: the perspective
+    bound of a displacement <= r), then dilated by one cell.  The camera
+    model is ``ops/rays.get_rays``'s: a point p sits at depth t on pixel
+    (i, j) of camera [R | o] iff R^T (p - o) = t ((i - cx)/fx,
+    -(j - cy)/fy, -1).
+
+    The training pre-cull restricts the measured support to it: density
+    the MLP puts where no training ray samples would otherwise reach the
+    cube's boundary and invalidate the bounds.  The cameras are scanned
+    with one [G^3] OR accumulator, never a [M, G^3] intermediate.
+
+    poses [M, 3 or 4, 4] camera-to-world; K [3, 3]."""
+    poses = torch.as_tensor(poses, dtype=torch.float32,
+                            device=device)[:, :3, :4]
+    K = torch.as_tensor(K, dtype=torch.float32, device=poses.device)
+    cell = 2.0 * half_side / grid
+    pts = grid_points(half_side, grid, poses.device).T            # [P, 3]
+    r = (3.0 ** 0.5 / 2.0) * cell
+    fx, fy, ci, cj = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    t_min = max(near - r, 1e-6)
+    mask = torch.zeros(pts.shape[0], dtype=torch.bool, device=poses.device)
+    for c2w in poses:
+        p_cam = (pts - c2w[:, 3]) @ c2w[:, :3]                    # R^T (p - o)
+        t = -p_cam[:, 2]
+        safe_t = torch.where(t > 1e-6, t, torch.ones_like(t))
+        i = ci + fx * (p_cam[:, 0] / safe_t)
+        j = cj - fy * (p_cam[:, 1] / safe_t)
+        scale = 1.0 + r / safe_t
+        half_i = (torch.maximum(ci, (W - 1) - ci) + 1.0) * scale \
+            + fx * r / safe_t
+        half_j = (torch.maximum(cj, (H - 1) - cj) + 1.0) * scale \
+            + fy * r / safe_t
+        mask |= ((t >= t_min) & (t <= far + r) & ((i - ci).abs() <= half_i)
+                 & ((j - cj).abs() <= half_j))
+    return _dilate(mask.reshape(grid, grid, grid))
 
 
 def ray_support_interval(rays_o: torch.Tensor, rays_d: torch.Tensor,

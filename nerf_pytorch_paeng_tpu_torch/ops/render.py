@@ -1,7 +1,9 @@
 """Hierarchical resampling, the training render and the culled renderer's
 gate and truncation helpers (counterpart of the JAX package's
 ``ops/render.py``: ``hierarchical_z_vals``, ``supports_train_rays_kernels``,
-``render_rays_train`` ungated, ``span_sort``, ``tile_row_gate``,
+``render_rays_train`` with its occupancy-gated passes
+(``train_support_intervals``, ``train_gate_tile``, ``train_gate_plan``,
+``_gated_train_pass``), ``span_sort``, ``tile_row_gate``,
 ``truncation_bounds`` and ``truncation_window``)."""
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .occupancy import ray_support_interval, segment_in_cube
 from .sampling import sample_pdf, stratified_z_vals
 from .volume import volume_render_rays_t
 
@@ -20,6 +23,9 @@ class RaysRender(NamedTuple):
     disp_f: Optional[torch.Tensor]
     acc_f: Optional[torch.Tensor]
     depth_f: Optional[torch.Tensor]
+    # skipped share of the (ray tile, 8-sample row) kernel blocks, weighted
+    # by sample count over both passes (a 0-dim tensor; None when ungated)
+    gate_frac: Optional[torch.Tensor] = None
 
 
 def pack_od(rays_o: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
@@ -43,19 +49,108 @@ def hierarchical_z_vals(z_vals: torch.Tensor, weights: torch.Tensor, *,
     return torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
 
 
+def _train_rays_tile(m: int) -> Optional[int]:
+    """The JAX package's ray tile for its training kernels (2048, else the
+    largest of 1024 ... 128 that divides m; None when m is not a multiple
+    of 128).  The port's kernels work in 128-ray blocks; this tile only
+    seeds ``train_gate_tile``, so that the gate plan is the JAX
+    package's."""
+    if m % 128 != 0:
+        return None
+    return next(t for t in (2048, 1024, 512, 256, 128) if m % t == 0)
+
+
 def supports_train_rays_kernels(cfg, n_rays: int) -> bool:
     """Shapes the ray-major training pair takes: a multiple of 128 rays and
     sample counts (coarse, merged) that are multiples of 8."""
     s_merged = cfg.N_samples_c + cfg.N_samples_f
     return (cfg.N_samples_c % 8 == 0
             and (cfg.N_samples_f == 0 or s_merged % 8 == 0)
-            and n_rays % 128 == 0)
+            and _train_rays_tile(n_rays) is not None)
+
+
+def train_support_intervals(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                            bounds, half: float, near: float, far: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-ray conservative support interval of one module's bounds
+    ``(lo, hi, radius, valid)`` (``ops/occupancy.support_bounds_from_sigma``):
+    rays whose [near, far] segment leaves the cube of half-side ``half``
+    get [near, far] (the grid certifies nothing outside it), and invalid
+    bounds give every ray [near, far].  rays [M, 3] -> (t_lo [M],
+    t_hi [M]).  The training passes and the culled renderer both use it."""
+    t_lo, t_hi = ray_support_interval(rays_o, rays_d, *bounds, near, far)
+    inside = segment_in_cube(rays_o, rays_d, half, near, far)
+    return (torch.where(inside, t_lo, torch.full_like(t_lo, near)),
+            torch.where(inside, t_hi, torch.full_like(t_hi, far)))
+
+
+def train_gate_tile(cfg, n: int, base_tile: int) -> int:
+    """The gate plan's ray tile: ``cfg.train_precull_tile``, else
+    min(base_tile, 512), cut to the largest multiple of 128 that divides
+    n (the JAX package's choice, so that the plan, ``gate_frac`` and the
+    policy's decisions are its own)."""
+    gt = int(getattr(cfg, "train_precull_tile", 0))
+    want = max(128, min(gt or min(base_tile, 512), n))
+    for tile in range(want - want % 128, 127, -128):
+        if n % tile == 0:
+            return tile
+    return 128
+
+
+def train_gate_plan(zs: torch.Tensor, t_lo: torch.Tensor, t_hi: torch.Tensor,
+                    tile: int):
+    """The span-sorted (ray tile, 8-sample row) gate plan of one gated
+    training pass: a row of a ray is active when any of its 8 depths lies
+    in the ray's support interval.
+
+    zs [S, N] (S % 8 == 0), t_lo/t_hi [N] -> (order [N], inv [N],
+    gate [(N / tile) * (S / 8)] int32 tile-major, gate_frac: the skipped
+    share of blocks, 0-dim)."""
+    s, n = zs.shape
+    act = (zs >= t_lo[None]) & (zs <= t_hi[None])              # [S, N]
+    act_r = act.reshape(s // GATE_ROWS, GATE_ROWS, n).any(1).T  # [N, R]
+    order, inv = span_sort(act_r)
+    gate, gate_frac = tile_row_gate(act_r[order], tile)
+    return order, inv, gate, gate_frac
+
+
+def _gated_train_pass(w: torch.Tensor, b: torch.Tensor, od: torch.Tensor,
+                      z_t: torch.Tensor, t_lo: torch.Tensor,
+                      t_hi: torch.Tensor, cfg, weight_dtype: torch.dtype):
+    """One occupancy-gated training pass (K5 forward, K6 backward).
+
+    Every sample outside the module's support interval has a density logit
+    <= 0, so its compositing weight is 0 ungated too, and its gradient
+    contribution is 0 (the ReLU kills the density cotangent, the zero
+    weight the colour ones).  The rays are span-sorted so that tiles share
+    spans, the gated pair runs on the sorted rays, and the four outputs
+    are unsorted: compositing, the draws and the loss see the original
+    ray order, so the forward equals the ungated pass where it matters and
+    the gradients differ only in float32 summation order.
+
+    The plan's tile is the JAX package's (``train_gate_tile``: 512 at 4096
+    rays); the kernels gate 128-ray blocks, so each tile's gate row is
+    repeated for its 128-ray blocks.  z_t [S, N], od [8, N] ->
+    ((r, g, b, sigma) [S, N], gate_frac)."""
+    from ..kernels.fused_mlp_vjp import fused_mlp_train_rays
+
+    s, n = z_t.shape
+    tile = train_gate_tile(cfg, n, _train_rays_tile(n) or 2048)
+    order, inv, gate, gate_frac = train_gate_plan(z_t.detach(), t_lo, t_hi,
+                                                  tile)
+    gate = gate.view(n // tile, s // GATE_ROWS).repeat_interleave(
+        tile // GATE_TILE, 0).reshape(-1).contiguous()
+    outs = fused_mlp_train_rays(w, b, od[:, order].contiguous(),
+                                z_t[:, order].contiguous(), cfg.L_x, cfg.L_d,
+                                weight_dtype, gate=gate)
+    return tuple(t[:, inv] for t in outs), gate_frac
 
 
 def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
                       cfg, generator: Optional[torch.Generator] = None,
                       u_c: Optional[torch.Tensor] = None,
-                      u_f: Optional[torch.Tensor] = None) -> RaysRender:
+                      u_f: Optional[torch.Tensor] = None,
+                      support=None) -> RaysRender:
     """Training render of a ``NeRF`` on the ray-major kernel pair
     (``kernels/fused_mlp_vjp.fused_mlp_train_rays``): jittered coarse
     depths, the coarse pass, compositing, the inverse-CDF fine depths (no
@@ -65,7 +160,13 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
 
     rays_o, rays_d [N, 3]; the draws come from ``generator`` (coarse
     jitter first, then the fine uniforms) or are injected as ``u_c``
-    [N, Sc] and ``u_f`` [N, Sf]."""
+    [N, Sc] and ``u_f`` [N, Sf].
+
+    ``support`` (``cfg.train_precull``, ``train/precull.py``) = (coarse
+    bounds, fine bounds, half-side): each pass is gated by its own
+    module's support intervals (``_gated_train_pass``; the two modules are
+    independent networks) and ``gate_frac`` is set.  The loss is the
+    ungated one bit for bit; the gradients differ in summation order."""
     from ..kernels.fused_mlp import pack_flat
     from ..kernels.fused_mlp_vjp import fused_mlp_train_rays
 
@@ -81,26 +182,43 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
            else torch.float32)
     near, far = float(cfg.near), float(cfg.far)
     od = pack_od(rays_o, rays_d)
+    if support is not None:
+        bounds_c, bounds_f, half = support
+        iv_c = train_support_intervals(rays_o, rays_d, bounds_c, half, near,
+                                       far)
+        iv_f = train_support_intervals(rays_o, rays_d, bounds_f, half, near,
+                                       far)
 
-    def field(mlp, z_t):
+    def field(mlp, z_t, iv):
         w, b = pack_flat(mlp, cfg.L_x, cfg.L_d)
-        r, g, b_, sg = fused_mlp_train_rays(w, b, od, z_t, cfg.L_x, cfg.L_d,
-                                            wdt)
-        return volume_render_rays_t(r, g, b_, sg, z_t, rays_d)
+        gate_frac = None
+        if iv is None:
+            outs = fused_mlp_train_rays(w, b, od, z_t, cfg.L_x, cfg.L_d, wdt)
+        else:
+            outs, gate_frac = _gated_train_pass(w, b, od, z_t, *iv, cfg, wdt)
+        return volume_render_rays_t(*outs, z_t, rays_d), gate_frac
 
     z_vals = stratified_z_vals(n, near, far, cfg.N_samples_c, perturb=True,
                                generator=generator, u=u_c,
                                device=rays_o.device)
-    out_c = field(model.model_coarse, z_vals.T.contiguous())
+    out_c, gate_frac = field(model.model_coarse, z_vals.T.contiguous(),
+                             None if support is None else iv_c)
     if cfg.N_samples_f <= 0:
-        return RaysRender(out_c.rgb, out_c.disp, None, None, None, None)
+        return RaysRender(out_c.rgb, out_c.disp, None, None, None, None,
+                          gate_frac)
     z_all = hierarchical_z_vals(z_vals, out_c.weights.detach().T,
                                 n_fine=cfg.N_samples_f,
                                 perturb=float(cfg.perturb),
                                 generator=generator, u=u_f)
-    out_f = field(model.model_fine, z_all.T.contiguous())
+    out_f, gf_f = field(model.model_fine, z_all.T.contiguous(),
+                        None if support is None else iv_f)
+    if support is not None:
+        # block share over both passes, weighted by sample count (the
+        # kernels' cost follows the active blocks)
+        s_c, s_m = cfg.N_samples_c, cfg.N_samples_c + cfg.N_samples_f
+        gate_frac = (gate_frac * s_c + gf_f * s_m) / (s_c + s_m)
     return RaysRender(out_c.rgb, out_c.disp, out_f.rgb, out_f.disp,
-                      out_f.acc, out_f.depth)
+                      out_f.acc, out_f.depth, gate_frac)
 
 
 GATE_TILE = 128     # rays per gate tile: the kernels' block of rays

@@ -1,8 +1,7 @@
 """The train step: render -> loss -> backward -> Adam update.
 
 Counterpart of the JAX package's ``train/step.py`` on its ray-major kernel
-path (``render_rays_train`` without occupancy gating).  Two batch modes,
-as in the reference:
+path (``render_rays_train``).  Two batch modes, as in the reference:
 
 - global batch: the step receives a pre-sliced [N, 3] x 3 ray batch;
 - per image: the step receives one image and its pose, draws ``N_rays``
@@ -12,6 +11,11 @@ Each step draws from a generator seeded from (seed, completed updates),
 the counterpart of ``fold_in(key, state.step)``: a resumed run replays the
 same draws.  Tests inject the JAX package's draws instead (``coords``,
 ``u_c``, ``u_f``).
+
+Both steps take ``support=`` (coarse bounds, fine bounds) from
+``train/precull.make_train_support_program``, or None: with bounds each
+pass is occupancy-gated (K5, K6) and the metrics gain ``gate_frac``; the
+loss is the ungated one bit for bit.
 """
 from __future__ import annotations
 
@@ -46,9 +50,12 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def _loss_and_metrics(model, rays_o, rays_d, target, cfg,
-                      generator=None, u_c=None, u_f=None):
-    """MSE(coarse) + MSE(fine) and the PSNRs taken from the losses."""
-    out = render_rays_train(model, rays_o, rays_d, cfg, generator, u_c, u_f)
+                      generator=None, u_c=None, u_f=None, support=None):
+    """MSE(coarse) + MSE(fine) and the PSNRs taken from the losses; with
+    ``support`` (coarse bounds, fine bounds, half-side) the gated passes'
+    skipped block share as ``gate_frac``."""
+    out = render_rays_train(model, rays_o, rays_d, cfg, generator, u_c, u_f,
+                            support)
     loss_c = torch.mean((out.rgb_c - target) ** 2)
     metrics = dict(loss_c=loss_c, psnr_c=mse2psnr(loss_c))
     loss = loss_c
@@ -57,6 +64,8 @@ def _loss_and_metrics(model, rays_o, rays_d, target, cfg,
         loss = loss_c + loss_f
         metrics.update(loss_f=loss_f, psnr_f=mse2psnr(loss_f))
     metrics.update(loss=loss, psnr=mse2psnr(loss))
+    if out.gate_frac is not None:
+        metrics["gate_frac"] = out.gate_frac
     return loss, {k: v.detach() for k, v in metrics.items()}
 
 
@@ -72,32 +81,42 @@ def _update(state: TrainState, schedule: Callable[[int], float],
     return metrics
 
 
+def _with_half(cfg, support):
+    """(coarse bounds, fine bounds) -> the render's (..., half-side)."""
+    if support is None:
+        return None
+    from ..eval.frame import _precull_half
+    return (*support, _precull_half(cfg))
+
+
 def make_train_step(cfg, schedule: Callable[[int], float]):
     """Global-batch step: ``(state, rays_o, rays_d, target, u_c=None,
-    u_f=None) -> metrics``; updates ``state`` in place."""
+    u_f=None, support=None) -> metrics``; updates ``state`` in place."""
     seed = cfg.seed + 3
 
     def train_step(state: TrainState, rays_o, rays_d, target,
                    u_c: Optional[torch.Tensor] = None,
-                   u_f: Optional[torch.Tensor] = None):
+                   u_f: Optional[torch.Tensor] = None, support=None):
         gen = step_generator(seed, state.step, rays_o.device)
+        sup = _with_half(cfg, support)
         return _update(state, schedule, lambda: _loss_and_metrics(
-            state.model, rays_o, rays_d, target, cfg, gen, u_c, u_f))
+            state.model, rays_o, rays_d, target, cfg, gen, u_c, u_f, sup))
     return train_step
 
 
 def make_image_train_step(cfg, schedule: Callable[[int], float], H: int,
                           W: int, K):
     """Per-image step: ``(state, image [H,W,3], pose, precrop=False,
-    coords=None, u_c=None, u_f=None) -> metrics``.  The image's rays are
-    generated, ``N_rays`` pixels drawn (the step's generator draws the
-    pixels first, then the render's jitter) and gathered."""
+    coords=None, u_c=None, u_f=None, support=None) -> metrics``.  The
+    image's rays are generated, ``N_rays`` pixels drawn (the step's
+    generator draws the pixels first, then the render's jitter) and
+    gathered."""
     seed = cfg.seed + 3
 
     def train_step(state: TrainState, image, pose, precrop: bool = False,
                    coords: Optional[torch.Tensor] = None,
                    u_c: Optional[torch.Tensor] = None,
-                   u_f: Optional[torch.Tensor] = None):
+                   u_f: Optional[torch.Tensor] = None, support=None):
         gen = step_generator(seed, state.step, image.device)
         rays_o, rays_d = get_rays(H, W, K, pose)
         if coords is None:
@@ -105,7 +124,8 @@ def make_image_train_step(cfg, schedule: Callable[[int], float], H: int,
                                    cfg.precrop_frac, generator=gen,
                                    device=image.device)
         ro, rd, target = gather_rays(rays_o, rays_d, image, coords)
+        sup = _with_half(cfg, support)
         return _update(state, schedule, lambda: _loss_and_metrics(
             state.model, ro.contiguous(), rd.contiguous(), target, cfg, gen,
-            u_c, u_f))
+            u_c, u_f, sup))
     return train_step

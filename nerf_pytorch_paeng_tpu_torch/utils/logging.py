@@ -14,10 +14,11 @@ import os
 import time
 from typing import Dict, Optional
 
-# every metric the training loop emits (train/step._loss_and_metrics, the
-# driver's lr and the derived throughput columns below)
+# every metric the training loop emits (train/step._loss_and_metrics with
+# the gated steps' gate_frac, the driver's lr and the derived throughput
+# columns below)
 FIELDS = ("loss", "loss_c", "loss_f", "psnr", "psnr_c", "psnr_f", "lr",
-          "steps_per_sec", "rays_per_sec")
+          "gate_frac", "steps_per_sec", "rays_per_sec")
 
 
 class MetricLogger:

@@ -410,3 +410,90 @@ def test_culled_frame_gates_change_nothing(dev):
         assert float((a - b).abs().max()) <= 1e-5
     mse = float(torch.mean((frames["gated"][0] - frames["dense"][0]) ** 2))
     assert -10 * np.log10(max(mse, 1e-20)) >= 40.0
+
+
+@pytest.mark.parametrize("n,s", [(4096, 64), (300, 16)])
+def test_gated_bwd_kernel_matches_plain(dev, n, s):
+    """K6: an all-on gate gives K2's bits, an all-off gate zero gradients,
+    a half-on gate its gated plain version's gradients (``_grads_close``),
+    a ragged last tile included."""
+    p = _packed(30, dev)
+    od, z = _inputs(31, n, s, dev)
+    gout = _cotangents(32, s, n, dev)
+    k2 = fv.fused_mlp_bwd_rays(od, z, *gout, p)
+    on = fv.fused_mlp_bwd_rays(od, z, *gout, p, gate=_gate("on", n, s, dev))
+    off = fv.fused_mlp_bwd_rays(od, z, *gout, p, gate=_gate("off", n, s, dev))
+    gate = _gate("mixed", n, s, dev, seed=33)
+    got = fv.fused_mlp_bwd_rays(od, z, *gout, p, gate=gate)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(on, k2))
+    assert not any(bool(t.any()) for t in off)
+    want = fv.fused_mlp_bwd_rays_plain(od, z, *gout, p, gate=gate)
+    other = fv.fused_mlp_bwd_rays_plain(od.cpu(), z.cpu(),
+                                        *(g.cpu() for g in gout), _on_cpu(p),
+                                        gate=gate.cpu())
+    _grads_close(got, want, other)
+
+
+def test_gated_bwd_kernel_is_deterministic_and_counted(dev):
+    """Two launches at a half-on gate give the same bits (more than one
+    chunk of points); each counts one gated launch and no K2 launch."""
+    p = _packed(34, dev)
+    od, z = _inputs(35, 4096, 40, dev)
+    gout = _cotangents(36, 40, 4096, dev)
+    gate = _gate("mixed", 4096, 40, dev, seed=37)
+    before = (fv.fused_mlp_bwd_rays.launches,
+              fv.fused_mlp_bwd_rays.gated_launches)
+    a = fv.fused_mlp_bwd_rays(od, z, *gout, p, gate=gate)
+    b = fv.fused_mlp_bwd_rays(od, z, *gout, p, gate=gate)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert (fv.fused_mlp_bwd_rays.launches,
+            fv.fused_mlp_bwd_rays.gated_launches) == (before[0],
+                                                      before[1] + 2)
+
+
+def test_gated_full_width_training_step(dev):
+    """One per-image step of the lego configuration on the compact field,
+    gated by its support bounds (the 128^3 grid over the training camera's
+    frustum), against the same step ungated from the same state: the loss
+    bit-equal, both passes through K5 and K6, every update within two
+    learning rates of the ungated one (Adam's first step moves a weight by
+    about lr times its gradient's sign; the sum order differs)."""
+    from nerf_pytorch_paeng_tpu_torch.train import TrainState, make_optimizer
+    from nerf_pytorch_paeng_tpu_torch.train.precull import \
+        make_train_support_program
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_image_train_step
+
+    cfg = NerfConfig(N_rays=4096, N_samples_c=64, N_samples_f=128,
+                     iter_warmup=0, iter_N=10)
+    images, K, poses = make_synth_scene(n_views=1, H=64, W=64)
+    img = torch.from_numpy(images[0]).to(dev)
+    pose = torch.from_numpy(poses[0][:3, :4]).to(dev)
+
+    def state():
+        model = NeRF()
+        model.load_state_dict(compact_field_state_dict(r=1.5, k=20.0))
+        model.to(dev)
+        return TrainState(model, make_optimizer(model, cfg), 0)
+
+    st_u, st_g = state(), state()
+    w0 = torch.cat([p.detach().flatten().clone()
+                    for p in st_g.model.parameters()])
+    prog, _ = make_train_support_program(cfg, poses=poses[:1], K=K,
+                                         hw=(64, 64), device=dev)
+    support = prog(st_g.model)
+    assert bool(support[0][3][0]) and bool(support[1][3][0])
+    step = make_image_train_step(cfg, schedule_from_cfg(cfg), 64, 64, K)
+    m_u = step(st_u, img, pose)
+    counts = (fm.fused_mlp_eval_rays.gated_launches,
+              fv.fused_mlp_bwd_rays.gated_launches)
+    m_g = step(st_g, img, pose, support=support)
+    torch.cuda.synchronize()
+    assert (fm.fused_mlp_eval_rays.gated_launches - counts[0],
+            fv.fused_mlp_bwd_rays.gated_launches - counts[1]) == (2, 2)
+    assert torch.equal(m_u["loss"], m_g["loss"])
+    assert 0.0 < float(m_g["gate_frac"]) < 1.0
+    du, dg = (torch.cat([p.detach().flatten() for p in st.model.parameters()])
+              - w0 for st in (st_u, st_g))
+    assert float((du - dg).abs().max()) <= 2 * cfg.lr * (1 + 1e-3)

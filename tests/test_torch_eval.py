@@ -83,7 +83,7 @@ def test_cli_overrides_and_device_knob():
 
 
 @pytest.mark.parametrize("knob", [("use_pallas", "false"),
-                                  ("train_precull", "auto")])
+                                  ("scan_chunk", "4")])
 def test_unported_tpu_knobs_are_refused(knob, tmp_path):
     """A TPU knob of the JAX package fails loudly instead of being
     ignored, on the command line and in a config file."""

@@ -146,6 +146,5 @@ def test_config_knobs_are_the_jax_packages():
     assert set(ours) - set(theirs) == {"device"}
     for k, v in ours.items():
         assert k == "device" or theirs[k] == v, k
-    for name in ("use_pallas", "use_rays_train", "sp_shards",
-                 "train_precull"):
+    for name in ("use_pallas", "use_rays_train", "sp_shards"):
         assert name in theirs and name not in ours, name

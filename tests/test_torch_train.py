@@ -192,14 +192,14 @@ def test_metric_logger_schema_and_resume(tmp_path):
     rows = list(csv.DictReader(open(path)))
     assert [r["step"] for r in rows] == ["10", "20"]
     assert set(rows[0]) == {"step", "loss", "loss_c", "loss_f", "psnr",
-                            "psnr_c", "psnr_f", "lr", "steps_per_sec",
-                            "rays_per_sec"}
+                            "psnr_c", "psnr_f", "lr", "gate_frac",
+                            "steps_per_sec", "rays_per_sec"}
     assert float(rows[1]["rays_per_sec"]) == pytest.approx(
         128 * float(rows[1]["steps_per_sec"]))
     resumed = MetricLogger(str(tmp_path), "exp")           # appends
-    resumed.log(30, {"loss": 0.125})
+    resumed.log(30, {"loss": 0.125, "gate_frac": 0.5})
     with pytest.raises(ValueError):                      # not in the schema
-        resumed.log(40, {"gate_frac": 0.5})
+        resumed.log(40, {"grad_norm": 0.5})
     resumed.close()
     assert len(list(csv.DictReader(open(path)))) == 3
     MetricLogger(str(tmp_path), "exp", fresh=True).close()  # truncates
