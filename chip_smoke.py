@@ -75,6 +75,28 @@
    inputs of that gated step (rays, depths, cotangents, gates) with the
    seeded random weights, against their plain versions.
 
+7. Plane kernels (in the kernel phase): K8 (``fused_mlp_eval``) with bf16
+   outputs at the eval block's plane (131072 rays x 164 samples, the
+   merged count of ``--N_samples_f 100``) and with float32 outputs at the
+   training planes (4096 x 64 and 4096 x 192), K9 (``fused_mlp_bwd``) at
+   the training planes with loss-like cotangents, against their plain
+   versions (K9 with K2's tolerance and floor, two launches bit-equal),
+   timed beside their bounds.
+8. Plane training phase: the training entry with ``--use_rays_train
+   false`` (30 steps) and at ``--N_rays 4000`` (10 steps): every step must
+   launch K8 and K9 twice and nothing else, the losses must be finite
+   (and fall over the 30); step times and one profiled plane step.  One
+   step from the same state and draws through the ray pair and the plane
+   pair: the losses within ``PLANE_AB_LOSS_RTOL``, the updates within two
+   learning rates.  Then K8 and K9 on that step's own planes and
+   cotangents with the seeded weights, against their plain versions.
+9. Plane frames: ``--eval_only`` with ``--N_samples_f 0`` (coarse only:
+   K8) and ``--N_samples_f 100`` (K7 for the coarse density, K8), and
+   ``--render_only --N_samples_f 100`` (3 orbit views of the compact field
+   through the culled renderer's plane branches): launches K7 and K8 only,
+   frame times beside the ray route's of this run, one frame of each
+   against the plain versions (>= 35 dB).
+
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -126,6 +148,13 @@ GATED_EVERY = 20                  # --train_precull_every of the gated phase
 # (0.133 on a 64^3 grid, CPU estimate); that run is kept as the policy's
 # fallback case.
 GATED_RADIUS = 1.0
+PLANE_FINE = 100                  # --N_samples_f of the plane frames: 164
+PLANE_STEPS = 30                  # --use_rays_train false
+PLANE_SHAPE_STEPS = 10            # --N_rays 4000
+PLANE_RENDER_VIEWS = 3
+# the ray and the plane pair on one step from the same state and draws:
+# both bf16, but positions, directions and sums round at other points
+PLANE_AB_LOSS_RTOL = 1e-2
 
 
 def log(*a):
@@ -652,7 +681,10 @@ def launch_counters() -> dict:
                                               "gated_launches"),
             "fused_mlp_bwd_rays_gated": (fv.fused_mlp_bwd_rays,
                                          "gated_launches"),
-            "fused_mlp_sigma": (fm.fused_mlp_sigma, "launches")}
+            "fused_mlp_sigma": (fm.fused_mlp_sigma, "launches"),
+            "fused_mlp_eval": (fm.fused_mlp_eval, "launches"),
+            "fused_mlp_eval_f32": (fm.fused_mlp_eval, "launches"),
+            "fused_mlp_bwd": (fv.fused_mlp_bwd, "launches")}
 
 
 def zero_launches() -> None:
@@ -1324,6 +1356,397 @@ def gated_train_phase(fm, fv, packed_rand, work: str, data_root: str,
         profile=prof, path=path)
 
 
+def seeded_planes(n: int, s: int, seed: int, device):
+    """Position and unit direction planes [3, n * s] (point ray * s +
+    sample) of ``seeded_rays``' rays and depths: the plane layout's
+    inputs."""
+    od, z = seeded_rays(n, s, seed, device)
+    o, d = od[0:3], od[3:6]
+    x = (o[:, :, None] + d[:, :, None] * z.T[None]).reshape(3, -1)
+    u = d / d.norm(dim=0, keepdim=True)
+    return x.contiguous(), u[:, :, None].expand(3, n, s).reshape(3, -1).contiguous()
+
+
+def plane_cotangents(out, seed: int, device):
+    """``loss_like_cotangents`` of a [4, P] output -> [4, P]."""
+    return torch.cat(loss_like_cotangents([o[None] for o in out], seed,
+                                          device)).contiguous()
+
+
+def k8_check(fm, x, d, p, out_dtype, what: str, reps: int = 5):
+    """K8 against its plain version on the same planes: (max abs, rel L2,
+    kernel ms, plain ms); the kernel timed with CUDA events (``reps`` = 0:
+    one untimed launch)."""
+    run = lambda: fm.fused_mlp_eval(x, d, p, out_dtype=out_dtype)  # noqa: E731
+    k_ms, got = cuda_ms(run, reps=reps) if reps else (None, run())
+    p_ms, want = cuda_ms(lambda: fm.fused_mlp_eval_plain(
+        x, d, p, out_dtype=out_dtype), reps=1, warmup=0)
+    max_abs, rel_l2 = errors([got], [want])
+    check(max_abs <= KERNEL_TOL["max_abs"] and rel_l2 <= KERNEL_TOL["rel_l2"],
+          f"K8 {what} disagrees with its plain version ({max_abs}, {rel_l2})")
+    return max_abs, rel_l2, k_ms, p_ms
+
+
+def k9_check(fm, fv, x, d, g4, p, what: str):
+    """K9 against its plain version on the card, with the plain version on
+    the CPU as the floor (``grad_errors``): ((rel, limit, name), cos, max
+    abs, plain ms)."""
+    got = fv.fused_mlp_bwd(x, d, g4, p)
+    plain_ms, want = cuda_ms(lambda: fv.fused_mlp_bwd_plain(x, d, g4, p),
+                             reps=1, warmup=0)
+    other = fv.fused_mlp_bwd_plain(x.cpu(), d.cpu(), g4.cpu(),
+                                   fm._with_views(p["w"].cpu(), p["b"].cpu()))
+    (rel, limit, at), cos, max_abs = grad_errors(fm, got, want, other)
+    check(rel <= limit and cos >= GRAD_TOL["cos"],
+          f"K9 {what} disagrees with its plain version ({at}: {rel} > "
+          f"{limit} or cos {cos})")
+    return (rel, limit, at), cos, max_abs, plain_ms
+
+
+def plane_kernel_phase(fm, fv, packed, cfg, device):
+    """K8 (bf16 outputs) at the eval block's plane (131072 rays x 164
+    samples, the merged count of ``--N_samples_f 100``), K8 (float32) and
+    K9 at the training planes (4096 x 64 and 4096 x 192), seeded weights,
+    points, directions and loss-like cotangents; K9 launched twice must
+    give the same bits.  Bounds: FLOP of ``eval_flop_per_point`` and
+    ``bwd_flop_per_point`` over the bf16 peak, bytes of the planes,
+    cotangents, weights and outputs over the memory rate."""
+    rows, shapes = {}, []
+    wbytes = packed["fine"]["w"].numel() * 2 + packed["fine"]["b"].numel() * 4
+    p = packed["fine"]
+    s_eval = cfg.N_samples_c + PLANE_FINE
+    x, d = seeded_planes(BLOCK, s_eval, seed=7000, device=device)
+    n_pts = x.shape[1]
+    max_abs, rel_l2, k_ms, p_ms = k8_check(fm, x, d, p, torch.bfloat16,
+                                           f"bf16 at {n_pts} points")
+    b_ms, b_by = bound(fm.eval_flop_per_point(cfg.L_x, cfg.L_d) * n_pts,
+                       n_pts * (24 + 8) + wbytes)
+    log(f"kernel fused_mlp_eval (bf16 out): P={n_pts} ({BLOCK} x {s_eval}) "
+        f"max_abs={max_abs:.3e} rel_l2={rel_l2:.3e} (tolerance {KERNEL_TOL})"
+        f" ms={k_ms:.3f} plain_ms={p_ms:.3f} bound_ms={b_ms:.3f} "
+        f"({fm.eval_flop_per_point(cfg.L_x, cfg.L_d) * n_pts / k_ms / 1e9:.1f}"
+        f" TFLOP/s; {k_ms * 1e6 / n_pts:.3f} ns a point)")
+    rows["fused_mlp_eval"] = {
+        "name": "fused_mlp_eval", "route": "cuda",
+        "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp.cu",
+        "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp.py:151",
+        "launches": None, "max_abs_err": max_abs, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "points": n_pts}
+    del x, d
+    for s in (cfg.N_samples_c, cfg.N_samples_c + cfg.N_samples_f):
+        x, d = seeded_planes(TRAIN_RAYS, s, seed=8000 + s, device=device)
+        n_pts = x.shape[1]
+        k8_abs, k8_rel, k8_ms, k8_plain_ms = k8_check(
+            fm, x, d, p, torch.float32, f"float32 at {n_pts} points")
+        k8_b, k8_by = bound(fm.eval_flop_per_point(cfg.L_x, cfg.L_d) * n_pts,
+                            n_pts * (24 + 16) + wbytes)
+        g4 = plane_cotangents(fm.fused_mlp_eval(x, d, p), 9000 + s, device)
+        k9_ms, got = cuda_ms(lambda: fv.fused_mlp_bwd(x, d, g4, p), reps=5)
+        again = fv.fused_mlp_bwd(x, d, g4, p)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"K9 at {n_pts} points: two launches differ")
+        (rel, limit, at), cos, k9_abs, k9_plain_ms = k9_check(
+            fm, fv, x, d, g4, p, f"at {n_pts} points")
+        k9_b, k9_by = bound(fm.bwd_flop_per_point(cfg.L_x, cfg.L_d) * n_pts,
+                            n_pts * (24 + 16) + wbytes
+                            + (fm.W_TOTAL + fm.B_TOTAL) * 4)
+        log(f"kernel fused_mlp_eval (float32 out): P={n_pts} ({TRAIN_RAYS} x "
+            f"{s}) max_abs={k8_abs:.3e} rel_l2={k8_rel:.3e} ms={k8_ms:.3f} "
+            f"plain_ms={k8_plain_ms:.3f} bound_ms={k8_b:.3f}")
+        log(f"kernel fused_mlp_bwd: P={n_pts} ({TRAIN_RAYS} x {s}) worst "
+            f"rel_l2={rel:.3e} against its limit {limit:.3e} ({at}) min "
+            f"cos={cos:.6f} max_abs={k9_abs:.3e} (tolerance {GRAD_TOL}; two "
+            f"launches bit-identical) ms={k9_ms:.3f} plain_ms="
+            f"{k9_plain_ms:.3f} bound_ms={k9_b:.3f} "
+            f"({fm.bwd_flop_per_point(cfg.L_x, cfg.L_d) * n_pts / k9_ms / 1e9:.1f}"
+            f" TFLOP/s of gradient products)")
+        shapes.append(dict(N=TRAIN_RAYS, S=s, P=n_pts, k8_ms=k8_ms,
+                           k8_plain_ms=k8_plain_ms, k8_bound_ms=k8_b,
+                           k8_max_abs=k8_abs, k9_ms=k9_ms,
+                           k9_plain_ms=k9_plain_ms, k9_bound_ms=k9_b,
+                           k9_rel_l2=rel, k9_rel_l2_limit=limit, k9_worst=at,
+                           k9_cos=cos, k9_max_abs=k9_abs))
+        rows["fused_mlp_eval_f32"] = {
+            "name": "fused_mlp_eval_f32", "route": "cuda",
+            "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp.cu",
+            "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp.py:151",
+            "launches": None, "max_abs_err": k8_abs, "ms": k8_ms,
+            "plain_ms": k8_plain_ms, "bound_ms": k8_b, "bound_by": k8_by,
+            "library_ms": None, "points": n_pts}
+        rows["fused_mlp_bwd"] = {
+            "name": "fused_mlp_bwd", "route": "cuda",
+            "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp_vjp.cu",
+            "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp_vjp.py:122",
+            "launches": None, "max_abs_err": k9_abs, "ms": k9_ms,
+            "plain_ms": k9_plain_ms, "bound_ms": k9_b, "bound_by": k9_by,
+            "library_ms": None, "points": n_pts}
+    return rows, shapes
+
+
+def record_plane_pair(fv, calls: list):
+    """Wrap ``fused_mlp_train`` (which ``make_train_field_fns`` imports at
+    call time) to keep each call's planes in ``calls`` and, from a hook on
+    its output, the cotangent its backward receives; returns the function
+    that undoes it."""
+    pair = fv.fused_mlp_train
+
+    def rec(w, b, xplane, dplane, *a, **kw):
+        out = pair(w, b, xplane, dplane, *a, **kw)
+        entry = dict(x=xplane, d=dplane, g4=None)
+        calls.append(entry)
+        out.register_hook(lambda g, e=entry: e.__setitem__(
+            "g4", g.detach().float().contiguous()))
+        return out
+
+    fv.fused_mlp_train = rec
+
+    def undo():
+        fv.fused_mlp_train = pair
+    return undo
+
+
+def plane_train_run(work, data_root, device, label: str, iters: int,
+                    *extra) -> dict:
+    """``main_worker`` for ``iters`` steps on a plane route; checks that
+    every step launched K8 and K9 twice and nothing else."""
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    cfg = load_config(train_args(work, data_root, f"smoke_{label}", iters,
+                                 "--idx_print", "10", "--idx_save", "0",
+                                 *extra))
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = driver.main_worker(cfg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for name, want in launches.items():
+        expect = 2 * iters if name in ("fused_mlp_eval_f32",
+                                       "fused_mlp_bwd") else 0
+        if name == "fused_mlp_eval":       # K8's counter, read as bf16 too
+            continue
+        check(want == expect, f"plane train [{label}]: {name} launched "
+              f"{want} times in {iters} steps, not {expect}")
+    losses = res["loss"]
+    check(len(losses) == iters and all(map(math.isfinite, losses)),
+          f"plane train [{label}]: non-finite losses")
+    step_ms = [t * 1e3 for t in res["step_s"]]
+    steady = step_ms[5:]
+    out = dict(cfg=cfg, launches=launches, losses=losses, step_ms=step_ms,
+               median_step_ms=statistics.median(steady), wall_s=wall,
+               peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    log(f"plane train [{label}]: launches {launches} in {iters} steps; loss "
+        f"first {losses[0]:.5f} last {losses[-1]:.5f}; step device ms median "
+        f"of 6.. {out['median_step_ms']:.2f} (min {min(steady):.2f}, max "
+        f"{max(steady):.2f}); wall {wall:.1f} s; peak device memory "
+        f"{out['peak_gb']:.2f} GB")
+    return out
+
+
+def plane_train_phase(fm, fv, packed_rand, work, data_root, device):
+    """The plane training pair on the lego config at full width: 30 steps
+    with ``--use_rays_train false``, 10 at ``--N_rays 4000``, a profiled
+    plane step, one step ray against plane from the same state and draws,
+    and K8 and K9 on that step's own inputs with the seeded weights."""
+    import dataclasses
+
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.train import create_train_state
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import (make_image_train_step,
+                                                         uses_ray_pair)
+
+    runs = {"planes": plane_train_run(work, data_root, device, "plane",
+                                      PLANE_STEPS, "--use_rays_train",
+                                      "false")}
+    launches = runs["planes"]["launches"]
+    losses = runs["planes"]["losses"]
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    check(last < first, f"plane loss did not fall: first 10 {first}, last 10 "
+          f"{last}")
+    runs["n4000"] = plane_train_run(work, data_root, device, "plane4000",
+                                    PLANE_SHAPE_STEPS, "--N_rays", "4000")
+
+    cfg = runs["planes"]["cfg"]
+    cfg_rays = dataclasses.replace(cfg, use_rays_train=True)
+    check(not uses_ray_pair(cfg, cfg.N_rays)
+          and uses_ray_pair(cfg_rays, cfg.N_rays), "route switch")
+    images, (K, ext), (H, W), i_split = load_blender(
+        data_root, cfg.bkg_white, cfg.downsample, cfg.testskip)
+    i0 = int(i_split[0][0])
+    img = torch.as_tensor(images[i0], device=device)
+    pose = torch.as_tensor(ext[i0][:3, :4], device=device)
+    step = make_image_train_step(cfg, schedule_from_cfg(cfg), H, W, K)
+    st = create_train_state(cfg, device)
+    step(st, img, pose)                          # warm-up
+    prof = profile_call(lambda: step(st, img, pose), "plane train step",
+                        device)
+
+    # one step from the same fresh state and the same draws, both routes
+    st_r, st_p = create_train_state(cfg, device), create_train_state(cfg,
+                                                                     device)
+    w0 = {k: v.clone() for k, v in st_p.model.state_dict().items()}
+    m_r = make_image_train_step(cfg_rays, schedule_from_cfg(cfg), H, W, K)(
+        st_r, img, pose)
+    calls = []
+    undo = record_plane_pair(fv, calls)
+    try:
+        m_p = step(st_p, img, pose)
+    finally:
+        undo()
+    torch.cuda.synchronize(device)
+    lr = float(st_p.optimizer.param_groups[0]["lr"])
+    loss_rel = abs(float(m_p["loss"]) - float(m_r["loss"])) / float(m_r["loss"])
+    dr = torch.cat([(v - w0[k]).flatten()
+                    for k, v in st_r.model.state_dict().items()])
+    dp = torch.cat([(v - w0[k]).flatten()
+                    for k, v in st_p.model.state_dict().items()])
+    ab_max = float((dr - dp).abs().max())
+    log(f"plane train A/B, one step from the same state and draws: loss ray "
+        f"{float(m_r['loss'])!r} plane {float(m_p['loss'])!r}, relative "
+        f"{loss_rel:.3e} (limit {PLANE_AB_LOSS_RTOL}); updates differ by max "
+        f"abs {ab_max:.3e} (limit 2 lr = {2 * lr:.3e})")
+    check(loss_rel <= PLANE_AB_LOSS_RTOL, f"ray vs plane loss {loss_rel}")
+    check(ab_max <= 2 * lr * (1 + 1e-3), "ray vs plane updates")
+
+    # K8 and K9 on that step's planes and cotangents, seeded weights
+    check(len(calls) == 2 and all(c["g4"] is not None for c in calls),
+          f"{len(calls)} plane passes recorded, or a lost cotangent")
+    path = []
+    p = packed_rand["fine"]
+    for c in calls:
+        n_pts = c["x"].shape[1]
+        k8_abs, k8_rel, _, _ = k8_check(fm, c["x"], c["d"], p, torch.float32,
+                                        f"path float32 at {n_pts}", reps=0)
+        (rel, limit, at), cos, k9_abs, _ = k9_check(
+            fm, fv, c["x"], c["d"], c["g4"], p, f"path at {n_pts}")
+        log(f"path kernel fused_mlp_eval (float32 out) and fused_mlp_bwd: "
+            f"P={n_pts}: K8 max_abs={k8_abs:.3e} rel_l2={k8_rel:.3e}; K9 "
+            f"worst rel_l2={rel:.3e} against {limit:.3e} ({at}) min "
+            f"cos={cos:.6f} max_abs={k9_abs:.3e}")
+        path.append(dict(P=n_pts, k8_max_abs=k8_abs, k8_rel_l2=k8_rel,
+                         k9_rel_l2=rel, k9_limit=limit, k9_worst=at,
+                         k9_cos=cos, k9_max_abs=k9_abs))
+    del calls
+    summary = {k: {kk: vv for kk, vv in r.items() if kk != "cfg"}
+               for k, r in runs.items()}
+    return launches, runs["n4000"]["launches"], dict(
+        runs=summary, profile=prof, path=path,
+        ab=dict(loss_rays=float(m_r["loss"]), loss_planes=float(m_p["loss"]),
+                loss_rel=loss_rel, update_max_abs=ab_max, lr=lr))
+
+
+def plane_frames(fm, cfg, H, W, K, packed, pose, device, generator=None):
+    """One frame through the kernels and through the plain versions, same
+    draws: (PSNR, kernel ms, plain ms)."""
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
+    frames, times = {}, {}
+    for label, kw in (("kernels", {}), ("plain", dict(
+            points_fn=fm.fused_mlp_sigma_plain,
+            plane_fn=fm.fused_mlp_eval_plain))):
+        render = make_frame_renderer(cfg, H, W, K, device,
+                                     stratified=generator is not None, **kw)
+        check(not render.rays_route, "a plane config took the ray kernels")
+        gen = (None if generator is None else
+               torch.Generator(device).manual_seed(generator))
+        t0 = time.perf_counter()
+        frames[label] = render(packed, pose, gen)
+        torch.cuda.synchronize(device)
+        times[label] = (time.perf_counter() - t0) * 1e3
+    rgb = frames["kernels"][0]
+    check(rgb.shape == (H, W, 3) and bool(torch.isfinite(rgb).all())
+          and bool(torch.isfinite(frames["kernels"][1]).all()),
+          "plane frame shape or finiteness")
+    return psnr(rgb, frames["plain"][0]), times["kernels"], times["plain"]
+
+
+def plane_eval_phase(fm, work: str, data_root: str, device, ray_frame_ms):
+    """``--eval_only`` with ``--N_samples_f 0`` (coarse only: K8) and
+    ``--N_samples_f 100`` (64 + 100 samples: K7 + K8) at 800x800 on the
+    eval phase's checkpoint, and ``--render_only --N_samples_f 100`` (3
+    orbit views of the compact field through the culled renderer's plane
+    branches); each path's launches, and one frame of each against the
+    plain versions."""
+    import dataclasses
+
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.data.render_pose import get_render_pose
+    from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import pack_nerf
+
+    base = ["--config", os.path.join(HERE, "configs/blender/lego.txt"),
+            "--testing_idx", "1", "--data_root", data_root,
+            "--log_dir", os.path.join(work, "logs")]
+    out, paths = {}, {}
+    cfg = load_config(base)
+    _, (K, ext), (H, W), i_split = load_blender(
+        data_root, cfg.bkg_white, cfg.downsample, cfg.testskip)
+    per_frame = -(-H * W // BLOCK)
+    for label, n_fine, extra in (
+            ("eval_f0", 0, ["--eval_only", "true"]),
+            ("eval_f100", PLANE_FINE, ["--eval_only", "true"]),
+            ("render_f100", PLANE_FINE,
+             ["--render_only", "true", "--exp_name", "smoke_render",
+              "--n_angle", str(PLANE_RENDER_VIEWS)])):
+        cfg = load_config(base + extra + ["--N_samples_f", str(n_fine)])
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res = driver.main_worker(cfg)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        frame_ms = [t * 1e3 for t in res["frame_s"]]
+        n = len(frame_ms)
+        if label.startswith("eval"):
+            check(n == 3, f"{label}: {n} test views")
+            want_k8, want_k7 = n * per_frame, (n * per_frame if n_fine else 0)
+        else:
+            check(n == PLANE_RENDER_VIEWS
+                  and res["rgbs"].shape == (n, H, W, 3)
+                  and bool(np.isfinite(res["rgbs"]).all()), "plane render")
+            want_k8 = sum(st["blocks"] for st in res["stats"])
+            want_k7 = n            # phase 1, one per frame; no support grid
+        for name, got in launches.items():
+            want = {"fused_mlp_eval": want_k8, "fused_mlp_eval_f32": want_k8,
+                    "fused_mlp_sigma": want_k7}.get(name, 0)
+            check(got == want, f"{label}: {name} launched {got} times, not "
+                  f"{want}")
+        # one frame again, kernels and plain versions, the same draws
+        model = driver.load_model(cfg, cfg.testing_idx, device)
+        packed = pack_nerf(model, cfg, device=device)
+        if label.startswith("eval"):
+            pose = torch.as_tensor(ext[i_split[2][0]][:3, :4])
+            p_db, k_ms, p_ms = plane_frames(fm, cfg, H, W, K, packed, pose,
+                                            device, cfg.seed + cfg.testing_idx)
+        else:
+            pose = torch.as_tensor(get_render_pose(PLANE_RENDER_VIEWS)[1][:3, :4])
+            p_db, k_ms, p_ms = plane_frames(
+                fm, dataclasses.replace(cfg, perturb=0.0), H, W, K, packed,
+                pose, device)
+        check(p_db >= FRAME_PSNR_MIN, f"{label}: kernels vs plain {p_db} dB")
+        stats = [dict(n_act=st["n_act"], blocks=st["blocks"])
+                 for st in res.get("stats", [])]
+        ray_ms = ray_frame_ms["render" if label.startswith("render")
+                              else "eval"]
+        log(f"plane {label}: launches {launches}; frame device ms "
+            f"{['%.1f' % t for t in frame_ms]} (CUDA events; the ray route "
+            f"at 64+128 in this run: {['%.1f' % t for t in ray_ms]}); "
+            f"wall {wall:.2f} s; kernels vs plain PSNR {p_db:.2f} dB (min "
+            f"{FRAME_PSNR_MIN}), frame {k_ms:.1f} ms kernels, {p_ms:.1f} ms "
+            f"plain; culled stats {stats}")
+        paths[label] = launches
+        out[label] = dict(frame_ms=frame_ms, wall_s=wall, stats=stats,
+                          kernels_vs_plain_psnr=p_db, frame_kernels_ms=k_ms,
+                          frame_plain_ms=p_ms,
+                          peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    return paths, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1364,6 +1787,8 @@ def main() -> int:
     rows.update(gated_rows)
     rows.update(gated_kernel_phase(fm, packed, cfg, device))
     rows["fused_mlp_sigma"] = points_kernel_phase(fm, packed, cfg, device)
+    plane_rows, plane_shapes = plane_kernel_phase(fm, fv, packed, cfg, device)
+    rows.update(plane_rows)
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1381,16 +1806,27 @@ def main() -> int:
         resume = resume_phase(work, data_root, device)
         gated_launches, gated_stats = gated_train_phase(
             fm, fv, packed, work, data_root, device)
+        plane_launches, n4000_launches, plane_stats = plane_train_phase(
+            fm, fv, packed, work, data_root, device)
+        plane_frame_launches, plane_frame_stats = plane_eval_phase(
+            fm, work, data_root, device,
+            {"eval": stats["frame_ms"], "render": render_stats["frame_ms"]})
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each path's own run, counters at 0 before it: K3 and K1 on the eval
     # path, K7, K4 and K5 (bf16 outputs) on the render path, K1, K2 and K7
     # on the training path, K5 (float32 outputs), K6 and K7 on the gated
-    # training path.  K5's two rows share a counter: each reads its path.
+    # training path, K8 (float32 outputs) and K9 on the two plane training
+    # paths, K8 (bf16) and K7 on the plane eval and render paths.  K5's and
+    # K8's two rows share a counter each: each row reads its own paths.
     paths = {"eval": eval_launches, "render": render_launches,
-             "train": train_launches, "gated_train": gated_launches}
+             "train": train_launches, "gated_train": gated_launches,
+             "plane_train": plane_launches, "plane_train_n4000": n4000_launches,
+             **{f"plane_{k}": v for k, v in plane_frame_launches.items()}}
     only = {"fused_mlp_eval_rays_gated": ("render",),
-            "fused_mlp_eval_rays_gated_f32": ("gated_train",)}
+            "fused_mlp_eval_rays_gated_f32": ("gated_train",),
+            "fused_mlp_eval": tuple(f"plane_{k}" for k in plane_frame_launches),
+            "fused_mlp_eval_f32": ("plane_train", "plane_train_n4000")}
     for name, row in rows.items():
         row["launches"] = sum(paths[p][name] for p in only.get(name, paths))
         check(row["launches"] > 0, f"{name} never launched on a main path")
@@ -1413,6 +1849,11 @@ def main() -> int:
     log(json.dumps({"gated_train": {**gated_stats,
                                     "launches": gated_launches,
                                     "kernel_shapes": gated_shapes}}))
+    log(json.dumps({"plane_train": {**plane_stats, "launches": plane_launches,
+                                    "launches_n4000": n4000_launches,
+                                    "kernel_shapes": plane_shapes}}))
+    log(json.dumps({"plane_frames": {
+        **plane_frame_stats, "launches": plane_frame_launches}}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,13 @@ the same dialect (inline ``#`` comments, bare action flags such as
 ``bkg_white_true``, bracketed lists) and every option under the same name,
 so one config file drives both packages.  Of the JAX package's additions it
 keeps those the ported slices read (``seed``, ``eval_only``, ``render_only``,
-``compute_dtype``, ``log_dir``, ``lpips_weights``, the seven knobs of
-the culled frame renderer, ``render_cull`` ... ``render_gate_fine``, and
-the five of occupancy-gated training, ``train_precull`` ...
-``train_precull_backoff_max``) and adds one knob, ``device``.  The JAX
-package's other TPU knobs (``use_pallas``, sharding, ``scan_chunk``, ...)
-are not fields here: a config file or command line that sets one fails
-instead of being ignored.
+``compute_dtype``, ``log_dir``, ``lpips_weights``, ``use_rays_train``, the
+seven knobs of the culled frame renderer, ``render_cull`` ...
+``render_gate_fine``, and the five of occupancy-gated training,
+``train_precull`` ... ``train_precull_backoff_max``) and adds one knob,
+``device``.  The JAX package's other TPU knobs (``use_pallas``, sharding,
+``scan_chunk``, ...) are not fields here: a config file or command line
+that sets one fails instead of being ignored.
 """
 from __future__ import annotations
 
@@ -107,6 +107,10 @@ class NerfConfig:
     compute_dtype: str = "bfloat16"
     log_dir: str = ""             # defaults to <repo>/logs
     lpips_weights: str = ""       # VGG16 weights .npz for LPIPS ("" = nan)
+    # train on the ray-major kernel pair (K1/K2, positions built in the
+    # kernel) where its shapes apply; off, or for other shapes, on the
+    # plane pair (K8/K9)
+    use_rays_train: bool = True
 
     # ====== The culled frame renderer (eval/frame.py; the JAX package's
     # config.py documents each).  "auto" renders through the

@@ -199,8 +199,8 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
               f"{cfg.train_precull_every} iters)")
     elif train_precull_mode(cfg) == "on":
         print(">> train_precull requested but inapplicable here (needs "
-              "blender data, the ray-major kernel shapes and a usable "
-              "support grid) — running ungated")
+              "blender data, the ray-major kernel pair (use_rays_train and "
+              "its shapes) and a usable support grid) — running ungated")
 
     logger = MetricLogger(cfg.logdir, cfg.exp_name,
                           fresh=(cfg.iter_start == 0))

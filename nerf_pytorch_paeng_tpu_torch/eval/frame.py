@@ -7,7 +7,7 @@ Counterpart of the JAX package's ``eval/frame.py`` on a single device.
 to the dense one.  Held-out evaluation forces the dense one
 (``eval/test.py``).
 
-**Dense** (``render_cull="none"``), per block of rays:
+**Dense** (``render_cull="none"``, or no fine pass), per block of rays:
 
 1. stratified coarse depths;
 2. the sigma kernel (``fused_mlp_sigma_rays``) over the coarse samples;
@@ -47,6 +47,15 @@ block (``renderer.launches_per_frame``).
   evaluation would give.  Invalid bounds, and rays whose segment leaves
   the grid's cube, are never gated.
 
+**The plane route.**  Where the sample counts are not whole 8-sample rows
+(``_use_rays_kernels``), and in the dense renderer without a fine pass,
+both renderers take the JAX package's plane layout
+(``ops/render.render_rays_from_cfg`` and ``hierarchical_fine_pass``): K7
+(``fused_mlp_sigma``) on the coarse position plane where only the density
+is needed, K8 (``fused_mlp_eval``, or ``plane_fn``) as the field.  The
+pre-cull and gate-fine gate the ray kernels, so they are off there
+(``render_precull auto`` is off there in the JAX package too).
+
 Each culled frame appends ``{"n_act", "blocks", "gate_frac_coarse",
 "gate_frac_fine"}`` to ``renderer.stats`` (the gate fractions are the
 skipped share of (tile, row) blocks, 0-dim device tensors, or None where
@@ -65,15 +74,18 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..kernels.fused_mlp import (fused_mlp_eval_rays, fused_mlp_sigma,
-                                 fused_mlp_sigma_rays)
+from ..kernels.fused_mlp import (fused_mlp_eval, fused_mlp_eval_rays,
+                                 fused_mlp_sigma, fused_mlp_sigma_rays)
 from ..ops.occupancy import support_bounds_from_sigma
 from ..ops.rays import get_rays
-from ..ops.render import (GATE_ROWS, hierarchical_z_vals, pack_od, span_sort,
-                          tile_row_gate, train_support_intervals,
+from ..ops.render import (GATE_ROWS, hierarchical_fine_pass,
+                          hierarchical_z_vals, make_field_fns, make_sigma_fn,
+                          pack_od, position_plane, render_rays_from_cfg,
+                          span_sort, tile_row_gate, train_support_intervals,
                           truncation_bounds, truncation_window)
 from ..ops.sampling import stratified_z_vals
-from ..ops.volume import _disp_from, volume_render_rays_t, weights_from_sigma_t
+from ..ops.volume import (_disp_from, volume_render_rays_t,
+                          weights_from_sigma, weights_from_sigma_t)
 
 DEFAULT_BLOCK = 131072
 PRECULL_GRID = 128     # the support grid's cells per axis on the card
@@ -81,16 +93,14 @@ _OFF = ("off", "false", "f", "no", "n", "0")
 
 
 def _check_supported(cfg) -> None:
-    """The fused kernels take the reference architecture; this slice
-    renders blender scenes with a fine pass."""
+    """The fused kernels take the reference architecture; the port renders
+    blender scenes."""
     if not (cfg.netDepth == 8 and cfg.netWidth == 256
             and 1 <= cfg.L_x <= 10 and 1 <= cfg.L_d <= 4):
         raise NotImplementedError(
             "the port renders the 8x256 reference MLP (1<=L_x<=10, "
             f"1<=L_d<=4) only; got {cfg.netDepth}x{cfg.netWidth}, "
             f"L_x={cfg.L_x}, L_d={cfg.L_d}")
-    if cfg.N_samples_f <= 0:
-        raise NotImplementedError("the port renders with a fine pass only")
     if cfg.data_type != "blender":
         raise NotImplementedError(
             f"data_type={cfg.data_type!r}: NDC rays are not ported yet")
@@ -101,26 +111,30 @@ def make_frame_renderer(cfg, H: int, W: int, K, device,
                         stratified: bool = True,
                         sigma_fn: Callable = fused_mlp_sigma_rays,
                         field_fn: Callable = fused_mlp_eval_rays,
-                        points_fn: Callable = fused_mlp_sigma):
+                        points_fn: Callable = fused_mlp_sigma,
+                        plane_fn: Callable = fused_mlp_eval):
     """Returns ``render(packed, c2w, generator=None) -> (rgb [H,W,3],
     disp [H,W])`` for packed weights from ``kernels.fused_mlp.pack_nerf``:
-    the culled renderer for ``cfg.render_cull == "auto"``, else the dense
-    one.
+    the culled renderer for ``cfg.render_cull == "auto"`` with a fine
+    pass, else the dense one.
 
-    ``sigma_fn`` / ``field_fn`` / ``points_fn`` default to the kernel
-    wrappers; passing the plain versions renders the same frame without
-    the kernels.  The kernels emit bf16 logits, as on the JAX package's
-    frame path.  The ray block is ``block_rays``, else ``cfg.chunk_rays``,
-    else min(131072, H*W)."""
+    ``sigma_fn`` / ``field_fn`` / ``points_fn`` / ``plane_fn`` default to
+    the kernel wrappers; passing the plain versions renders the same frame
+    without the kernels.  The kernels emit bf16 logits, as on the JAX
+    package's frame path.  The ray block is ``block_rays``, else
+    ``cfg.chunk_rays``, else min(131072, H*W).  ``render.rays_route`` says
+    whether the frame runs the ray kernels (K3/K4, K1/K5) or the plane
+    layout (K7 for the coarse density, K8)."""
     _check_supported(cfg)
     device = torch.device(device)
     block = int(block_rays or cfg.chunk_rays or min(DEFAULT_BLOCK, H * W))
     if cfg.render_cull == "auto" and cfg.N_samples_f > 0:
         return _make_culled_frame_renderer(cfg, H, W, K, device, block,
                                            stratified, sigma_fn, field_fn,
-                                           points_fn)
+                                           points_fn, plane_fn)
     return _make_dense_frame_renderer(cfg, H, W, K, device, block,
-                                      stratified, sigma_fn, field_fn)
+                                      stratified, sigma_fn, field_fn,
+                                      points_fn, plane_fn)
 
 
 def _frame_rays(H, W, K, c2w, device):
@@ -131,12 +145,29 @@ def _frame_rays(H, W, K, c2w, device):
 
 
 def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
-                               sigma_fn, field_fn):
+                               sigma_fn, field_fn, points_fn, plane_fn):
     n_total = H * W
     n_coarse, n_fine = cfg.N_samples_c, cfg.N_samples_f
     near, far, perturb = float(cfg.near), float(cfg.far), float(cfg.perturb)
+    use_rays = _use_rays_kernels(cfg) and n_fine > 0
+
+    def render_block_planes(packed, rays_o, rays_d, generator):
+        """The JAX package's plane route: K7 as the coarse density (with a
+        fine pass), K8 as the field."""
+        coarse, fine = make_field_fns(packed["coarse"], packed["fine"], cfg,
+                                      plane_fn)
+        sigma = (make_sigma_fn(packed["coarse"], cfg, points_fn)
+                 if n_fine > 0 else None)
+        out = render_rays_from_cfg(coarse, fine, rays_o, rays_d, cfg,
+                                   stratified=stratified,
+                                   coarse_sigma_fn=sigma, generator=generator)
+        if n_fine > 0:
+            return out.rgb_f, out.disp_f
+        return out.rgb_c, out.disp_c
 
     def render_block(packed, rays_o, rays_d, generator):
+        if not use_rays:
+            return render_block_planes(packed, rays_o, rays_d, generator)
         m = rays_o.shape[0]
         z_vals = stratified_z_vals(m, near, far, n_coarse,
                                    perturb=stratified, generator=generator,
@@ -165,6 +196,7 @@ def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
 
     render.block = block
     render.launches_per_frame = -(-n_total // block)   # per kernel
+    render.rays_route = use_rays
     return render
 
 
@@ -333,7 +365,7 @@ def _cover(n_act: int, cum, sizes, s_classes):
 
 
 def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
-                                sigma_fn, field_fn, points_fn):
+                                sigma_fn, field_fn, points_fn, plane_fn):
     n_coarse, n_fine = cfg.N_samples_c, cfg.N_samples_f
     near, far = float(cfg.near), float(cfg.far)
     tau, trunc_eps = float(cfg.render_cull_tau), float(cfg.render_trunc_eps)
@@ -341,8 +373,11 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
     n_total = H * W
     s_full = n_coarse + n_fine
     s_classes = _trunc_classes(s_full, n_fine, trunc_eps)
+    # the plane route (sample counts off the 8-sample rows): K7 on the
+    # coarse positions in phase 1, K8 in phase 2, no gates
+    use_rays = _use_rays_kernels(cfg)
     use_precull = _use_precull(cfg, device)
-    use_gate_fine = _use_gate_fine(cfg, device) and _use_rays_kernels(cfg)
+    use_gate_fine = _use_gate_fine(cfg, device) and use_rays
     half = _precull_half(cfg)
     sizes = [sz for sz in (block, block // 2, block // 4, block // 8)
              if sz >= 8 and sz % 8 == 0] or [block]
@@ -367,6 +402,14 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
 
     def fine_block(packed, rays_o, rays_d, z_vals, weights, s_keep, fb,
                    generator):
+        if not use_rays:
+            _, fine = make_field_fns(packed["coarse"], packed["fine"], cfg,
+                                     plane_fn)
+            out = hierarchical_fine_pass(
+                fine, rays_o, rays_d, z_vals, weights, n_fine=n_fine,
+                perturb=perturb, n_keep=s_keep, trunc_eps=trunc_eps,
+                generator=generator)
+            return out.rgb, out.disp, None
         z_all = hierarchical_z_vals(z_vals, weights, n_fine=n_fine,
                                     perturb=perturb, generator=generator)
         if s_keep < s_full:
@@ -410,15 +453,21 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
                                    perturb=stratified, generator=generator,
                                    device=device)
         gate_c = None
-        if pc is not None:
+        if not use_rays:
+            sigma = make_sigma_fn(packed["coarse"], cfg, points_fn)(
+                position_plane(rays_o, rays_d, z_vals))
+            weights = weights_from_sigma(sigma.reshape(n_total, n_coarse),
+                                         z_vals, rays_d)
+        elif pc is not None:
             sigma_t, gate_c = _gated_sigma_t(packed["coarse"], rays_o,
                                              rays_d, z_vals, pc, half, near,
                                              far, cfg.L_x, sigma_fn)
+            weights = weights_from_sigma_t(sigma_t, z_vals.T, rays_d).T
         else:
             sigma_t = sigma_fn(pack_od(rays_o, rays_d),
                                z_vals.T.contiguous(), packed["coarse"],
                                L_x=cfg.L_x, out_dtype=torch.bfloat16)
-        weights = weights_from_sigma_t(sigma_t, z_vals.T, rays_d).T
+            weights = weights_from_sigma_t(sigma_t, z_vals.T, rays_d).T
         order, class_cum, rgb_frame, disp_frame = stats_tail(z_vals, weights)
         cum = class_cum.tolist()              # the frame's one host read
         n_act = cum[-1]
@@ -448,4 +497,5 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
     render.block = block
     render.sizes = sizes
     render.stats = stats
+    render.rays_route = use_rays
     return render

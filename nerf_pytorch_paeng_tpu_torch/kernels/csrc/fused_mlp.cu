@@ -1,4 +1,4 @@
-// Fused NeRF MLP for Hopper (sm_90a): three kernels.
+// Fused NeRF MLP for Hopper (sm_90a): four kernels.
 //
 //   nerf_sigma_rays   replaces the JAX package's TPU kernels
 //                     kernels/fused_mlp.py::_sigma_rays_kernel (gate null) and
@@ -10,6 +10,12 @@
 //   nerf_sigma_points replaces kernels/fused_mlp.py::_mlp_sigma_kernel: trunk
 //                     + density head at points x [3, P] -> sigma [P] (the
 //                     support-bound grids of the culled renderer).
+//   nerf_eval_points  replaces kernels/fused_mlp.py::_mlp_kernel: the full
+//                     field at points, x and d [3, P] -> [4, P] (r, g, b,
+//                     sigma rows; the TPU kernel's [8, P] with rgb in rows
+//                     0-2 and sigma in row 3, without its 4 rows of padding):
+//                     the plane layout, taken where the ray kernels' shapes
+//                     do not apply.
 //
 // Inputs: od [8, N] float32 (origin rows 0-2, unnormalised direction rows
 // 3-5), z [S, N] float32 depths, the packed weights of
@@ -55,7 +61,15 @@
 //    rows are gated;
 //  * points (the grid kernel): a block takes 128 consecutive points as
 //    rays with origin x, direction 0 and depth 0, so the in-block
-//    embedding sees x itself, and runs one trunk and the density head.
+//    embedding sees x itself, and runs one trunk and the density head;
+//  * points with directions (the plane kernel): a block takes 128
+//    consecutive points of both planes, so where K1 shares one direction
+//    term among a ray's S samples, here every point has its own: the
+//    direction embedding (of d as given: the caller's unit vectors, not
+//    normalised again) and its product with wvd run once per block, 6,912
+//    FLOP a point beside ~1.18 MFLOP (0.6%).  Bound by operations too: a
+//    point moves 24 B in and 8-16 B out.  The planes cost ~24 B a point of
+//    device memory that K1's layout avoids; a ragged last block is masked.
 // First cut: no wgmma/TMA and one block per SM; the rate against the bound
 // is in PERF.md.
 
@@ -115,15 +129,20 @@ __device__ __forceinline__ bool gated_off(const int* __restrict__ gate, int s, i
   return gate != nullptr && gate[blockIdx.x * (s >> 3) + (k >> 3)] == 0;
 }
 
+// the density and colour head weights as float
+__device__ void load_heads(const Smem& sm, const bf16* __restrict__ w) {
+  for (int i = threadIdx.x; i < WIDTH; i += THREADS)
+    sm.heads[i] = __bfloat162float(w[OFF_WDENS + i]);
+  for (int i = threadIdx.x; i < HALF * 3; i += THREADS)
+    sm.heads[WIDTH + i] = __bfloat162float(w[OFF_WCOL + i]);
+}
+
 // block start: rays of this tile into shared memory (rays past N are never
 // stored), head weights as float
 __device__ void load_block_inputs(const Smem& sm, const float* __restrict__ od,
                                   const bf16* __restrict__ w, int n, int ray0) {
   load_rays(sm.rays, od, n, ray0);
-  for (int i = threadIdx.x; i < WIDTH; i += THREADS)
-    sm.heads[i] = __bfloat162float(w[OFF_WDENS + i]);
-  for (int i = threadIdx.x; i < HALF * 3; i += THREADS)
-    sm.heads[WIDTH + i] = __bfloat162float(w[OFF_WCOL + i]);
+  load_heads(sm, w);
 }
 
 // the trunk for the current sample: act <- h7 (bf16), emb holds the
@@ -197,6 +216,78 @@ sigma_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
   }
 }
 
+// the view term of the tile's directions (rays 3-5): hvd = emb(d) @ wvd +
+// bv, float32; d scaled to unit length first when unit is set (the ray
+// kernels), as given otherwise (the points kernel)
+__device__ void view_term(const Smem& sm, const bf16* __restrict__ w,
+                          const float* __restrict__ b, int L_d, bool unit) {
+  const int warp = threadIdx.x >> 5;
+  const int row0 = (warp & 3) * 32, col0 = (warp >> 2) * (HALF / 2);
+  build_emb(sm.emb, sm.rays, nullptr, L_d, EMBD, 3, unit);
+  Acc<HALF> acc;
+  acc.zero();
+  gemm<HALF>(acc, sm.emb, EMB_LD, EMBD, w + OFF_WVD, sm.wbuf);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < HALF / 32; ++j)
+      wmma::store_matrix_sync(sm.hvd + (row0 + 16 * i) * HVD_LD + col0 + 16 * j,
+                              acc.f[i][j], HVD_LD, wmma::mem_row_major);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TILE * HALF; idx += THREADS)
+    sm.hvd[(idx / HALF) * HVD_LD + idx % HALF] += b[OFF_BV + idx % HALF];
+}
+
+// after the trunk (act holds h7): density, feature, view layer and colour;
+// the four logits of the tile's row at out + row_off + ray0 + p, p < n - ray0
+template <bool OUT_BF16>
+__device__ void field_heads(Smem& sm, const bf16* __restrict__ w, const float* __restrict__ b,
+                            void* r_out, void* g_out, void* b_out, void* s_out, long row_off,
+                            int n, int ray0) {
+  const int warp = threadIdx.x >> 5;
+  const int row0 = (warp & 3) * 32, col0 = (warp >> 2) * (HALF / 2);
+  density_head<OUT_BF16>(sm, b, s_out, row_off, n, ray0);
+  {  // feature head (no activation), in place over h7
+    Acc<WIDTH> acc;
+    acc.zero();
+    gemm<WIDTH>(acc, sm.act, ACT_LD, WIDTH, w + OFF_WFEAT, sm.wbuf);
+    epilogue<WIDTH>(acc, b + OFF_BFEAT, false, sm.act, ACT_LD, sm.scratch);
+  }
+  {  // view layer: relu(feat @ wvf + hvd) -> act[:, :128]
+    Acc<HALF> acc;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < HALF / 32; ++j)
+        wmma::load_matrix_sync(acc.f[i][j], sm.hvd + (row0 + 16 * i) * HVD_LD + col0 + 16 * j,
+                               HVD_LD, wmma::mem_row_major);
+    gemm<HALF>(acc, sm.act, ACT_LD, WIDTH, w + OFF_WVF, sm.wbuf);
+    epilogue<HALF>(acc, nullptr, true, sm.act, ACT_LD, sm.scratch);
+  }
+  __syncthreads();
+  {  // colour head on the CUDA cores
+    const int p = threadIdx.x >> 1, half = threadIdx.x & 1;
+    const bf16* h = sm.act + p * ACT_LD + half * (HALF / 2);
+    const float* wc = sm.heads + WIDTH + half * (HALF / 2) * 3;
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < HALF / 2; ++k) {
+      const float hk = __bfloat162float(h[k]);
+      a0 += hk * wc[3 * k];
+      a1 += hk * wc[3 * k + 1];
+      a2 += hk * wc[3 * k + 2];
+    }
+    a0 += __shfl_xor_sync(0xffffffffu, a0, 1);
+    a1 += __shfl_xor_sync(0xffffffffu, a1, 1);
+    a2 += __shfl_xor_sync(0xffffffffu, a2, 1);
+    if (half == 0 && ray0 + p < n) {
+      store_out<OUT_BF16>(r_out, row_off + ray0 + p, a0 + b[OFF_BCOL]);
+      store_out<OUT_BF16>(g_out, row_off + ray0 + p, a1 + b[OFF_BCOL + 1]);
+      store_out<OUT_BF16>(b_out, row_off + ray0 + p, a2 + b[OFF_BCOL + 2]);
+    }
+  }
+}
+
 template <bool OUT_BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
@@ -206,8 +297,6 @@ eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
   extern __shared__ __align__(128) unsigned char smem[];
   Smem sm = carve(smem, true);
   const int ray0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = (warp & 3) * 32, col0 = (warp >> 2) * (HALF / 2);
   const int k_begin = blockIdx.y * kchunk;
   const int k_end = min(s, k_begin + kchunk);
   if (gate != nullptr) {  // every row of this block's run gated: zeros, no view term
@@ -229,22 +318,7 @@ eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
   }
   load_block_inputs(sm, od, w, n, ray0);
   __syncthreads();
-
-  {  // per-ray view term: hvd = emb(d / |d|) @ wvd + bv, float32
-    build_emb(sm.emb, sm.rays, nullptr, L_d, EMBD);
-    Acc<HALF> acc;
-    acc.zero();
-    gemm<HALF>(acc, sm.emb, EMB_LD, EMBD, w + OFF_WVD, sm.wbuf);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < HALF / 32; ++j)
-        wmma::store_matrix_sync(sm.hvd + (row0 + 16 * i) * HVD_LD + col0 + 16 * j,
-                                acc.f[i][j], HVD_LD, wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < TILE * HALF; idx += THREADS)
-      sm.hvd[(idx / HALF) * HVD_LD + idx % HALF] += b[OFF_BV + idx % HALF];
-  }
+  view_term(sm, w, b, L_d, true);  // once per ray: emb(d / |d|) @ wvd + bv
 
   float* zrow = sm.scratch;
 #pragma unroll 1
@@ -267,48 +341,28 @@ eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
     __syncthreads();
     build_emb(sm.emb, sm.rays, zrow, L_x, EMBX);
     trunk(sm, w, b);
-    const long row_off = (long)k * n;
-    density_head<OUT_BF16>(sm, b, s_out, row_off, n, ray0);
-    {  // feature head (no activation), in place over h7
-      Acc<WIDTH> acc;
-      acc.zero();
-      gemm<WIDTH>(acc, sm.act, ACT_LD, WIDTH, w + OFF_WFEAT, sm.wbuf);
-      epilogue<WIDTH>(acc, b + OFF_BFEAT, false, sm.act, ACT_LD, sm.scratch);
-    }
-    {  // view layer: relu(feat @ wvf + hvd) -> act[:, :128]
-      Acc<HALF> acc;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < HALF / 32; ++j)
-          wmma::load_matrix_sync(acc.f[i][j], sm.hvd + (row0 + 16 * i) * HVD_LD + col0 + 16 * j,
-                                 HVD_LD, wmma::mem_row_major);
-      gemm<HALF>(acc, sm.act, ACT_LD, WIDTH, w + OFF_WVF, sm.wbuf);
-      epilogue<HALF>(acc, nullptr, true, sm.act, ACT_LD, sm.scratch);
-    }
-    __syncthreads();
-    {  // colour head on the CUDA cores
-      const int p = threadIdx.x >> 1, half = threadIdx.x & 1;
-      const bf16* h = sm.act + p * ACT_LD + half * (HALF / 2);
-      const float* wc = sm.heads + WIDTH + half * (HALF / 2) * 3;
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-#pragma unroll 8
-      for (int k = 0; k < HALF / 2; ++k) {
-        const float hk = __bfloat162float(h[k]);
-        a0 += hk * wc[3 * k];
-        a1 += hk * wc[3 * k + 1];
-        a2 += hk * wc[3 * k + 2];
-      }
-      a0 += __shfl_xor_sync(0xffffffffu, a0, 1);
-      a1 += __shfl_xor_sync(0xffffffffu, a1, 1);
-      a2 += __shfl_xor_sync(0xffffffffu, a2, 1);
-      if (half == 0 && ray0 + p < n) {
-        store_out<OUT_BF16>(r_out, row_off + ray0 + p, a0 + b[OFF_BCOL]);
-        store_out<OUT_BF16>(g_out, row_off + ray0 + p, a1 + b[OFF_BCOL + 1]);
-        store_out<OUT_BF16>(b_out, row_off + ray0 + p, a2 + b[OFF_BCOL + 2]);
-      }
-    }
+    field_heads<OUT_BF16>(sm, w, b, r_out, g_out, b_out, s_out, (long)k * n, n, ray0);
   }
+}
+
+// the full field at 128 consecutive points of the planes x, d [3, P]: the
+// view term per point (d as given), one trunk, the heads; out [4, P]
+template <bool OUT_BF16>
+__global__ void __launch_bounds__(THREADS, 1)
+eval_points_kernel(const float* __restrict__ x, const float* __restrict__ d,
+                   const bf16* __restrict__ w, const float* __restrict__ b, void* r_out,
+                   void* g_out, void* b_out, void* s_out, int p, int L_x, int L_d) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Smem sm = carve(smem, true);
+  const int pt0 = blockIdx.x * TILE;
+  load_points(sm.rays, x, d, p, pt0);
+  load_heads(sm, w);
+  __syncthreads();
+  view_term(sm, w, b, L_d, false);
+  build_emb(sm.emb, sm.rays, nullptr, L_x, EMBX, 0, false);  // emb is free: the product ended
+                                                             // on a barrier
+  trunk(sm, w, b);
+  field_heads<OUT_BF16>(sm, w, b, r_out, g_out, b_out, s_out, 0, p, pt0);
 }
 
 // trunk + density head at 128 consecutive points of x [3, P]
@@ -348,6 +402,29 @@ extern "C" int nerf_sigma_points(const float* x, const void* w, const float* b, 
   } else {
     if ((rc = launch_prep(sigma_points_kernel<false>, SMEM_SIGMA))) return rc;
     sigma_points_kernel<false><<<grid, THREADS, SMEM_SIGMA, st>>>(x, wb, b, sigma, p, L_x);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nerf_eval_points(const float* x, const float* d, const void* w, const float* b,
+                                void* out, int p, int L_x, int L_d, int out_bf16, void* stream) {
+  const dim3 grid((p + TILE - 1) / TILE);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bf16* wb = reinterpret_cast<const bf16*>(w);
+  // out [4, P]: rows r, g, b, sigma
+  const long row = (long)p * (out_bf16 ? 2 : 4);
+  char* o = reinterpret_cast<char*>(out);
+  int rc;
+  if (out_bf16) {
+    if ((rc = launch_prep(eval_points_kernel<true>, SMEM_EVAL))) return rc;
+    eval_points_kernel<true><<<grid, THREADS, SMEM_EVAL, st>>>(x, d, wb, b, o, o + row,
+                                                                o + 2 * row, o + 3 * row, p,
+                                                                L_x, L_d);
+  } else {
+    if ((rc = launch_prep(eval_points_kernel<false>, SMEM_EVAL))) return rc;
+    eval_points_kernel<false><<<grid, THREADS, SMEM_EVAL, st>>>(x, d, wb, b, o, o + row,
+                                                                 o + 2 * row, o + 3 * row, p,
+                                                                 L_x, L_d);
   }
   return (int)cudaGetLastError();
 }

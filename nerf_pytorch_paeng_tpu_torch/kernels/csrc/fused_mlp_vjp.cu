@@ -1,14 +1,26 @@
-// Backward of the fused NeRF MLP along rays, for Hopper (sm_90a): K2 and K6.
+// Backward of the fused NeRF MLP, for Hopper (sm_90a): K2, K6 and K9.
 //
-//   nerf_bwd_rays  replaces the JAX package's TPU kernels
-//                  kernels/fused_mlp_vjp.py::_bwd_rays_kernel (_bwd_rays_call,
-//                  gate=None; K2) and _bwd_rays_kernel_gated (gate given; K6):
-//                  for every sample of every ray, recompute the forward
-//                  (nothing is kept from nerf_eval_rays) and chain the
-//                  cotangents of (r, g, b, sigma) back to float32 gradients of
-//                  all 26 packed weights and biases, summed over all points.
-//                  With a gate, the samples of every gated-off block add
-//                  nothing and are not computed.
+//   nerf_bwd_rays    replaces the JAX package's TPU kernels
+//                    kernels/fused_mlp_vjp.py::_bwd_rays_kernel (_bwd_rays_call,
+//                    gate=None; K2) and _bwd_rays_kernel_gated (gate given; K6):
+//                    for every sample of every ray, recompute the forward
+//                    (nothing is kept from nerf_eval_rays) and chain the
+//                    cotangents of (r, g, b, sigma) back to float32 gradients
+//                    of all 26 packed weights and biases, summed over all
+//                    points.  With a gate, the samples of every gated-off
+//                    block add nothing and are not computed.
+//   nerf_bwd_points  replaces kernels/fused_mlp_vjp.py::_bwd_kernel (K9, via
+//                    _bwd_call): the same at the points of the planes x and d
+//                    [3, P] (the backward of nerf_eval_points), cotangents
+//                    [4, P].  It is K2's three launches with S = 1 and a chain
+//                    tile of 128 consecutive points; each point embeds its
+//                    own direction, as given, so wvd and bv get per-point
+//                    deltas (K2 stashes the direction embedding per point
+//                    already).  FLOP: K2's count per point (bwd_flop_per_sample,
+//                    which counts wvd's gradient per sample) plus the direction
+//                    product that K2 takes once per ray and K9 once per point
+//                    (kernels/fused_mlp.py::bwd_flop_per_point); bound by
+//                    operations.
 //
 // Inputs: od [8, N] and z [S, N] float32 as for nerf_eval_rays, the four
 // cotangents [S, N] float32, the packed bf16 weights and float32 biases of
@@ -234,8 +246,12 @@ __device__ __forceinline__ int chunk_tiles(const int* count, long tile0, int nti
   return left <= 0 ? 0 : (left < ntiles ? (int)left : ntiles);
 }
 
+// dplane null: rays, od [8, N] and z [S, N].  dplane given (K9): points, od
+// the position plane [3, N] and dplane the direction plane [3, N] (S = 1,
+// z unused); the directions are embedded as given.
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_chain_kernel(const float* __restrict__ od, const float* __restrict__ z,
+                 const float* __restrict__ dplane,
                  const float* __restrict__ gr, const float* __restrict__ gg,
                  const float* __restrict__ gb, const float* __restrict__ gs,
                  const bf16* __restrict__ w, const float* __restrict__ b,
@@ -288,12 +304,15 @@ bwd_chain_kernel(const float* __restrict__ od, const float* __restrict__ z,
     const int k = (int)(tg / ray_tiles), ray0 = (int)(tg % ray_tiles) * TILE;
     const long q0 = (long)t * TILE;   // first stash row of this tile
     __syncthreads();                  // the previous tile is done with smem
-    load_rays(rays, od, n, ray0);
+    if (dplane)
+      load_points(rays, od, dplane, n, ray0);
+    else
+      load_rays(rays, od, n, ray0);
     if (tid < TILE) {
       const int ray = ray0 + tid;
       const bool ok = ray < n;
       const long at = (long)k * n + ray;
-      zrow[tid] = ok ? z[at] : 0.0f;
+      zrow[tid] = ok && !dplane ? z[at] : 0.0f;
       // cotangents rounded to bf16; rays past N get zero cotangents, so
       // every delta and gradient contribution of theirs is zero
       gout[tid * 4 + 0] = ok ? __bfloat162float(__float2bfloat16(gr[at])) : 0.0f;
@@ -302,7 +321,10 @@ bwd_chain_kernel(const float* __restrict__ od, const float* __restrict__ z,
       gout[tid * 4 + 3] = ok ? __bfloat162float(__float2bfloat16(gs[at])) : 0.0f;
     }
     __syncthreads();
-    build_emb(emb, rays, zrow, L_x, EMBX);
+    if (dplane)
+      build_emb(emb, rays, nullptr, L_x, EMBX, 0, false);
+    else
+      build_emb(emb, rays, zrow, L_x, EMBX);
     __syncthreads();
     stash_tile(s_embx + q0 * EMBX, EMBX, emb, EMB_LD);
 
@@ -328,7 +350,8 @@ bwd_chain_kernel(const float* __restrict__ od, const float* __restrict__ z,
       for (int p = 0; p < TILE; ++p) s += __bfloat162float(act[p * ACT_LD + tid]) * gout[p * 4 + 3];
       part[B_TOTAL + tid] += s;
     }
-    build_emb(emb, rays, nullptr, L_d, EMBD);  // the embedding is free after the skip layer
+    // the embedding is free after the skip layer; K9's directions as given
+    build_emb(emb, rays, nullptr, L_d, EMBD, 3, dplane == nullptr);
     {                                          // feature layer (no activation), in place
       Acc<WIDTH> acc;
       acc.zero();
@@ -546,27 +569,11 @@ Plan make_plan(int n, int s) {
   return p;
 }
 
-}  // namespace
-
-// Workspace the caller allocates for nerf_bwd_rays at (n, s), in elements:
-// sizes[0] transposed weights (bf16), [1] stash (bf16), [2] chain partials
-// (float32), [3] weight-gradient partials (float32), [4] with a gate: the
-// active tile list and its length (int32).
-extern "C" void nerf_bwd_rays_workspace(int n, int s, long* sizes) {
-  const Plan p = make_plan(n, s);
-  sizes[0] = WT_TOTAL;
-  sizes[1] = (long)p.chunk * TILE * ST_PER_POINT;
-  sizes[2] = (long)p.nchunks * p.g1 * PART1;
-  sizes[3] = (long)p.nchunks * p.nsplit * WG_TOTAL;
-  sizes[4] = p.tiles + 1;
-}
-
-// gate null: K2; gate given (S % 8 == 0): K6, with tiles the sizes[4] ints
-extern "C" int nerf_bwd_rays(const float* od, const float* z, const float* gr, const float* gg,
-                             const float* gb, const float* gs, const void* w, const float* b,
-                             void* wt, void* stash, float* part1, float* part2, float* dw,
-                             float* db, const int* gate, int* tiles, int n, int s, int L_x,
-                             int L_d, void* stream) {
+// the three launches of K2, K6 (gate given) or K9 (dplane given, S = 1)
+int bwd_run(const float* od, const float* z, const float* dplane, const float* gr,
+            const float* gg, const float* gb, const float* gs, const void* w, const float* b,
+            void* wt, void* stash, float* part1, float* part2, float* dw, float* db,
+            const int* gate, int* tiles, int n, int s, int L_x, int L_d, void* stream) {
   const Plan p = make_plan(n, s);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* wb = reinterpret_cast<const bf16*>(w);
@@ -589,9 +596,9 @@ extern "C" int nerf_bwd_rays(const float* od, const float* z, const float* gr, c
   for (int c = 0; c < p.nchunks; ++c) {
     const long t0 = (long)c * p.chunk;
     const int ntc = (int)(p.tiles - t0 < p.chunk ? p.tiles - t0 : p.chunk);
-    bwd_chain_kernel<<<p.g1, THREADS, SMEM_CHAIN, st>>>(od, z, gr, gg, gb, gs, wb, b, wtb, sb,
-                                                        part1 + (long)c * p.g1 * PART1, n, L_x,
-                                                        L_d, t0, ntc, pc, list, count);
+    bwd_chain_kernel<<<p.g1, THREADS, SMEM_CHAIN, st>>>(od, z, dplane, gr, gg, gb, gs, wb, b,
+                                                        wtb, sb, part1 + (long)c * p.g1 * PART1,
+                                                        n, L_x, L_d, t0, ntc, pc, list, count);
     if ((rc = (int)cudaGetLastError())) return rc;
     wgrad_kernel<<<dim3(N_WTILES, p.nsplit), THREADS, SMEM_WGRAD, st>>>(
         sb, pc, ntc, part2 + (long)c * p.nsplit * WG_TOTAL, count, t0);
@@ -600,4 +607,40 @@ extern "C" int nerf_bwd_rays(const float* od, const float* z, const float* gr, c
   reduce_kernel<<<(int)((W_TOTAL + B_TOTAL + 255) / 256), 256, 0, st>>>(
       part2, p.nchunks * p.nsplit, part1, p.nchunks * p.g1, dw, db);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Workspace the caller allocates for nerf_bwd_rays at (n, s), in elements:
+// sizes[0] transposed weights (bf16), [1] stash (bf16), [2] chain partials
+// (float32), [3] weight-gradient partials (float32), [4] with a gate: the
+// active tile list and its length (int32).  nerf_bwd_points at P points
+// takes the workspace of (P, 1).
+extern "C" void nerf_bwd_rays_workspace(int n, int s, long* sizes) {
+  const Plan p = make_plan(n, s);
+  sizes[0] = WT_TOTAL;
+  sizes[1] = (long)p.chunk * TILE * ST_PER_POINT;
+  sizes[2] = (long)p.nchunks * p.g1 * PART1;
+  sizes[3] = (long)p.nchunks * p.nsplit * WG_TOTAL;
+  sizes[4] = p.tiles + 1;
+}
+
+// gate null: K2; gate given (S % 8 == 0): K6, with tiles the sizes[4] ints
+extern "C" int nerf_bwd_rays(const float* od, const float* z, const float* gr, const float* gg,
+                             const float* gb, const float* gs, const void* w, const float* b,
+                             void* wt, void* stash, float* part1, float* part2, float* dw,
+                             float* db, const int* gate, int* tiles, int n, int s, int L_x,
+                             int L_d, void* stream) {
+  return bwd_run(od, z, nullptr, gr, gg, gb, gs, w, b, wt, stash, part1, part2, dw, db, gate,
+                 tiles, n, s, L_x, L_d, stream);
+}
+
+// K9: x, d [3, P] (d as given), g [4, P] the cotangents of (r, g, b, sigma)
+extern "C" int nerf_bwd_points(const float* x, const float* d, const float* g, const void* w,
+                               const float* b, void* wt, void* stash, float* part1,
+                               float* part2, float* dw, float* db, int p, int L_x, int L_d,
+                               void* stream) {
+  const long row = (long)p;
+  return bwd_run(x, nullptr, d, g, g + row, g + 2 * row, g + 3 * row, w, b, wt, stash, part1,
+                 part2, dw, db, nullptr, nullptr, p, 1, L_x, L_d, stream);
 }

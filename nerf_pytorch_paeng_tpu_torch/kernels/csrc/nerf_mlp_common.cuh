@@ -151,20 +151,23 @@ __device__ void epilogue(Acc<N>& acc, const float* __restrict__ bias, bool relu,
 }
 
 // emb[p][:] <- [x, sin 2^j x (j < L), cos 2^j x (j < L), 0 ...] for the
-// TILE points x_p = o_p + d_p * z_p (or the unit directions when z is null);
+// TILE vectors x_p = o_p + d_p * z_p; when z is null, the three floats at
+// column col of each row (3: d), scaled to unit length when unit is set;
 // sin/cos(2^j x) by the double-angle recurrence, as the TPU kernels do.
-// rays is [TILE][8]: o in 0-2, d in 3-5.
+// rays is [TILE][8]: o (or a point) in 0-2, d in 3-5.
 __device__ void build_emb(bf16* emb, const float* rays, const float* zrow, int L,
-                          int cols) {
+                          int cols, int col = 3, bool unit = true) {
   for (int idx = threadIdx.x; idx < TILE * 3; idx += THREADS) {
     const int p = idx / 3, c = idx % 3;
     const float* ray = rays + p * 8;
     float x;
     if (zrow) {
       x = ray[c] + ray[3 + c] * zrow[p];
+    } else if (unit) {
+      const float dx = ray[col], dy = ray[col + 1], dz = ray[col + 2];
+      x = ray[col + c] * rsqrtf(dx * dx + dy * dy + dz * dz);
     } else {
-      const float dx = ray[3], dy = ray[4], dz = ray[5];
-      x = ray[3 + c] * rsqrtf(dx * dx + dy * dy + dz * dz);
+      x = ray[col + c];
     }
     bf16* e = emb + p * EMB_LD;
     e[c] = __float2bfloat16(x);
@@ -191,6 +194,19 @@ __device__ __forceinline__ void load_rays(float* rays, const float* __restrict__
     float v = (k == 3) ? 1.0f : 0.0f;
     if (ray < n) v = od[(long)k * n + ray];
     rays[p * 8 + k] = v;
+  }
+}
+
+// TILE consecutive points of the planes x and d [3, P] into the same
+// [TILE][8] layout: x in 0-2, d (as given) in 3-5; points past P get zeros
+// and contribute nothing
+__device__ __forceinline__ void load_points(float* rays, const float* __restrict__ x,
+                                            const float* __restrict__ d, int p, int pt0) {
+  for (int idx = threadIdx.x; idx < TILE * 6; idx += THREADS) {
+    const int k = idx / TILE, q = idx % TILE, pt = pt0 + q;
+    float v = 0.0f;
+    if (pt < p) v = k < 3 ? x[(long)k * p + pt] : d[(long)(k - 3) * p + pt];
+    rays[q * 8 + k] = v;
   }
 }
 

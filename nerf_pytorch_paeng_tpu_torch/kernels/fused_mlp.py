@@ -1,6 +1,6 @@
 """The fused NeRF MLP: packing, CUDA wrappers, plain versions.
 
-Three forward kernels (source: ``csrc/fused_mlp.cu``), each with a plain
+Four forward kernels (source: ``csrc/fused_mlp.cu``), each with a plain
 PyTorch version of the same arithmetic in this module:
 
 - ``fused_mlp_sigma_rays`` (trunk + density head along rays; replaces the
@@ -11,7 +11,11 @@ PyTorch version of the same arithmetic in this module:
   ``_eval_rays_kernel``, the fine pass and the training forward, and with
   ``gate=`` ``_eval_rays_kernel_gated``, the gated fine pass);
 - ``fused_mlp_sigma`` (trunk + density head on a plane of points;
-  replaces ``_mlp_sigma_kernel``, the support-bound grids).
+  replaces ``_mlp_sigma_kernel``, the support-bound grids and the plane
+  layout's coarse pass in the frame renderers);
+- ``fused_mlp_eval`` (the full field on planes of points and directions;
+  replaces ``_mlp_kernel``: the plane layout, which the JAX package takes
+  where the ray kernels' shapes do not apply, and its training forward).
 
 Their backward (``fused_mlp_vjp.py``) takes the weights this module packs.
 
@@ -19,9 +23,10 @@ Data layout, as in the JAX signatures: ``od`` [8, N] float32 (origin in
 rows 0-2, unnormalised direction in rows 3-5), ``z_t`` [S, N] float32
 depths; outputs are [S, N] raw logits.  Sample positions x = o + d * z and
 their double-angle embedding are built inside the kernel, so no [3, P]
-position plane exists in device memory.  ``xplane`` [3, P] float32 for
-the points kernel, output sigma [P] (the JAX kernel's 8-row output padding
-is a TPU layout and is not carried).
+position plane exists in device memory.  ``xplane`` (and ``dplane``)
+[3, P] float32 for the points kernels, output sigma [P] or [4, P] (rows r,
+g, b, sigma: the JAX kernels' 8-row output padding is a TPU layout and is
+not carried).
 
 The gate: int32 [ceil(N / 128) * (S / 8)], tile-major over (128-ray tile,
 8-sample row), as ``ops/render.tile_row_gate`` builds it.  A block whose
@@ -32,8 +37,8 @@ weights are the same.
 Arithmetic: operands in the packed weights' type (bf16 on the card),
 float32 accumulation, float32 biases, activations rounded to that type
 after every ReLU; the skip layer is two products (embedding and hidden),
-the view layer is the feature product plus a per-ray direction term
-computed once per ray.
+the view layer is the feature product plus a direction term computed
+once per ray (once per point in ``fused_mlp_eval``).
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 goes to the kernel, or the wrapper raises.  Each wrapper counts its kernel
@@ -106,6 +111,19 @@ def eval_flop_per_sample(L_x: int = 10) -> int:
 def eval_flop_per_ray(L_d: int = 4) -> int:
     """The direction term (3+6*L_d inputs x 128), once per ray."""
     return 2 * (3 + 6 * L_d) * (WIDTH // 2)
+
+
+def eval_flop_per_point(L_x: int = 10, L_d: int = 4) -> int:
+    """The points kernel's full field: every point has its own direction
+    term."""
+    return eval_flop_per_sample(L_x) + eval_flop_per_ray(L_d)
+
+
+def bwd_flop_per_point(L_x: int = 10, L_d: int = 4) -> int:
+    """The points backward: the rays backward's count, plus the direction
+    product it takes once per ray and the points backward once per
+    point."""
+    return bwd_flop_per_sample(L_x, L_d) + eval_flop_per_ray(L_d)
 
 
 def bwd_flop_per_sample(L_x: int = 10, L_d: int = 4) -> int:
@@ -314,27 +332,57 @@ def fused_mlp_eval_rays_plain(od: torch.Tensor, z_t: torch.Tensor,
     """Plain PyTorch version of the full-field kernel, gated or not ->
     (r, g, b, sigma)."""
     s, n = z_t.shape
-    cdt = packed["w"].dtype
     o, d = od[0:3].T.float(), od[3:6].T.float()
     inv = torch.rsqrt(torch.sum(d * d, -1, keepdim=True))
-    hv_dir = _mm(build_emb(d * inv, L_d, EMBD_ROWS), packed["wvd"]) \
-        + packed["bv"]                                       # [N, 128] f32
+    hv_dir = _view_term(d * inv, packed, L_d)                # [N, 128] f32
     on, rows = _gated_rows(gate, s, n)
     outs = [torch.zeros((s, n), dtype=out_dtype, device=od.device)
             for _ in range(4)]
     for k in rows:
         x = o + d * z_t[k][:, None].float()
-        h = _trunk(build_emb(x, L_x, EMBX_ROWS), packed)
-        sigma = _mm(h, packed["wdens"][:, None])[:, 0] + packed["bdens"]
-        feat = (_mm(h, packed["wfeat"]) + packed["bfeat"]).to(cdt).float()
-        hv = torch.relu(_mm(feat, packed["wvf"]) + hv_dir).to(cdt).float()
-        rgb = _mm(hv, packed["wcol"]) + packed["bcol"]
+        rgb, sigma = _field(x, hv_dir, packed, L_x)
         for c in range(3):
             outs[c][k] = rgb[:, c].to(out_dtype)
         outs[3][k] = sigma.to(out_dtype)
     if on is not None:
         outs = [t.masked_fill_(~on, 0) for t in outs]
     return tuple(outs)
+
+
+def _view_term(d: torch.Tensor, packed: Dict[str, torch.Tensor],
+               L_d: int) -> torch.Tensor:
+    """emb(d) @ wvd + bv for directions d [M, 3] -> float32 [M, 128]."""
+    return _mm(build_emb(d, L_d, EMBD_ROWS), packed["wvd"]) + packed["bv"]
+
+
+def _field(x: torch.Tensor, hv_dir: torch.Tensor,
+           packed: Dict[str, torch.Tensor], L_x: int):
+    """The full field at points x [M, 3] with their view terms [M, 128]
+    -> (rgb [M, 3], sigma [M]) float32 logits."""
+    cdt = packed["w"].dtype
+    h = _trunk(build_emb(x, L_x, EMBX_ROWS), packed)
+    sigma = _mm(h, packed["wdens"][:, None])[:, 0] + packed["bdens"]
+    feat = (_mm(h, packed["wfeat"]) + packed["bfeat"]).to(cdt).float()
+    hv = torch.relu(_mm(feat, packed["wvf"]) + hv_dir).to(cdt).float()
+    return _mm(hv, packed["wcol"]) + packed["bcol"], sigma
+
+
+def fused_mlp_eval_plain(xplane: torch.Tensor, dplane: torch.Tensor,
+                         packed: Dict[str, torch.Tensor], L_x: int = 10,
+                         L_d: int = 4, out_dtype: torch.dtype = torch.float32,
+                         chunk: int = 65536) -> torch.Tensor:
+    """Plain PyTorch version of the plane kernel: xplane, dplane [3, P] ->
+    [4, P] (r, g, b, sigma), every point with its own direction term, the
+    directions embedded as given (in chunks of points)."""
+    x, d = xplane.T.float(), dplane.T.float()
+    out = torch.empty((4, x.shape[0]), dtype=out_dtype, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        rgb, sigma = _field(x[sl], _view_term(d[sl], packed, L_d), packed,
+                            L_x)
+        out[0:3, sl] = rgb.T.to(out_dtype)
+        out[3, sl] = sigma.to(out_dtype)
+    return out
 
 
 def fused_mlp_sigma_plain(xplane: torch.Tensor,
@@ -395,8 +443,9 @@ def _library() -> ctypes.CDLL:
     lib.nerf_eval_rays.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p,
                                    p]
     lib.nerf_sigma_points.argtypes = [p, p, p, p, i, i, i, p]
+    lib.nerf_eval_points.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.nerf_sigma_rays.restype = lib.nerf_eval_rays.restype = i
-    lib.nerf_sigma_points.restype = i
+    lib.nerf_sigma_points.restype = lib.nerf_eval_points.restype = i
     return lib
 
 
@@ -485,16 +534,27 @@ def fused_mlp_eval_rays(od: torch.Tensor, z_t: torch.Tensor,
 fused_mlp_eval_rays.launches = fused_mlp_eval_rays.gated_launches = 0
 
 
+def _check_planes(packed, *planes) -> int:
+    """Every plane contiguous float32 [3, P] (one P) on the weights' device
+    -> P."""
+    p = planes[0].shape[-1] if planes[0].dim() == 2 else -1
+    for t in planes:
+        if (t.shape != (3, p) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"planes must be contiguous float32 [3, {p}]; "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if any(t.device != planes[0].device
+           for t in (*planes, packed["w"], packed["b"])):
+        raise ValueError("the planes and the packed weights must share a "
+                         "device")
+    return p
+
+
 def fused_mlp_sigma(xplane: torch.Tensor, packed: Dict[str, torch.Tensor],
                     L_x: int = 10, out_dtype: torch.dtype = torch.float32
                     ) -> torch.Tensor:
     """Density logits at points: xplane [3, P] float32 -> sigma [P]."""
-    if (xplane.dim() != 2 or xplane.shape[0] != 3
-            or xplane.dtype != torch.float32 or not xplane.is_contiguous()):
-        raise ValueError(f"xplane must be contiguous float32 [3, P]; got "
-                         f"{xplane.dtype} {tuple(xplane.shape)}")
-    if any(t.device != xplane.device for t in (packed["w"], packed["b"])):
-        raise ValueError("xplane and the packed weights must share a device")
+    _check_planes(packed, xplane)
     _check_common(packed, L_x, 1, out_dtype)
     if xplane.device.type == "cpu":
         return fused_mlp_sigma_plain(xplane, packed, L_x, out_dtype)
@@ -515,3 +575,33 @@ def fused_mlp_sigma(xplane: torch.Tensor, packed: Dict[str, torch.Tensor],
 
 
 fused_mlp_sigma.launches = 0
+
+
+def fused_mlp_eval(xplane: torch.Tensor, dplane: torch.Tensor,
+                   packed: Dict[str, torch.Tensor], L_x: int = 10,
+                   L_d: int = 4, out_dtype: torch.dtype = torch.float32
+                   ) -> torch.Tensor:
+    """Full radiance field at points: positions xplane and directions
+    dplane [3, P] float32 (the directions embedded as given: the callers
+    pass unit vectors) -> [4, P] raw logits, rows r, g, b, sigma."""
+    p = _check_planes(packed, xplane, dplane)
+    _check_common(packed, L_x, L_d, out_dtype)
+    if xplane.device.type == "cpu":
+        return fused_mlp_eval_plain(xplane, dplane, packed, L_x, L_d,
+                                    out_dtype)
+    lib = _cuda_lib(xplane, packed)
+    out = torch.empty((4, p), dtype=out_dtype, device=xplane.device)
+    if p == 0:
+        return out
+    with torch.cuda.device(xplane.device):
+        rc = lib.nerf_eval_points(
+            xplane.data_ptr(), dplane.data_ptr(), packed["w"].data_ptr(),
+            packed["b"].data_ptr(), out.data_ptr(), p, L_x, L_d,
+            int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "nerf_eval_points")
+    fused_mlp_eval.launches += 1
+    return out
+
+
+fused_mlp_eval.launches = 0

@@ -1,19 +1,29 @@
-"""Hierarchical resampling, the training render and the culled renderer's
-gate and truncation helpers (counterpart of the JAX package's
-``ops/render.py``: ``hierarchical_z_vals``, ``supports_train_rays_kernels``,
-``render_rays_train`` with its occupancy-gated passes
-(``train_support_intervals``, ``train_gate_tile``, ``train_gate_plan``,
-``_gated_train_pass``), ``span_sort``, ``tile_row_gate``,
-``truncation_bounds`` and ``truncation_window``)."""
+"""Hierarchical resampling, the training render, the plane-layout render
+and the culled renderer's gate and truncation helpers (counterpart of the
+JAX package's ``ops/render.py``: ``hierarchical_z_vals``,
+``supports_train_rays_kernels``, ``render_rays_train`` with its
+occupancy-gated passes (``train_support_intervals``, ``train_gate_tile``,
+``train_gate_plan``, ``_gated_train_pass``), ``render_rays``,
+``render_rays_from_cfg``, ``hierarchical_fine_pass`` and their field
+functions, ``span_sort``, ``tile_row_gate``, ``truncation_bounds`` and
+``truncation_window``).
+
+The plane layout: positions and unit view directions as [3, P] planes,
+flattened ray-major (point n * S + s), through field functions
+``(xplane, dplane) -> raw [4, P]`` (rows r, g, b, sigma) and compositing
+over [4, N, S].  The JAX package takes it where the ray-major kernels'
+shapes do not apply; so does the port (``train/step.py``,
+``eval/frame.py``)."""
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from .occupancy import ray_support_interval, segment_in_cube
 from .sampling import sample_pdf, stratified_z_vals
-from .volume import volume_render_rays_t
+from .volume import (volume_render_planar, volume_render_rays_t,
+                     weights_from_sigma)
 
 
 class RaysRender(NamedTuple):
@@ -171,15 +181,13 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
     from ..kernels.fused_mlp_vjp import fused_mlp_train_rays
 
     n = rays_o.shape[0]
-    if not supports_train_rays_kernels(cfg, n):
-        raise NotImplementedError(
-            f"N_rays={n}, N_samples_c={cfg.N_samples_c}, "
-            f"N_samples_f={cfg.N_samples_f}: the ray-major training kernels "
-            "take a multiple of 128 rays and sample counts that are "
-            "multiples of 8; the plane-layout training path (K8/K9) that "
-            "takes other shapes is not ported yet")
-    wdt = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
-           else torch.float32)
+    assert supports_train_rays_kernels(cfg, n), (
+        f"N_rays={n}, N_samples_c={cfg.N_samples_c}, "
+        f"N_samples_f={cfg.N_samples_f}: the ray-major training kernels take "
+        "a multiple of 128 rays and sample counts that are multiples of 8; "
+        "other shapes train on the plane layout (render_rays_from_cfg with "
+        "make_train_field_fns)")
+    wdt = _weight_dtype(cfg)
     near, far = float(cfg.near), float(cfg.far)
     od = pack_od(rays_o, rays_d)
     if support is not None:
@@ -219,6 +227,162 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
         gate_frac = (gate_frac * s_c + gf_f * s_m) / (s_c + s_m)
     return RaysRender(out_c.rgb, out_c.disp, out_f.rgb, out_f.disp,
                       out_f.acc, out_f.depth, gate_frac)
+
+
+# ---------------------------------------------------------- the plane layout
+
+
+def _weight_dtype(cfg) -> torch.dtype:
+    """The type the training kernels see the weights in."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def make_train_field_fns(model, cfg) -> Tuple[Callable, Callable]:
+    """Differentiable field functions of a ``NeRF``'s two modules on the
+    plane pair (``kernels/fused_mlp_vjp.fused_mlp_train``: K8 forward, K9
+    backward), float32 logits; the counterpart of the JAX package's
+    ``make_pallas_train_field_fns``.  Each call packs its module's
+    parameters differentiably, so ``loss.backward()`` reaches the module.
+    The JAX version pads the planes to its 1024-point tile; the kernels
+    here mask their ragged last block instead."""
+    from ..kernels.fused_mlp import pack_flat
+    from ..kernels.fused_mlp_vjp import fused_mlp_train
+
+    def build(mlp):
+        def fn(xplane, dplane):
+            w, b = pack_flat(mlp, cfg.L_x, cfg.L_d)
+            return fused_mlp_train(w, b, xplane, dplane, cfg.L_x, cfg.L_d,
+                                   _weight_dtype(cfg))
+        return fn
+    return build(model.model_coarse), build(model.model_fine)
+
+
+def make_field_fns(packed_coarse, packed_fine, cfg,
+                   plane_fn: Optional[Callable] = None
+                   ) -> Tuple[Callable, Callable]:
+    """Evaluation field functions on the plane kernel (K8,
+    ``fused_mlp.fused_mlp_eval``, or ``plane_fn``: its plain version),
+    bf16 logits as on the JAX package's frame path; the counterpart of
+    ``make_pallas_field_fns`` (without its 8192-point tile padding)."""
+    from ..kernels.fused_mlp import fused_mlp_eval
+    plane_fn = plane_fn or fused_mlp_eval
+
+    def build(packed):
+        return lambda xplane, dplane: plane_fn(
+            xplane, dplane, packed, L_x=cfg.L_x, L_d=cfg.L_d,
+            out_dtype=torch.bfloat16)
+    return build(packed_coarse), build(packed_fine)
+
+
+def make_sigma_fn(packed_coarse, cfg, points_fn: Optional[Callable] = None
+                  ) -> Callable:
+    """Density-only coarse field ``xplane [3, P] -> sigma [P]`` (bf16) on
+    the points kernel (K7, ``fused_mlp.fused_mlp_sigma``, or
+    ``points_fn``); the counterpart of ``make_pallas_sigma_fn``."""
+    from ..kernels.fused_mlp import fused_mlp_sigma
+    points_fn = points_fn or fused_mlp_sigma
+    return lambda xplane: points_fn(xplane, packed_coarse, L_x=cfg.L_x,
+                                    out_dtype=torch.bfloat16)
+
+
+def position_plane(rays_o: torch.Tensor, rays_d: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """rays [M, 3], depths z [M, S] -> positions [3, M * S], contiguous,
+    point m * S + s."""
+    return (rays_o.T[:, :, None] + rays_d.T[:, :, None] * z[None]).reshape(
+        3, -1)
+
+
+def direction_plane(viewdirs: torch.Tensor, s: int) -> torch.Tensor:
+    """unit directions [M, 3] -> [3, M * S], each repeated for its S
+    points."""
+    return viewdirs.T[:, :, None].expand(3, viewdirs.shape[0], s).reshape(
+        3, -1)
+
+
+def _unit(rays_d: torch.Tensor) -> torch.Tensor:
+    return rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+
+
+def hierarchical_fine_pass(fine_fn: Callable, rays_o: torch.Tensor,
+                           rays_d: torch.Tensor, z_vals: torch.Tensor,
+                           weights: torch.Tensor, *, n_fine: int,
+                           perturb: float = 1.0,
+                           n_keep: Optional[int] = None,
+                           trunc_eps: float = 0.0,
+                           generator: Optional[torch.Generator] = None,
+                           u: Optional[torch.Tensor] = None):
+    """The fine pass on the plane layout, given the coarse stats: inverse-CDF
+    resample (uniforms from ``generator`` or injected ``u`` [M, n_fine]),
+    merge, optionally an ``n_keep``-sample window of the merged depths
+    (``truncation_window``, the culled renderer's truncation), the field,
+    compositing.  rays [M, 3], z_vals and weights [M, Sc] ->
+    ``volume.RenderOutputs`` over the kept samples."""
+    z_all = hierarchical_z_vals(z_vals, weights, n_fine=n_fine,
+                                perturb=perturb, generator=generator, u=u)
+    if n_keep is not None and n_keep < z_all.shape[-1]:
+        z_all = truncation_window(z_all, z_vals, weights, n_keep, trunc_eps)
+    m, s = z_all.shape
+    raw = fine_fn(position_plane(rays_o, rays_d, z_all),
+                  direction_plane(_unit(rays_d), s))
+    return volume_render_planar(raw.reshape(4, m, s), z_all, rays_d)
+
+
+def render_rays(coarse_fn: Callable, fine_fn: Callable, rays_o: torch.Tensor,
+                rays_d: torch.Tensor, *, near: float, far: float,
+                n_coarse: int, n_fine: int, perturb: float = 1.0,
+                stratified: bool = True,
+                coarse_sigma_fn: Optional[Callable] = None,
+                generator: Optional[torch.Generator] = None,
+                u_c: Optional[torch.Tensor] = None,
+                u_f: Optional[torch.Tensor] = None) -> RaysRender:
+    """A flat batch of rays [N, 3] through the coarse (+ fine) pipeline on
+    the plane layout: stratified depths, the coarse field on the planes
+    (or, with ``coarse_sigma_fn`` and a fine pass, density alone: only the
+    resampling weights are needed), compositing, then
+    ``hierarchical_fine_pass``.  The draws are taken as
+    ``render_rays_train`` takes them: the coarse jitter first (unless
+    ``stratified`` is off), then the fine uniforms, from ``generator`` or
+    injected as ``u_c`` [N, Sc] and ``u_f`` [N, Sf]."""
+    n = rays_o.shape[0]
+    z_vals = stratified_z_vals(n, near, far, n_coarse, perturb=stratified,
+                               generator=generator, u=u_c,
+                               device=rays_o.device)
+    xp = position_plane(rays_o, rays_d, z_vals)
+    if coarse_sigma_fn is not None and n_fine > 0:
+        sigma_c = coarse_sigma_fn(xp).reshape(n, n_coarse)
+        weights_c = weights_from_sigma(sigma_c, z_vals, rays_d)
+        out_c = None
+    else:
+        raw_c = coarse_fn(xp, direction_plane(_unit(rays_d), n_coarse)).reshape(
+            4, n, n_coarse)
+        out_c = volume_render_planar(raw_c, z_vals, rays_d)
+        weights_c = out_c.weights
+    if n_fine <= 0:
+        return RaysRender(out_c.rgb, out_c.disp, None, None, None, None)
+    out_f = hierarchical_fine_pass(fine_fn, rays_o, rays_d, z_vals,
+                                   weights_c.detach(), n_fine=n_fine,
+                                   perturb=perturb, generator=generator,
+                                   u=u_f)
+    return RaysRender(None if out_c is None else out_c.rgb,
+                      None if out_c is None else out_c.disp, out_f.rgb,
+                      out_f.disp, out_f.acc, out_f.depth)
+
+
+def render_rays_from_cfg(coarse_fn: Callable, fine_fn: Callable,
+                         rays_o: torch.Tensor, rays_d: torch.Tensor, cfg,
+                         stratified: bool = True,
+                         coarse_sigma_fn: Optional[Callable] = None,
+                         generator: Optional[torch.Generator] = None,
+                         u_c: Optional[torch.Tensor] = None,
+                         u_f: Optional[torch.Tensor] = None) -> RaysRender:
+    """``render_rays`` with its settings from a ``NerfConfig``."""
+    return render_rays(coarse_fn, fine_fn, rays_o, rays_d,
+                       near=float(cfg.near), far=float(cfg.far),
+                       n_coarse=cfg.N_samples_c, n_fine=cfg.N_samples_f,
+                       perturb=float(cfg.perturb), stratified=stratified,
+                       coarse_sigma_fn=coarse_sigma_fn, generator=generator,
+                       u_c=u_c, u_f=u_f)
 
 
 GATE_TILE = 128     # rays per gate tile: the kernels' block of rays

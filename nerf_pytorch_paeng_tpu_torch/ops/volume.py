@@ -1,8 +1,14 @@
-"""Volume rendering (alpha compositing) in the sample-major layout.
+"""Volume rendering (alpha compositing).
 
-Counterpart of the JAX package's ``ops/volume.py`` (``weights_from_sigma_t``,
-``volume_render_rays_t``), the layout the ray-major kernels emit: every
-per-sample tensor is [S, N] and the scan runs along axis 0.
+Counterpart of the JAX package's ``ops/volume.py`` in its two layouts:
+the sample-major one the ray-major kernels emit (``weights_from_sigma_t``,
+``volume_render_rays_t``: every per-sample tensor is [S, N], the scan runs
+along axis 0) and the ray-major one of the plane layout
+(``weights_from_sigma``, ``volume_render_planar``: [N, S], raw [4, N, S],
+the scan along the last axis).  Both share ``_weights``; the transmittance
+is the ``cumprod`` form of ``exclusive_cumprod`` (the JAX package's
+log-space associative scan serves its sample-sharded mesh path, which is
+not ported).
 
 - dists = dz with a 1e10 cap for the last bin, scaled by ||ray_d||;
 - alpha = 1 - exp(-relu(sigma) * dist);
@@ -20,6 +26,14 @@ import torch
 DISP_CLAMP = 5.0
 
 
+class RenderOutputs(NamedTuple):
+    rgb: torch.Tensor       # [N, 3]
+    disp: torch.Tensor      # [N]
+    acc: torch.Tensor       # [N]
+    weights: torch.Tensor   # [N, S]
+    depth: torch.Tensor     # [N]
+
+
 class RenderOutputsT(NamedTuple):
     rgb: torch.Tensor       # [N, 3]
     disp: torch.Tensor      # [N]
@@ -28,20 +42,42 @@ class RenderOutputsT(NamedTuple):
     depth: torch.Tensor     # [N]
 
 
-def _dists_t(z_t: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
-    d = z_t[1:] - z_t[:-1]
-    d = torch.cat([d, torch.full_like(d[:1], 1e10)], 0)
-    return d * torch.linalg.norm(rays_d, dim=-1)[None]
+def exclusive_cumprod(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """out[i] = prod(x[:i]) along ``axis``, out[0] = 1."""
+    ones = torch.ones_like(x.narrow(axis, 0, 1))
+    prod = torch.cumprod(torch.cat([ones, x], axis), axis)
+    return prod.narrow(axis, 0, x.shape[axis])
+
+
+def _dists(z: torch.Tensor, rays_d: torch.Tensor, axis: int) -> torch.Tensor:
+    """dz with a 1e10 cap for the last bin, scaled by ||ray_d||; ``axis``
+    is the sample axis: 0 for [S, N], -1 for [N, S]."""
+    n = z.shape[axis]
+    d = z.narrow(axis, 1, n - 1) - z.narrow(axis, 0, n - 1)
+    d = torch.cat([d, torch.full_like(d.narrow(axis, 0, 1), 1e10)], axis)
+    norm = torch.linalg.norm(rays_d, dim=-1)
+    return d * (norm[None] if axis == 0 else norm[..., None])
+
+
+def _weights(sigma: torch.Tensor, z: torch.Tensor, rays_d: torch.Tensor,
+             axis: int) -> torch.Tensor:
+    """Compositing weights from density logits (before the ReLU)."""
+    alpha = 1.0 - torch.exp(-torch.relu(sigma.float()) * _dists(z, rays_d,
+                                                                axis))
+    return alpha * exclusive_cumprod(1.0 - alpha + 1e-10, axis)
 
 
 def weights_from_sigma_t(sigma_t: torch.Tensor, z_t: torch.Tensor,
                          rays_d: torch.Tensor) -> torch.Tensor:
     """Compositing weights from density logits: [S, N] -> [S, N]."""
-    dists = _dists_t(z_t, rays_d)
-    alpha = 1.0 - torch.exp(-torch.relu(sigma_t.float()) * dists)
-    trans = torch.cumprod(torch.cat(
-        [torch.ones_like(alpha[:1]), 1.0 - alpha + 1e-10], 0), 0)[:-1]
-    return alpha * trans
+    return _weights(sigma_t, z_t, rays_d, 0)
+
+
+def weights_from_sigma(sigma: torch.Tensor, z_vals: torch.Tensor,
+                       rays_d: torch.Tensor) -> torch.Tensor:
+    """The same in the ray-major layout: [N, S] -> [N, S] (the plane
+    layout's density-only coarse pass)."""
+    return _weights(sigma, z_vals, rays_d, -1)
 
 
 def _disp_from(depth_map: torch.Tensor, acc_map: torch.Tensor
@@ -65,3 +101,18 @@ def volume_render_rays_t(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     disp_map = _disp_from(depth_map, acc_map)
     rgb_map = rgb_map + (1.0 - acc_map[..., None])
     return RenderOutputsT(rgb_map, disp_map, acc_map, weights, depth_map)
+
+
+def volume_render_planar(raw: torch.Tensor, z_vals: torch.Tensor,
+                         rays_d: torch.Tensor) -> RenderOutputs:
+    """Composite channel-planar raw logits [4, N, S] (rgb rows 0-2, sigma
+    row 3: the plane kernels' [4, P] output reshaped) along the last
+    axis; z_vals [N, S], rays_d [N, 3]."""
+    raw = raw.float()
+    weights = _weights(raw[3], z_vals, rays_d, -1)                 # [N, S]
+    rgb_map = torch.sum(weights[None] * torch.sigmoid(raw[0:3]), -1).T
+    depth_map = torch.sum(weights * z_vals, -1)
+    acc_map = torch.sum(weights, -1)
+    disp_map = _disp_from(depth_map, acc_map)
+    rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    return RenderOutputs(rgb_map, disp_map, acc_map, weights, depth_map)

@@ -1,7 +1,11 @@
 """The train step: render -> loss -> backward -> Adam update.
 
-Counterpart of the JAX package's ``train/step.py`` on its ray-major kernel
-path (``render_rays_train``).  Two batch modes, as in the reference:
+Counterpart of the JAX package's ``train/step.py`` on its fused kernels,
+routed as it routes them (``uses_ray_pair``): the ray-major pair
+(``render_rays_train``) where ``use_rays_train`` is on and the shapes
+apply (a multiple of 128 rays, sample counts in whole 8-sample rows), the
+plane pair (``render_rays_from_cfg`` on ``make_train_field_fns``)
+otherwise.  Two batch modes, as in the reference:
 
 - global batch: the step receives a pre-sliced [N, 3] x 3 ray batch;
 - per image: the step receives one image and its pose, draws ``N_rays``
@@ -25,7 +29,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..ops.rays import gather_rays, get_rays, sample_pixels
-from ..ops.render import render_rays_train
+from ..ops.render import (make_train_field_fns, render_rays_from_cfg,
+                          render_rays_train, supports_train_rays_kernels)
 from .state import TrainState
 
 _U64 = (1 << 64) - 1
@@ -49,13 +54,28 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(x)
 
 
+def uses_ray_pair(cfg, n_rays: int) -> bool:
+    """The step's route, the JAX package's: the ray-major pair (K1/K2, or
+    gated K5/K6) where ``use_rays_train`` is on and its shapes apply, else
+    the plane pair (K8/K9)."""
+    return bool(cfg.use_rays_train
+                and supports_train_rays_kernels(cfg, n_rays))
+
+
 def _loss_and_metrics(model, rays_o, rays_d, target, cfg,
                       generator=None, u_c=None, u_f=None, support=None):
     """MSE(coarse) + MSE(fine) and the PSNRs taken from the losses; with
     ``support`` (coarse bounds, fine bounds, half-side) the gated passes'
-    skipped block share as ``gate_frac``."""
-    out = render_rays_train(model, rays_o, rays_d, cfg, generator, u_c, u_f,
-                            support)
+    skipped block share as ``gate_frac``.  The plane route takes no
+    ``support``, as in the JAX package (``train/precull`` enables gating on
+    the ray route only)."""
+    if uses_ray_pair(cfg, rays_o.shape[0]):
+        out = render_rays_train(model, rays_o, rays_d, cfg, generator, u_c,
+                                u_f, support)
+    else:
+        coarse, fine = make_train_field_fns(model, cfg)
+        out = render_rays_from_cfg(coarse, fine, rays_o, rays_d, cfg,
+                                   generator=generator, u_c=u_c, u_f=u_f)
     loss_c = torch.mean((out.rgb_c - target) ** 2)
     metrics = dict(loss_c=loss_c, psnr_c=mse2psnr(loss_c))
     loss = loss_c

@@ -412,6 +412,128 @@ def test_culled_frame_gates_change_nothing(dev):
     assert -10 * np.log10(max(mse, 1e-20)) >= 40.0
 
 
+def _planes(seed, n_pts, dev):
+    """Seeded position and unit direction planes [3, P] of blender-like
+    samples (rays through the scene centre at depths in [2, 6])."""
+    od, z = _inputs(seed, n_pts, 1, dev)
+    d = od[3:6] / od[3:6].norm(dim=0, keepdim=True)
+    return (od[0:3] + od[3:6] * z).contiguous(), d.contiguous()
+
+
+@pytest.mark.parametrize("n_pts", [128, 1000, 100_003])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_plane_kernel_matches_plain(dev, n_pts, out_dtype):
+    """K8 against its plain version, ragged point counts included; its
+    sigma row is K7's sigma on the same positions (the trunk is the same
+    code, so the rows cannot be out of order)."""
+    p = _packed(40, dev)
+    x, d = _planes(41, n_pts, dev)
+    before = fm.fused_mlp_eval.launches
+    got = fm.fused_mlp_eval(x, d, p, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_eval.launches == before + 1
+    assert got.shape == (4, n_pts) and got.dtype == out_dtype
+    _close(got, fm.fused_mlp_eval_plain(x, d, p, out_dtype=out_dtype))
+    assert torch.equal(got[3], fm.fused_mlp_sigma(x, p, out_dtype=out_dtype))
+
+
+def test_plane_kernel_takes_directions_as_given(dev):
+    """K8 embeds d as given: scaling d changes the colour rows, as in its
+    plain version (a kernel that normalised d would not move)."""
+    p = _packed(42, dev)
+    x, d = _planes(43, 512, dev)
+    a = fm.fused_mlp_eval(x, d, p)
+    b = fm.fused_mlp_eval(x, (2 * d).contiguous(), p)
+    _close(b, fm.fused_mlp_eval_plain(x, (2 * d).contiguous(), p))
+    assert torch.equal(a[3], b[3]) and not torch.equal(a[:3], b[:3])
+
+
+@pytest.mark.parametrize("n_pts", [128, 300, 4096 * 8 + 77])
+def test_plane_bwd_kernel_matches_plain(dev, n_pts):
+    """K9 against its plain version (``_grads_close``), ragged point counts
+    included: points past P contribute nothing."""
+    p = _packed(44, dev)
+    x, d = _planes(45, n_pts, dev)
+    g4 = torch.cat(_cotangents(46, 1, n_pts, dev)).contiguous()
+    before = fv.fused_mlp_bwd.launches
+    got = fv.fused_mlp_bwd(x, d, g4, p)
+    torch.cuda.synchronize()
+    assert fv.fused_mlp_bwd.launches == before + 1
+    want = fv.fused_mlp_bwd_plain(x, d, g4, p)
+    other = fv.fused_mlp_bwd_plain(x.cpu(), d.cpu(), g4.cpu(), _on_cpu(p))
+    _grads_close(got, want, other)
+
+
+def test_plane_bwd_kernel_is_deterministic_and_empty(dev):
+    """Two launches over more than one chunk of points give the same bits;
+    no points give zero gradients."""
+    p = _packed(47, dev)
+    x, d = _planes(48, 4096 * 40, dev)
+    g4 = torch.cat(_cotangents(49, 1, 4096 * 40, dev)).contiguous()
+    a = fv.fused_mlp_bwd(x, d, g4, p)
+    b = fv.fused_mlp_bwd(x, d, g4, p)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    e = torch.empty(3, 0, device=dev)
+    dw, db = fv.fused_mlp_bwd(e, e, torch.empty(4, 0, device=dev), p)
+    assert not dw.any() and not db.any()
+
+
+def test_plane_train_pair_matches_autograd_of_plain(dev):
+    """The K8+K9 pair's gradients against autograd through K8's plain
+    version with the same bf16 weights (floor: the same on the CPU).  The
+    cotangents are bf16 values: K9 rounds them to bf16, as the TPU kernel
+    does, and autograd does not (at 3000 points of zero-mean cotangents
+    that rounding alone moves bdens, a plain sum of them, by 2%)."""
+    model = NeRF()
+    model.load_state_dict(state_dict_from_jax_params(np_nerf_params(50)))
+    w, b = fm.pack_flat(model.model_fine.to(dev))
+    w, b = w.detach(), b.detach()
+    x, d = _planes(51, 3000, dev)
+    g4 = torch.cat(_cotangents(52, 1, 3000, dev)).bfloat16().float()
+
+    def grads(fn, device=dev):
+        wl = w.to(device).clone().requires_grad_()
+        bl = b.to(device).clone().requires_grad_()
+        fn(wl, bl).backward(g4.to(device))
+        return wl.grad, bl.grad
+
+    def plain(wl, bl):
+        return fm.fused_mlp_eval_plain(x.to(wl.device), d.to(wl.device),
+                                       fm._with_views(wl.to(torch.bfloat16),
+                                                      bl))
+
+    before = (fm.fused_mlp_eval.launches, fv.fused_mlp_bwd.launches)
+    got = grads(lambda wl, bl: fv.fused_mlp_train(wl, bl, x, d))
+    assert (fm.fused_mlp_eval.launches,
+            fv.fused_mlp_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _grads_close(got, grads(plain), grads(plain, torch.device("cpu")))
+
+
+@pytest.mark.parametrize("kw", [dict(use_rays_train=False),
+                                dict(N_rays=4000)])
+def test_plane_full_width_training_step(dev, kw):
+    """One per-image lego step on the plane route (``use_rays_train`` off,
+    or a ray count the ray pair does not take): finite loss, both passes
+    through K8 and K9, none through K1 and K2."""
+    from nerf_pytorch_paeng_tpu_torch.train import create_train_state
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_image_train_step
+
+    cfg = NerfConfig(**{**dict(N_rays=4096, N_samples_c=64, N_samples_f=128,
+                               iter_warmup=0, iter_N=10), **kw})
+    images, K, poses = make_synth_scene(n_views=1, H=64, W=64)
+    state = create_train_state(cfg, dev)
+    step = make_image_train_step(cfg, schedule_from_cfg(cfg), 64, 64, K)
+    counters = (fm.fused_mlp_eval, fv.fused_mlp_bwd, fm.fused_mlp_eval_rays,
+                fv.fused_mlp_bwd_rays)
+    before = [c.launches for c in counters]
+    m = step(state, torch.from_numpy(images[0]).to(dev),
+             torch.from_numpy(poses[0][:3, :4]).to(dev))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss"])) and state.step == 1
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 2, 0, 0]
+
+
 @pytest.mark.parametrize("n,s", [(4096, 64), (300, 16)])
 def test_gated_bwd_kernel_matches_plain(dev, n, s):
     """K6: an all-on gate gives K2's bits, an all-off gate zero gradients,

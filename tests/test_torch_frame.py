@@ -23,7 +23,8 @@ from nerf_pytorch_paeng_tpu_torch.config import NerfConfig
 from nerf_pytorch_paeng_tpu_torch.eval.frame import (make_frame_renderer,
                                                      pack_od)
 from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import (
-    fused_mlp_eval_rays_plain, fused_mlp_sigma_rays_plain, pack_nerf)
+    fused_mlp_eval_plain, fused_mlp_eval_rays_plain,
+    fused_mlp_sigma_rays_plain, pack_nerf)
 from nerf_pytorch_paeng_tpu_torch.models.nerf import NeRF
 from nerf_pytorch_paeng_tpu_torch.utils.interop import \
     state_dict_from_jax_params
@@ -129,12 +130,36 @@ def test_pack_od_layout():
     assert not od[6:].any()
 
 
-@pytest.mark.parametrize("bad", [dict(netWidth=128), dict(N_samples_f=0),
+@pytest.mark.parametrize("bad", [dict(netWidth=128), dict(L_d=5),
                                  dict(data_type="llff")])
 def test_unsupported_configs_raise(bad):
     cfg = NerfConfig(device="cpu", **dict(KW, **bad))
     with pytest.raises(NotImplementedError):
         make_frame_renderer(cfg, H, W, np.eye(3), "cpu")
+
+
+def test_coarse_only_frame_renders_through_the_plane_kernel(scene):
+    """Without a fine pass the dense renderer takes the plane layout (K8,
+    ``fused_mlp_eval``) as the JAX package does; on the CPU the wrapper is
+    its plain version, so passing that renders the same frame, and the ray
+    kernels are never called."""
+    _, model, K, poses = scene
+    cfg = NerfConfig(device="cpu", **dict(KW, N_samples_f=0))
+    packed = pack_nerf(model, cfg)
+    c2w = torch.from_numpy(poses[0])
+
+    def never(*a, **kw):
+        raise AssertionError("a ray kernel ran on the coarse-only frame")
+
+    a = make_frame_renderer(cfg, H, W, K, "cpu", stratified=False)
+    b = make_frame_renderer(cfg, H, W, K, "cpu", stratified=False,
+                            sigma_fn=never, field_fn=never,
+                            plane_fn=fused_mlp_eval_plain)
+    assert not a.rays_route and a.launches_per_frame == 1
+    rgb, disp = a(packed, c2w)
+    assert rgb.shape == (H, W, 3) and bool(torch.isfinite(disp).all())
+    for x, y in zip((rgb, disp), b(packed, c2w)):
+        assert torch.equal(x, y)
 
 
 def test_config_knobs_are_the_jax_packages():
@@ -146,5 +171,5 @@ def test_config_knobs_are_the_jax_packages():
     assert set(ours) - set(theirs) == {"device"}
     for k, v in ours.items():
         assert k == "device" or theirs[k] == v, k
-    for name in ("use_pallas", "use_rays_train", "sp_shards"):
+    for name in ("use_pallas", "sp_shards"):
         assert name in theirs and name not in ours, name

@@ -1,7 +1,8 @@
 """The training pieces of the port around the render: schedule, ray pool,
 pixel sampling, batched rays, metrics log, checkpoints and the shape gate
-of the training kernels.  Against the JAX package where it computes the
-same thing (float32, a few ulps), otherwise against their contracts."""
+between the ray and the plane training kernels.  Against the JAX package
+where it computes the same thing (float32, a few ulps), otherwise against
+their contracts."""
 import csv
 
 import jax
@@ -22,7 +23,8 @@ from nerf_pytorch_paeng_tpu_torch.train import (RayPool, build_ray_pool,
 from nerf_pytorch_paeng_tpu_torch.train import checkpoint as ckpt
 from nerf_pytorch_paeng_tpu_torch.train.schedule import (
     cosine_annealing_warmup_restarts, schedule_from_cfg)
-from nerf_pytorch_paeng_tpu_torch.train.step import mse2psnr, step_generator
+from nerf_pytorch_paeng_tpu_torch.train.step import (make_train_step,
+                                                     mse2psnr, step_generator)
 from nerf_pytorch_paeng_tpu_torch.utils.logging import MetricLogger
 from nerf_pytorch_paeng_tpu_torch.utils.synth import make_synth_scene
 
@@ -154,9 +156,13 @@ def test_mse2psnr():
     assert float(mse2psnr(torch.tensor(0.01))) == pytest.approx(20.0)
 
 
-def test_train_shape_gate_names_the_plane_kernels():
+def test_train_shape_gate_names_the_plane_kernels(monkeypatch):
+    """Shapes the ray pair does not take train on the plane pair (K8/K9,
+    ``fused_mlp_train``); ``render_rays_train`` keeps its shape check for
+    direct callers."""
+    from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp_vjp
     cfg = NerfConfig(device="cpu", N_samples_c=8, N_samples_f=8,
-                     compute_dtype="float32")
+                     compute_dtype="float32", iter_N=10, iter_warmup=0)
     assert supports_train_rays_kernels(cfg, 256)
     assert not supports_train_rays_kernels(cfg, 100)
     assert not supports_train_rays_kernels(
@@ -164,9 +170,20 @@ def test_train_shape_gate_names_the_plane_kernels():
     assert not supports_train_rays_kernels(
         NerfConfig(N_samples_c=8, N_samples_f=4), 256)
     state = create_train_state(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="K8/K9"):
+    with pytest.raises(AssertionError, match="plane layout"):
         render_rays_train(state.model, torch.zeros(100, 3),
                           torch.ones(100, 3), cfg)
+    calls = []
+    pair = fused_mlp_vjp.fused_mlp_train
+    monkeypatch.setattr(fused_mlp_vjp, "fused_mlp_train",
+                        lambda *a, **kw: calls.append(1) or pair(*a, **kw))
+    g = torch.Generator().manual_seed(0)
+    o = torch.tensor([0.0, 0.0, 4.0]) + 0.1 * torch.randn(100, 3, generator=g)
+    d = -o / 4.0 + 0.1 * torch.randn(100, 3, generator=g)
+    m = make_train_step(cfg, schedule_from_cfg(cfg))(
+        state, o, d, torch.rand(100, 3, generator=g))
+    assert state.step == 1 and bool(torch.isfinite(m["loss"]))
+    assert len(calls) == 2                 # the coarse and the fine pass
 
 
 def test_metric_logger_merges_a_foreign_header(tmp_path):
