@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 1. Builds the port's CUDA kernels from the sources in the checkout (one
-   nvcc per source, all at once).
+   nvcc per source, all at once) and prints each kernel's registers and
+   spills as ``-Xptxas -v`` reported them.
 2. Kernel phase: each kernel at the shapes its paths give it, seeded
    inputs and seeded weights, against its plain PyTorch version on the
    same inputs (stated tolerance), with kernel and plain times (CUDA
@@ -13,7 +14,10 @@
    the eval block (131072 rays; 64, and 64+128 merged samples); K1 with
    float32 outputs and the backward kernel (K2) at the training batch
    (4096 rays; 64 and 192 samples); K2 launched twice must give the same
-   bits; the gated kernels K4 (64 samples) and K5 (192) at the eval block
+   bits, and its three launches (chain, weight-gradient, reduction) are
+   timed apart under the profiler, each beside its own bound, and the
+   weight-gradient products beside the same 12 products as ``torch.mm``
+   (the K2 row's ``library_ms``, a yardstick the port never calls); the gated kernels K4 (64 samples) and K5 (192) at the eval block
    with a seeded gate that leaves about half the (128-ray tile, 8-sample
    row) blocks on: gated blocks exactly 0, active blocks bit-equal to the
    ungated kernel and within the tolerance of the gated plain version,
@@ -44,7 +48,9 @@
    ``main_worker``, against 2N uninterrupted steps: the saved states must
    be bit-equal (with ``--train_precull off``: a gated run restarts the
    refresh cadence at the resumed step, so its resume is not bit-exact,
-   as in the JAX package).
+   as in the JAX package).  Then ``--compute_dtype float32``: two training
+   steps and one dense test view must equal the bfloat16 run bit for bit
+   (the card's kernels take bf16 weights at either type).
 5. Render phase: a checkpoint of the hand-built compact field
    (``utils/synth.compact_field_state_dict``, an L1 ball of radius 1.5),
    then the port's ``--render_only`` entry on configs/blender/lego.txt at
@@ -426,6 +432,155 @@ def bwd_bytes(fm, od, z, gate=None) -> int:
             + fm.W_TOTAL * 2 + fm.B_TOTAL * 4 + (fm.W_TOTAL + fm.B_TOTAL) * 4)
 
 
+BWD_LAUNCHES = ("bwd_chain_kernel", "wgrad_kernel", "reduce_kernel",
+                "compact_tiles_kernel")
+
+
+def bwd_launch_work(fm, cfg, points: int, plan: dict) -> dict:
+    """(FLOP, bytes) each launch of the backward moves for ``points``
+    stashed points under ``plan`` (``fused_mlp_vjp.bwd_plan``, the
+    kernel's own chunking and stash layout): the chain launch recomputes
+    the forward (``eval_flop_per_point``), runs the input-gradient
+    products (every 256-wide layer's, wvf's and the heads') and writes the
+    stash once; the weight-gradient launch runs dW = A^T G (2 x the
+    weights its jobs cover a point) and reads the stash arrays it needs
+    once; the reduction reads the partials and writes dw, db.  The stash's
+    write and read exist because the two launches are apart: these are
+    the split design's own bounds, not the backward's (``bwd_bytes``)."""
+    W, H = 256, 128
+    chain = 2 * (8 * W * W + W * H + W + H * 3)
+    wg_total = sum(a * b for a, b in plan["wgrad_jobs"])
+    part1 = fm.B_TOTAL + W + H * 3
+    parts2 = plan["chunks"] * plan["nsplit"] * wg_total
+    return {
+        "bwd_chain_kernel": (
+            (fm.eval_flop_per_point(cfg.L_x, cfg.L_d) + chain) * points,
+            points * (plan["stash_per_point"] * 2 + 6 * 4)),
+        "wgrad_kernel": (2 * wg_total * points,
+                         points * plan["wgrad_read_per_point"] * 2
+                         + parts2 * 4),
+        "reduce_kernel": (0, (parts2 + plan["chunks"] * plan["g1"] * 2 * part1
+                              + fm.W_TOTAL + fm.B_TOTAL) * 4)}
+
+
+def bwd_split(fn, device, plan: dict, reps: int = 3) -> dict:
+    """Device ms and launches per call of each backward launch (by the
+    profiler's kernel names, ``BWD_LAUNCHES``) over ``reps`` calls of
+    ``fn``: the mean time of a launch times the launches a call makes
+    under ``plan`` (one chain and one weight-gradient launch a chunk, one
+    reduction; the profiler can miss the first launch of its window, so
+    its count is not used)."""
+    from torch.profiler import ProfilerActivity, profile
+    per_call = {"bwd_chain_kernel": plan["chunks"],
+                "wgrad_kernel": plan["chunks"], "reduce_kernel": 1,
+                "compact_tiles_kernel": 1}
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in BWD_LAUNCHES:
+            if name in e.key:
+                ms = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)) / 1e3
+                t, c = out.get(name, (0.0, 0))
+                out[name] = (t + ms, c + e.count)
+    return {name: (t / c * per_call[name], per_call[name])
+            for name, (t, c) in out.items()}
+
+
+def report_split(fm, cfg, split: dict, plan: dict, points: int,
+                 what: str) -> dict:
+    """Log each launch's ms, TFLOP/s and share of its own bound under the
+    kernel's ``plan`` (``bwd_launch_work``: the split design's traffic,
+    the stash round trip included); returns them."""
+    work = bwd_launch_work(fm, cfg, points, plan)
+    rows = {}
+    for name, (ms, count) in split.items():
+        flop, nbytes = work.get(name, (0, 0))
+        b_ms, b_by = bound(flop, nbytes)
+        rows[name] = dict(ms=ms, launches=count, launch_bound_ms=b_ms,
+                          bound_by=b_by,
+                          tflops=flop / ms / 1e9 if ms > 0 else None,
+                          share_of_launch_bound=b_ms / ms if ms > 0 else None)
+        log(f"  {what} {name}: {ms:.3f} ms in {count:g} launches"
+            + (f", {flop / ms / 1e9:.1f} TFLOP/s" if flop else "")
+            + (f", its own bound (split design's traffic) {b_ms:.3f} ms "
+               f"({b_by}), {100 * b_ms / ms:.1f}% of it"
+               if b_ms and ms > 0 else ""))
+    return rows
+
+
+def wgrad_library_ms(device, jobs, points: int) -> float:
+    """The weight-gradient products of ``points`` stashed points as
+    PyTorch calls: one ``torch.mm(A.t(), G)`` per job of ``jobs`` (the
+    kernel's (rows, columns), ``bwd_plan``) on seeded bf16 point-major
+    arrays of ``points`` rows; a yardstick the port never calls."""
+    g = torch.Generator(device).manual_seed(77)
+
+    def arr(cols):
+        return (torch.rand(points, cols, generator=g, device=device)
+                - 0.5).to(torch.bfloat16)
+
+    pairs = [(arr(a), arr(b)) for a, b in jobs]
+    ms, _ = cuda_ms(lambda: [torch.mm(a.t(), b) for a, b in pairs], reps=5)
+    del pairs
+    torch.cuda.empty_cache()
+    return ms
+
+
+def per_tensor(fm, got, want) -> dict:
+    """{packed tensor: (relative L2, cosine)} of ``got`` against ``want``
+    (both (dw, db)), where ``want`` is not zero."""
+    g, w = (fm._with_views(*(t.cpu() for t in x)) for x in (got, want))
+    out = {}
+    for name in g:
+        a, b = g[name].double().flatten(), w[name].double().flatten()
+        if name in ("w", "b") or float(b.norm()) == 0.0:
+            continue
+        out[name] = (float((a - b).norm() / b.norm()),
+                     float(a @ b / (a.norm() * b.norm())))
+    return out
+
+
+def ragged_noise_reading(fm, fv, p, device, seeds=(0, 1, 2, 3, 4)) -> list:
+    """K2 at a ragged 1000 rays x 64 under random cotangents (N(0, 1e-3),
+    as ``tests/test_torch_cuda.py`` draws them), one seed each: ``b0``'s
+    relative L2 and cosine against the plain version on the card, beside
+    the floor (the plain version on the CPU against it), and the worst
+    tensor under ``GRAD_TOL``.  A reading of the bf16 noise that random
+    cotangents carry down the chain; the gates are the loss-shaped
+    cotangents' (``train_kernel_phase``, the card tests)."""
+    out = []
+    for seed in seeds:
+        od, z = seeded_rays(1000, 64, seed=9000 + seed, device=device)
+        g = torch.Generator(device).manual_seed(9100 + seed)
+        cots = [torch.randn(64, 1000, generator=g, device=device) * 1e-3
+                for _ in range(4)]
+        got = fv.fused_mlp_bwd_rays(od, z, *cots, p)
+        want = fv.fused_mlp_bwd_rays_plain(od, z, *cots, p)
+        other = fv.fused_mlp_bwd_rays_plain(
+            od.cpu(), z.cpu(), *(c.cpu() for c in cots),
+            fm._with_views(p["w"].cpu(), p["b"].cpu()))
+        kernel, floor = per_tensor(fm, got, want), per_tensor(fm, other, want)
+        (rel, limit, at), cos, _ = grad_errors(fm, got, want, other)
+        row = dict(seed=seed, b0_rel_l2=kernel["b0"][0], b0_cos=kernel["b0"][1],
+                   b0_floor_rel_l2=floor["b0"][0], b0_floor_cos=floor["b0"][1],
+                   worst=at, worst_rel_l2=rel, worst_limit=limit, min_cos=cos)
+        log(f"  K2 ragged (1000, 64), random cotangents, seed {seed}: b0 "
+            f"cos {row['b0_cos']:.6f} (floor {row['b0_floor_cos']:.6f}) "
+            f"rel_l2 {row['b0_rel_l2']:.3e} (floor "
+            f"{row['b0_floor_rel_l2']:.3e}); worst {at} {rel:.3e} against "
+            f"{limit:.3e}, min cos {cos:.6f}")
+        out.append(row)
+    return out
+
+
 def train_kernel_phase(fm, fv, packed, cfg, device):
     """K1 (float32 outputs) and K2 at the training batch: 4096 rays, the
     coarse pass's 64 and the fine pass's 192 samples."""
@@ -472,12 +627,24 @@ def train_kernel_phase(fm, fv, packed, cfg, device):
             f"({flop / k2_ms / 1e9:.1f} TFLOP/s of gradient products)")
         check(rel <= limit and cos >= GRAD_TOL["cos"],
               f"K2 at ({n}, {s}) disagrees with its plain version")
+        plan = fv.bwd_plan(n, s)
+        launches = report_split(fm, cfg, bwd_split(
+            lambda: fv.fused_mlp_bwd_rays(od, z, *cots, p), device, plan),
+            plan, n * s, f"K2 ({n}, {s})")
+        # the weight-gradient launch's yardstick: torch.mm over this row's
+        # own points
+        lib_ms = wgrad_library_ms(device, plan["wgrad_jobs"], n * s)
+        log(f"  K2 ({n}, {s}) weight-gradient products as "
+            f"{len(plan['wgrad_jobs'])} torch.mm over {n * s} points "
+            f"(bf16 out): {lib_ms:.3f} ms against wgrad_kernel "
+            f"{launches.get('wgrad_kernel', {}).get('ms', float('nan')):.3f}")
         shapes.append(dict(N=n, S=s, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
                            k1_bound_ms=k1_bound, k1_max_abs=k1_abs,
                            k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
                            k2_bound_ms=max(t_ops, t_bytes), k2_rel_l2=rel,
                            k2_rel_l2_limit=limit, k2_worst=at, k2_cos=cos,
-                           k2_max_abs=max_abs))
+                           k2_max_abs=max_abs, k2_launches=launches,
+                           k2_wgrad_library_ms=lib_ms))
         k2_row = {
             "name": "fused_mlp_bwd_rays", "route": "cuda",
             "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp_vjp.cu",
@@ -485,7 +652,11 @@ def train_kernel_phase(fm, fv, packed, cfg, device):
             "launches": None, "max_abs_err": max_abs, "ms": k2_ms,
             "plain_ms": k2_plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+            "library_ms": lib_ms, "library": "torch.mm(A.t(), G) per "
+            "weight-gradient product, the products alone, at this row's "
+            "points", "launch_split": launches}
+    k2_row["ragged_random_cotangents"] = ragged_noise_reading(
+        fm, fv, packed["fine"], device)
     return k2_row, shapes
 
 
@@ -902,6 +1073,54 @@ def resume_phase(work: str, data_root: str, device) -> dict:
         f"{len(differ)} tensors differ {differ[:5]}")
     check(not differ, f"resume is not bit-exact: {differ[:5]}")
     return {"steps": 2 * n, "resumed_at": n, "bit_equal": True}
+
+
+def compute_dtype_phase(work: str, data_root: str, device) -> dict:
+    """``--compute_dtype float32`` on the card, through the entry points:
+    two training steps (``main_worker``) and one 800x800 test view through
+    the dense renderer (``--eval_only``'s), each against the same at
+    bfloat16.  The kernels get bf16 weights at either type
+    (``kernel_weight_dtype``), so the saved states and the frames must be
+    equal bit for bit."""
+    import dataclasses
+
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
+    from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import pack_nerf
+    from nerf_pytorch_paeng_tpu_torch.models.nerf import init_nerf
+
+    states, frames = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = load_config(train_args(
+            work, data_root, f"dtype_{dtype}", 2, "--idx_print", "0",
+            "--idx_save", "2", "--train_precull", "off", "--compute_dtype",
+            dtype))
+        driver.main_worker(cfg)
+        states[dtype] = torch.load(driver.checkpoint_path(cfg, 2),
+                                   map_location=device, weights_only=True)
+        images, (K, ext), (H, W), i_split = load_blender(
+            data_root, cfg.bkg_white, cfg.downsample, cfg.testskip)
+        packed = pack_nerf(init_nerf(cfg, seed=1, device=device), cfg)
+        check(packed["fine"]["w"].dtype == torch.bfloat16,
+              f"compute_dtype {dtype}: the card got {packed['fine']['w'].dtype}")
+        render = make_frame_renderer(
+            dataclasses.replace(cfg, render_cull="none"), H, W, K, device)
+        pose = torch.as_tensor(ext[i_split[2][0]][:3, :4])
+        frames[dtype] = render(packed, pose,
+                               torch.Generator(device).manual_seed(0))
+    torch.cuda.synchronize(device)
+    a, b = states["bfloat16"]["model_state_dict"], states["float32"]["model_state_dict"]
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    same_frame = all(torch.equal(x, y) for x, y in zip(frames["bfloat16"],
+                                                       frames["float32"]))
+    log(f"compute_dtype float32 vs bfloat16 on the card: 2 training steps, "
+        f"{len(differ)} tensors differ; an {H}x{W} dense frame bit-equal: "
+        f"{same_frame}")
+    check(not differ and same_frame,
+          f"--compute_dtype float32 differs from bfloat16: {differ[:5]}")
+    return {"train_steps": 2, "frame": [H, W], "bit_equal": True}
 
 
 def recording(fn, calls: list, name: str):
@@ -1747,6 +1966,23 @@ def plane_eval_phase(fm, work: str, data_root: str, device, ray_frame_ms):
     return paths, out
 
 
+def ptxas_lines(text: str) -> list:
+    """(kernel, line) for every register and spill line of a ``-Xptxas -v``
+    log, each under the entry function it reports on (the ``*_kernel``
+    part of the mangled name)."""
+    import re
+    out, kernel = [], "?"
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\S+?)'?(?: for|$)", line.strip())
+        if m:
+            k = re.findall(r"\d([a-z][a-z_]*_kernel)", m.group(1))
+            kernel = k[-1] if k else m.group(1)
+        elif "registers" in line or "spill" in line:
+            out.append((kernel, line.split(":", 1)[-1].strip()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1772,9 +2008,8 @@ def main() -> int:
     log(f"build: {', '.join(s + '.cu' for s in sources)} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for src, lib in zip(sources, libs):
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}:", line.strip())
+        for kernel, line in ptxas_lines(lib.with_suffix(".log").read_text()):
+            log(f"  ptxas {src} {kernel}: {line}")
 
     cfg = NerfConfig()
     packed = fm.pack_nerf(init_nerf(cfg, seed=1, device=device), cfg,
@@ -1804,6 +2039,7 @@ def main() -> int:
             fm, packed, work, data_root, device)
         train_launches, train_stats = train_phase(work, data_root, device)
         resume = resume_phase(work, data_root, device)
+        dtype_check = compute_dtype_phase(work, data_root, device)
         gated_launches, gated_stats = gated_train_phase(
             fm, fv, packed, work, data_root, device)
         plane_launches, n4000_launches, plane_stats = plane_train_phase(
@@ -1845,7 +2081,8 @@ def main() -> int:
     log(json.dumps({"render": {**render_stats, "launches": render_launches}}))
     log(json.dumps({"train": {**train_stats, "launches": train_launches,
                               "kernel_shapes": train_shapes,
-                              "resume": resume}}))
+                              "resume": resume,
+                              "compute_dtype_float32": dtype_check}}))
     log(json.dumps({"gated_train": {**gated_stats,
                                     "launches": gated_launches,
                                     "kernel_shapes": gated_shapes}}))

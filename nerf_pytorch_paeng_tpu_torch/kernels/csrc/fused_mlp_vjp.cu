@@ -47,18 +47,31 @@
 // holds ~5000 points, too few to give each weight-gradient block a long run of
 // points.  So the work is split where the contraction changes direction:
 //  1. bwd_chain_kernel (point-parallel, one 128-ray x 1-sample tile at a
-//     time, the forward kernels' tensor-core machinery): recompute the
-//     forward, then the chain of input gradients dh = g W^T (products over
-//     the weights' output axis, read from a transposed copy of the weights
-//     so the same streamed-weight product serves both directions).  Every
-//     bf16 activation and masked delta goes to a stash in device memory
-//     (4960 values per point, ~10 KB).  Bias and head-weight gradients, cheap
-//     CUDA-core sums, accumulate in the block's shared memory over all its
-//     tiles and are written once per block.
+//     time): recompute the forward, then the chain of input gradients
+//     dh = g W^T, every product on wgmma (hopper_mma.cuh).  Two consumer
+//     warpgroups each carry 64 of the tile's points through the whole MLP;
+//     a producer warpgroup streams the weights by TMA into a 3-stage
+//     mbarrier ring that both read, and hands its registers to them
+//     (setmaxnreg: 232 a consumer thread).  Forward products read
+//     W [in][out] as an MN-major operand, backward ones the same W as a
+//     K-major operand, so no transposed copy of the weights is made.  Bias,
+//     ReLU, the bf16 rounding and the density cotangent term are applied to
+//     the accumulator in registers; each trunk layer's ReLU bits stay in
+//     shared memory (4 KB a layer for 128 points) for the backward.  Every bf16 activation and
+//     masked delta goes to a stash in device memory (4960 values per point,
+//     ~10 KB) with 16-byte stores.  Bias and head-weight gradients, cheap
+//     CUDA-core sums, accumulate in each warpgroup's partial in device
+//     memory over all its tiles.
 //  2. wgrad_kernel: every weight gradient dW = H^T G is a product over the
 //     points; a block owns a 128 x 128 tile of one dW and a contiguous range
-//     of points, keeps the tile in registers over the whole range (cp.async
-//     double buffering of 64-point slabs of H and G) and writes it once.
+//     of points, keeps the tile in registers over the whole range and writes
+//     it once.  Hopper's machinery (hopper_mma.cuh): a producer warp streams
+//     64-point slabs of H and G by TMA into a 4-stage mbarrier ring, two
+//     consumer warpgroups run wgmma (bf16 -> f32) on them, both operands read
+//     MN-major from the point-major stash, so H^T is never copied.  What
+//     bounds it: bytes.  Its products are 1.19 MFLOP a point (1.2 us of
+//     tensor-core time per 1000 points) against the 9.7 KB of stash a point
+//     it must read (2.9 us per 1000 points at 3.35 TB/s).
 //  3. reduce_kernel: the partials of every block and chunk are added in a
 //     fixed order.  No atomics anywhere: two launches on the same inputs
 //     give the same bits, which a bit-exact resume relies on.
@@ -78,11 +91,11 @@
 // S x ray tiles, so the host never reads the active count): a chunk past the
 // list's end runs blocks that write zero partials and exit.  An all-on gate
 // gives the identity list, hence K2's tile order, chunking and reduction, and
-// K2's bits.  The stash traffic
-// (~10 KB written and ~20 KB read per point) is this design's cost beside
-// the tensor-core rate; PERF.md has the times.  First cut: wmma, no
-// wgmma/TMA.
+// K2's bits.  The stash traffic (~10 KB a point, written by the chain
+// launch and read back by the weight-gradient launch) is this design's cost
+// beside the tensor-core rate; PERF.md has the times.
 
+#include "hopper_mma.cuh"
 #include "nerf_mlp_common.cuh"
 
 namespace {
@@ -99,109 +112,290 @@ constexpr long ST_DFEAT = 4576;
 constexpr long ST_DHV = 4832;
 constexpr long ST_PER_POINT = 4960;
 
-// transposed weights [out][in]: W_j^T for trunk layers j = 1..7 (j = 5 is
-// w5h) at (j - 1) * 65536, then wfeat^T, then wvf^T [128][256]
-constexpr long WT_WFEAT = 7L * WIDTH * WIDTH;
-constexpr long WT_WVF = 8L * WIDTH * WIDTH;
-constexpr long WT_TOTAL = WT_WVF + (long)HALF * WIDTH;
-
-// per-block partial of the chain kernel: the bias gradients (packed b
-// layout), then the head weights' (wdens 256, wcol 128 x 3)
+// per-warpgroup partial of the chain kernel, in device memory and added to in
+// place over the block's tiles: the bias gradients (packed b layout), then
+// the head weights' (wdens 256, wcol 128 x 3)
 constexpr int PART1 = B_TOTAL + WIDTH + HALF * 3;   // 3088 floats
 constexpr long WG_TOTAL = OFF_WDENS;                // the weights wgrad_kernel covers
 
 constexpr int CHUNK_TILES = 1024;
 
-// chain kernel shared memory (bytes); every region is a multiple of 128 B
-constexpr int SM_ACT = TILE * ACT_LD * 2;           // 67584: h_i, then feat, then hv
-constexpr int SM_DL = TILE * ACT_LD * 2;            // 67584: the current delta
-constexpr int SM_EMB = TILE * EMB_LD * 2;           // 18432
-constexpr int SM_RAYS = TILE * 8 * 4;               // 4096
-constexpr int SM_GOUT = TILE * 4 * 4;               // 2048: cotangents (r, g, b, sigma)
-constexpr int SM_HEADS = 1024 * 4;                  // wdens 256 + wcol 384 (+pad)
-constexpr int SM_PART = 12416;                      // PART1 floats, rounded up
-constexpr int SMEM_CHAIN = SM_ACT + SM_DL + SM_EMB + SM_WBUF + SM_SCRATCH + SM_RAYS +
-                           SM_GOUT + SM_HEADS + SM_PART;
+// chain kernel: two consumer warpgroups, each 64 of the tile's 128 points
+// through the whole MLP, and a producer warpgroup (one thread streams the
+// weights) that gives its registers to the consumers: 40 against 232 a
+// thread, for the 64 x 256 float32 accumulator (128 a thread)
+constexpr int CH_THREADS = 384;
+constexpr int CH_PRODUCER_REGS = 40, CH_CONSUMER_REGS = 232;
+constexpr int CH_STAGES = 3;
+constexpr int CH_STAGE = 32768;           // a 64-deep k-chunk of a 256-wide weight
+constexpr int CB = TILE * 64 * 2;         // 16384: a column block [128 points][64] bf16
+// shared memory (bytes): operand tiles are column blocks of 64, each row 128
+// bytes with the 128-byte swizzle (hopper_mma.cuh), 1024-byte aligned
+constexpr int SM_ACT = 4 * CB;           // h_i, feat, hv, then the deltas, in place
+constexpr int SM_EMB = CB;               // embx, then embd in columns 0-31
+constexpr int SM_RING = CH_STAGES * CH_STAGE;
+constexpr int SM_MASK = 8 * 4 * 256 * 4; // ReLU bits of h0..h7: 4 words a thread a layer
+constexpr int SM_RAYS = TILE * 8 * 4;
+constexpr int SM_GOUT = TILE * 4 * 4;    // cotangents (r, g, b, sigma)
+constexpr int SM_HEADS = (WIDTH + HALF * 3) * 4;   // wdens 256, wcol 128 x 3
+constexpr int SM_ZROW = TILE * 4;
+constexpr int SMEM_CHAIN = 1024 + SM_ACT + SM_EMB + SM_RING + SM_MASK + SM_RAYS + SM_GOUT +
+                           SM_HEADS + SM_ZROW + 2 * CH_STAGES * 8;
 
-// weight-gradient kernel: 128 x 128 output tiles, 64-point slabs
+// weight-gradient kernel: 128 x 128 output tiles, 64-point slabs in a ring
+// of WG_STAGES stages, each two A and two G boxes of 64 columns x 64 points
 constexpr int TM = 128, TN = 128, PK = 64;
-constexpr int AS_LD = TM + 8, GS_LD = TN + 8;
-constexpr int SM_STAGE = PK * (AS_LD + GS_LD) * 2;  // 34816
-constexpr int SMEM_WGRAD = 2 * SM_STAGE;
+constexpr int WGRAD_THREADS = 384;                  // 2 consumer warpgroups + 1 producer
+constexpr int WG_STAGES = 4;
+constexpr int WG_BOX = 64 * PK * 2;                 // 8192 bytes
+constexpr int WG_STAGE_BYTES = 4 * WG_BOX;
+constexpr int SMEM_WGRAD = 1024 + WG_STAGES * WG_STAGE_BYTES + 2 * WG_STAGES * 8;
 
-__device__ __forceinline__ long trunk_off(int j) {  // packed offset of W_j, j = 1..7
-  const long offs[7] = {OFF_W1, OFF_W2, OFF_W3, OFF_W4, OFF_W5H, OFF_W6, OFF_W7};
-  return offs[j - 1];
+// packed offset of W_j, j = 1..7 (j = 5: w5h): two runs of 256 x 256 matrices
+static_assert(OFF_W2 == OFF_W1 + WIDTH * WIDTH && OFF_W4 == OFF_W1 + 3 * WIDTH * WIDTH &&
+                  OFF_W7 == OFF_W5H + 2 * WIDTH * WIDTH,
+              "the trunk weights are not packed back to back");
+__host__ __device__ __forceinline__ long trunk_off(int j) {
+  return j <= 4 ? OFF_W1 + (long)(j - 1) * WIDTH * WIDTH
+                : OFF_W5H + (long)(j - 5) * WIDTH * WIDTH;
 }
 
-__global__ void transpose_kernel(const bf16* __restrict__ w, bf16* __restrict__ wt) {
-  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i >= WT_TOTAL) return;
-  long src, j;
-  int rows = WIDTH, cols = WIDTH;   // the source is [rows = in][cols = out]
-  if (i < WT_WFEAT) {
-    src = trunk_off(1 + (int)(i / (WIDTH * WIDTH)));
-    j = i % (WIDTH * WIDTH);
-  } else if (i < WT_WVF) {
-    src = OFF_WFEAT;
-    j = i - WT_WFEAT;
-  } else {
-    src = OFF_WVF;
-    j = i - WT_WVF;
-    cols = HALF;
+// byte offset of element (r, c) of a [128 points][K] bf16 operand tile held
+// as column blocks of 64, 128-byte swizzled: the layout TMA writes and
+// wgmma reads as a K-major operand
+__device__ __forceinline__ int sw_off(int r, int c) {
+  return (c >> 6) * CB + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+
+__device__ __forceinline__ float ld_sw(const unsigned char* t, int r, int c) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(t + sw_off(r, c)));
+}
+
+__device__ __forceinline__ void st_sw(unsigned char* t, int r, int c, float v) {
+  *reinterpret_cast<bf16*>(t + sw_off(r, c)) = __float2bfloat16(v);
+}
+
+// The chain kernel's weight products, in the order the consumers run them.
+// Each names a tensor map over the packed weights and the first row of its
+// matrix there; N is the map's width.  Forward products (*F maps) read
+// W [in][out] in 64-row k-chunks as an MN-major B (boxes of 64 columns x 64
+// rows); backward products g W^T (*B maps) read the same W as a K-major B
+// (one box of 64 columns (k = out) x 256 rows (n = in)).  No transposed copy.
+enum { CMAP_W256F, CMAP_W256B, CMAP_W128F, CMAP_W128B, N_CMAPS };
+struct CMaps {
+  CUtensorMap m[N_CMAPS];
+};
+struct Prod {
+  int map, row0, k;
+};
+constexpr int N_PRODS = 21;
+
+__device__ __forceinline__ Prod prod(int i) {
+  if (i == 0) return {CMAP_W256F, (int)(OFF_W0 / WIDTH), EMBX};            // h0
+  if (i <= 4) return {CMAP_W256F, (int)(trunk_off(i) / WIDTH), WIDTH};     // h1..h4
+  if (i == 5) return {CMAP_W256F, (int)(OFF_W5E / WIDTH), EMBX};           // h5: skip
+  if (i <= 8) return {CMAP_W256F, (int)(trunk_off(i - 1) / WIDTH), WIDTH}; // w5h, w6, w7
+  if (i == 9) return {CMAP_W256F, (int)(OFF_WFEAT / WIDTH), WIDTH};        // feat
+  if (i == 10) return {CMAP_W128F, (int)((OFF_WVD - OFF_WVF) / HALF), EMBD};  // hv
+  if (i == 11) return {CMAP_W128F, 0, WIDTH};
+  if (i == 12) return {CMAP_W128B, 0, HALF};                               // dfeat
+  if (i == 13) return {CMAP_W256B, (int)(OFF_WFEAT / WIDTH), WIDTH};       // g7
+  return {CMAP_W256B, (int)(trunk_off(7 - (i - 14)) / WIDTH), WIDTH};      // g6..g0
+}
+
+template <int R>
+__device__ __forceinline__ void zero_acc(float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+}
+
+// acc (64 x N, this warpgroup's rows) += A (its rows of a swizzled operand
+// tile at a, k columns) @ the next product's weights from the ring.  `it`
+// counts the ring stages this thread has consumed.
+template <int N, bool FWD>
+__device__ __forceinline__ void chain_gemm(float (&acc)[N / 2], const unsigned char* a, int k,
+                                           const unsigned char* ring, uint64_t* full,
+                                           uint64_t* empty, uint32_t& it) {
+  for (int c = 0; c * 64 < k; ++c) {
+    const int s = it % CH_STAGES;
+    hopper::mbar_wait(&full[s], (it / CH_STAGES) & 1);
+    const unsigned char* st = ring + s * CH_STAGE;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (c * 64 + kk * 16 < k) {
+        const uint64_t da = hopper::desc_sw128(a + c * CB + kk * 32, 16, 1024);
+        const uint64_t db = FWD ? hopper::desc_sw128(st + kk * 2048, 8192, 1024)
+                                : hopper::desc_sw128(st + kk * 32, 16, 1024);
+        if constexpr (N == 256)
+          hopper::wgmma_m64n256k16<0, FWD ? 1 : 0>(acc, da, db);
+        else
+          hopper::wgmma_m64n128k16<0, FWD ? 1 : 0>(acc, da, db);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&empty[s]);
+    ++it;
   }
-  const long o = j / rows, r = j % rows;
-  wt[i] = w[src + r * cols + o];
 }
 
-// smem tile [TILE][lds] -> device rows [TILE][cols], 16-byte vectors
-__device__ __forceinline__ void stash_tile(bf16* g, int cols, const bf16* s, int lds) {
+// the accumulator element i of this thread: row (in the tile) and column
+__device__ __forceinline__ int acc_row(int row0, int i) {
+  const int t = threadIdx.x & 127;
+  return row0 + 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// out <- round(act(acc + bias)) for the warpgroup's 64 rows, in registers,
+// stored as bf16 pairs into the swizzled tile; with `mask` the ReLU bits of
+// the rounded values go to mask[word * 256 + thread] (word = element / 32)
+template <int N>
+__device__ __forceinline__ void chain_epilogue(const float (&acc)[N / 2],
+                                               const float* __restrict__ bias, bool relu,
+                                               unsigned char* out, int row0, uint32_t* mask) {
+  uint32_t bits[N / 64];
+#pragma unroll
+  for (int w = 0; w < N / 64; ++w) bits[w] = 0u;
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const int c = acc_col(i);
+    float v0 = acc[i] + __ldg(bias + c), v1 = acc[i + 1] + __ldg(bias + c + 1);
+    if (relu) {
+      v0 = fmaxf(v0, 0.0f);
+      v1 = fmaxf(v1, 0.0f);
+    }
+    const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<__nv_bfloat162*>(out + sw_off(acc_row(row0, i), c)) = o;
+    bits[i >> 5] |= ((uint32_t)(__low2float(o) > 0.0f) << (i & 31)) |
+                    ((uint32_t)(__high2float(o) > 0.0f) << ((i + 1) & 31));
+  }
+  if (mask) {
+#pragma unroll
+    for (int w = 0; w < N / 64; ++w) mask[w * 256 + threadIdx.x] = bits[w];
+  }
+}
+
+// delta epilogue: out <- round(v) with v = acc (+ g_sigma[p] wdens[c] when
+// gout is given), zeroed where the ReLU bit of the activation (mask, as
+// chain_epilogue stored it) is clear; no mask: kept
+__device__ __forceinline__ void chain_epilogue_delta(const float (&acc)[128],
+                                                     const uint32_t* mask, const float* gout,
+                                                     const float* wdens, unsigned char* out,
+                                                     int row0) {
+  uint32_t bits[4] = {~0u, ~0u, ~0u, ~0u};
+  if (mask) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) bits[w] = mask[w * 256 + threadIdx.x];
+  }
+#pragma unroll
+  for (int i = 0; i < 128; i += 2) {
+    const int r = acc_row(row0, i), c = acc_col(i);
+    float v0 = acc[i], v1 = acc[i + 1];
+    if (gout) {
+      const float g = gout[r * 4 + 3];
+      v0 += g * wdens[c];
+      v1 += g * wdens[c + 1];
+    }
+    if (!((bits[i >> 5] >> (i & 31)) & 1u)) v0 = 0.0f;
+    if (!((bits[i >> 5] >> ((i + 1) & 31)) & 1u)) v1 = 0.0f;
+    *reinterpret_cast<__nv_bfloat162*>(out + sw_off(r, c)) = __floats2bfloat162_rn(v0, v1);
+  }
+}
+
+// the warpgroup's 64 rows of columns [0, cols) of a swizzled tile -> the
+// stash rows g[r][0 .. cols) (r in the tile), 16-byte stores
+__device__ __forceinline__ void stash_wg(bf16* g, int cols, const unsigned char* t, int row0) {
   const int vpr = cols / 8;
-  for (int v = threadIdx.x; v < TILE * vpr; v += THREADS) {
-    const int r = v / vpr, c = (v % vpr) * 8;
-    *reinterpret_cast<uint4*>(g + (long)r * cols + c) =
-        *reinterpret_cast<const uint4*>(s + r * lds + c);
+  for (int v = threadIdx.x & 127; v < 64 * vpr; v += 128) {
+    const int r = row0 + v / vpr, ch = v % vpr;
+    *reinterpret_cast<uint4*>(g + (long)r * cols + ch * 8) =
+        *reinterpret_cast<const uint4*>(t + sw_off(r, ch * 8));
   }
 }
 
-// dst[c] += sum over the tile's points of t[p][c] (fixed order)
-__device__ __forceinline__ void colsum_add(const bf16* t, int width, float* dst) {
-  for (int c = threadIdx.x; c < width; c += THREADS) {
+// dst[c] += sum over the warpgroup's 64 rows of t[r][c] (fixed order); dst is
+// this warpgroup's own partial, each entry always added to by one thread
+__device__ __forceinline__ void colsum_wg(const unsigned char* t, int row0, int width,
+                                          float* dst) {
+  for (int c = threadIdx.x & 127; c < width; c += 128) {
     float s = 0.0f;
-    for (int p = 0; p < TILE; ++p) s += __bfloat162float(t[p * ACT_LD + c]);
+    for (int r = row0; r < row0 + 64; ++r) s += ld_sw(t, r, c);
     dst[c] += s;
   }
 }
 
-// delta epilogue: v = acc (+ g_sigma[p] * wdens[c] when gout is given),
-// zeroed where the stashed activation mask[p][c] is not > 0 (no mask: kept),
-// rounded to bf16 into dst (shared) and the stash row gdst[p].  mask and
-// gdst are this block's own stash rows, written earlier in the same tile, so
-// they are read with plain (coherent) loads.
-__device__ void epilogue_delta(Acc<WIDTH>& acc, const bf16* mask, const float* gout,
-                               const float* wdens, bf16* dst, bf16* gdst, float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = (warp & 3) * 32;
-  const int col0 = (warp >> 2) * (WIDTH / 2);
-  float* sc = scratch + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < WIDTH / 32; ++j) {
-      wmma::store_matrix_sync(sc, acc.f[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = row0 + 16 * i + (e >> 4), col = col0 + 16 * j + (e & 15);
-        float v = sc[e];
-        if (gout) v += gout[r * 4 + 3] * wdens[col];
-        if (mask && !(__bfloat162float(mask[(long)r * WIDTH + col]) > 0.0f)) v = 0.0f;
-        const bf16 o = __float2bfloat16(v);
-        dst[r * ACT_LD + col] = o;
-        gdst[(long)r * WIDTH + col] = o;
-      }
-      __syncwarp();
+// the warpgroup's 64 rays (or points) of a tile into rays [TILE][8], zrow
+// and the bf16-rounded cotangents gout [TILE][4] (rows row0 .. row0 + 63).
+// Rays past N get a harmless unit direction and zero cotangents, points past
+// P zeros, so they contribute nothing.
+__device__ __forceinline__ void load_wg(float* rays, float* zrow, float* gout,
+                                        const float* __restrict__ od,
+                                        const float* __restrict__ z,
+                                        const float* __restrict__ dplane,
+                                        const float* __restrict__ gr,
+                                        const float* __restrict__ gg,
+                                        const float* __restrict__ gb,
+                                        const float* __restrict__ gs, int n, int k, int ray0,
+                                        int row0) {
+  const int t = threadIdx.x & 127;
+  for (int idx = t; idx < 64 * 6; idx += 128) {
+    const int kk = idx / 64, p = row0 + idx % 64, ray = ray0 + p;
+    float v;
+    if (dplane) {
+      v = 0.0f;
+      if (ray < n) v = kk < 3 ? od[(long)kk * n + ray] : dplane[(long)(kk - 3) * n + ray];
+    } else {
+      v = (kk == 3) ? 1.0f : 0.0f;
+      if (ray < n) v = od[(long)kk * n + ray];
+    }
+    rays[p * 8 + kk] = v;
+  }
+  if (t < 64) {
+    const int p = row0 + t, ray = ray0 + p;
+    const bool ok = ray < n;
+    const long at = (long)k * n + ray;
+    zrow[p] = ok && !dplane ? z[at] : 0.0f;
+    gout[p * 4 + 0] = ok ? __bfloat162float(__float2bfloat16(gr[at])) : 0.0f;
+    gout[p * 4 + 1] = ok ? __bfloat162float(__float2bfloat16(gg[at])) : 0.0f;
+    gout[p * 4 + 2] = ok ? __bfloat162float(__float2bfloat16(gb[at])) : 0.0f;
+    gout[p * 4 + 3] = ok ? __bfloat162float(__float2bfloat16(gs[at])) : 0.0f;
+  }
+}
+
+// build_emb (nerf_mlp_common.cuh) for the warpgroup's 64 rows, into a
+// swizzled tile: the same values, the same double-angle recurrence
+__device__ __forceinline__ void emb_wg(unsigned char* emb, const float* rays, const float* zrow,
+                                       int L, int cols, int col, bool unit, int row0) {
+  const int t = threadIdx.x & 127;
+  for (int idx = t; idx < 64 * 3; idx += 128) {
+    const int p = row0 + idx / 3, c = idx % 3;
+    const float* ray = rays + p * 8;
+    float x;
+    if (zrow) {
+      x = ray[c] + ray[3 + c] * zrow[p];
+    } else if (unit) {
+      const float dx = ray[col], dy = ray[col + 1], dz = ray[col + 2];
+      x = ray[col + c] * rsqrtf(dx * dx + dy * dy + dz * dz);
+    } else {
+      x = ray[col + c];
+    }
+    st_sw(emb, p, c, x);
+    float s = sinf(x), co = cosf(x);
+    for (int j = 0; j < L; ++j) {
+      st_sw(emb, p, 3 + 3 * j + c, s);
+      st_sw(emb, p, 3 + 3 * L + 3 * j + c, co);
+      const float s2 = 2.0f * s * co;
+      co = 1.0f - 2.0f * s * s;
+      s = s2;
     }
   }
+  const int used = 3 + 6 * L, pad = cols - used;
+  for (int idx = t; idx < 64 * pad; idx += 128) st_sw(emb, row0 + idx / pad, used + idx % pad, 0.0f);
 }
 
 // K6: list[0 .. *count) <- the chain tiles (k * ray_tiles + ray tile, K2's
@@ -249,40 +443,91 @@ __device__ __forceinline__ int chunk_tiles(const int* count, long tile0, int nti
 // dplane null: rays, od [8, N] and z [S, N].  dplane given (K9): points, od
 // the position plane [3, N] and dplane the direction plane [3, N] (S = 1,
 // z unused); the directions are embedded as given.
-__global__ void __launch_bounds__(THREADS, 1)
-bwd_chain_kernel(const float* __restrict__ od, const float* __restrict__ z,
-                 const float* __restrict__ dplane,
+//
+// Warpgroup w (threads 128 w .. 128 w + 127) owns rows 64 w .. 64 w + 63 of
+// every tile: it loads them, builds their embedding, runs every product on
+// them with wgmma (A: its rows of the swizzled activation tile in shared
+// memory; B: the weights from the ring, read by both warpgroups), applies
+// bias, ReLU, rounding and the density cotangent term to the accumulator
+// in registers, keeps each trunk layer's ReLU bits in shared memory for the
+// backward, and stashes every activation and delta with 16-byte stores.
+// The two warpgroups meet only at the ring's barriers.  Warpgroup 2
+// produces: its first thread walks the same tiles and products and keeps
+// the ring full by TMA.  The bias and head-weight gradients of each warpgroup add up in
+// its own partial in device memory.
+__global__ void __launch_bounds__(CH_THREADS, 1)
+bwd_chain_kernel(__grid_constant__ const CMaps maps, const float* __restrict__ od,
+                 const float* __restrict__ z, const float* __restrict__ dplane,
                  const float* __restrict__ gr, const float* __restrict__ gg,
                  const float* __restrict__ gb, const float* __restrict__ gs,
-                 const bf16* __restrict__ w, const float* __restrict__ b,
-                 const bf16* __restrict__ wt, bf16* stash, float* part1, int n,
-                 int L_x, int L_d, long tile0, int ntiles, long pc,
+                 const bf16* __restrict__ w, const float* __restrict__ b, bf16* stash,
+                 float* part1, int n, int L_x, int L_d, long tile0, int ntiles, long pc,
                  const int* __restrict__ list, const int* __restrict__ count) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* base = smem;
-  bf16* act = reinterpret_cast<bf16*>(base);
-  base += SM_ACT;
-  bf16* dl = reinterpret_cast<bf16*>(base);
-  base += SM_DL;
-  bf16* emb = reinterpret_cast<bf16*>(base);
-  base += SM_EMB;
-  bf16* wbuf = reinterpret_cast<bf16*>(base);
-  base += SM_WBUF;
-  float* scratch = reinterpret_cast<float*>(base);
-  base += SM_SCRATCH;
-  float* rays = reinterpret_cast<float*>(base);
-  base += SM_RAYS;
-  float* gout = reinterpret_cast<float*>(base);
-  base += SM_GOUT;
-  float* heads = reinterpret_cast<float*>(base);   // wdens [256], wcol [128][3]
-  base += SM_HEADS;
-  float* part = reinterpret_cast<float*>(base);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const act = hopper::align1024(smem_raw);
+  unsigned char* const emb = act + SM_ACT;
+  unsigned char* const ring = emb + SM_EMB;
+  uint32_t* const maskbuf = reinterpret_cast<uint32_t*>(ring + SM_RING);
+  float* const rays = reinterpret_cast<float*>(ring + SM_RING + SM_MASK);
+  float* const gout = rays + TILE * 8;
+  float* const heads = gout + TILE * 4;   // wdens [256], wcol [128][3]
+  float* const zrow = heads + WIDTH + HALF * 3;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(zrow + TILE);
+  uint64_t* const empty = full + CH_STAGES;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < PART1; i += THREADS) part[i] = 0.0f;
-  for (int i = tid; i < WIDTH; i += THREADS) heads[i] = __bfloat162float(w[OFF_WDENS + i]);
-  for (int i = tid; i < HALF * 3; i += THREADS)
+  const int ray_tiles = (n + TILE - 1) / TILE;
+  ntiles = chunk_tiles(count, tile0, ntiles);
+  const int t_begin = (int)((long)blockIdx.x * ntiles / gridDim.x);
+  const int t_end = (int)((long)(blockIdx.x + 1) * ntiles / gridDim.x);
+
+  if (tid == 0) {
+    for (int s = 0; s < CH_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);   // the 8 consumer warps
+    }
+    hopper::fence_barrier_init();
+  }
+  for (int i = tid; i < WIDTH; i += CH_THREADS) heads[i] = __bfloat162float(w[OFF_WDENS + i]);
+  for (int i = tid; i < HALF * 3; i += CH_THREADS)
     heads[WIDTH + i] = __bfloat162float(w[OFF_WCOL + i]);
+  __syncthreads();
+
+  if (tid >= 256) {   // producer warpgroup
+    hopper::setmaxnreg_dec<CH_PRODUCER_REGS>();
+    if (tid == 256) {
+      uint32_t it = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        for (int pi = 0; pi < N_PRODS; ++pi) {
+          const Prod pr = prod(pi);
+          const bool fwd = pr.map == CMAP_W256F || pr.map == CMAP_W128F;
+          const int boxes = pr.map == CMAP_W256F ? 4 : 2;
+          for (int c = 0; c * 64 < pr.k; ++c, ++it) {
+            const int s = it % CH_STAGES;
+            if (it >= CH_STAGES) hopper::mbar_wait(&empty[s], ((it / CH_STAGES) - 1) & 1);
+            unsigned char* st = ring + s * CH_STAGE;
+            if (fwd) {
+              hopper::mbar_expect_tx(&full[s], boxes * 8192);
+              for (int bx = 0; bx < boxes; ++bx)
+                hopper::tma_load_2d(st + bx * 8192, &maps.m[pr.map], &full[s], 64 * bx,
+                                    pr.row0 + 64 * c);
+            } else {
+              hopper::mbar_expect_tx(&full[s], CH_STAGE);
+              hopper::tma_load_2d(st, &maps.m[pr.map], &full[s], 64 * c, pr.row0);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<CH_CONSUMER_REGS>();
+  const int wg = tid >> 7, row0 = 64 * wg, bar = 1 + wg;
+  const unsigned char* const a_act = act + wg * 8192;   // its rows of each column block
+  const unsigned char* const a_emb = emb + wg * 8192;
+  float* const pw = part1 + ((long)blockIdx.x * 2 + wg) * PART1;
+  for (int i = tid & 127; i < PART1; i += 128) pw[i] = 0.0f;
 
   bf16* const s_embx = stash + ST_EMBX * pc;
   bf16* const s_feat = stash + ST_FEAT * pc;
@@ -293,156 +538,185 @@ bwd_chain_kernel(const float* __restrict__ od, const float* __restrict__ z,
   auto s_h = [&](int i) { return stash + (ST_H0 + (long)WIDTH * i) * pc; };
   auto s_g = [&](int i) { return stash + (ST_G0 + (long)WIDTH * i) * pc; };
 
-  const int ray_tiles = (n + TILE - 1) / TILE;
-  ntiles = chunk_tiles(count, tile0, ntiles);
-  const int t_begin = (int)((long)blockIdx.x * ntiles / gridDim.x);
-  const int t_end = (int)((long)(blockIdx.x + 1) * ntiles / gridDim.x);
-  float* zrow = scratch;
+  uint32_t it = 0;
+  float acc[128];
 #pragma unroll 1
   for (int t = t_begin; t < t_end; ++t) {
     const long tg = list ? (long)list[tile0 + t] : tile0 + t;
     const int k = (int)(tg / ray_tiles), ray0 = (int)(tg % ray_tiles) * TILE;
     const long q0 = (long)t * TILE;   // first stash row of this tile
-    __syncthreads();                  // the previous tile is done with smem
+    hopper::named_barrier(bar, 128);  // the previous tile is done with our rows
+    load_wg(rays, zrow, gout, od, z, dplane, gr, gg, gb, gs, n, k, ray0, row0);
+    hopper::named_barrier(bar, 128);
     if (dplane)
-      load_points(rays, od, dplane, n, ray0);
+      emb_wg(emb, rays, nullptr, L_x, EMBX, 0, false, row0);
     else
-      load_rays(rays, od, n, ray0);
-    if (tid < TILE) {
-      const int ray = ray0 + tid;
-      const bool ok = ray < n;
-      const long at = (long)k * n + ray;
-      zrow[tid] = ok && !dplane ? z[at] : 0.0f;
-      // cotangents rounded to bf16; rays past N get zero cotangents, so
-      // every delta and gradient contribution of theirs is zero
-      gout[tid * 4 + 0] = ok ? __bfloat162float(__float2bfloat16(gr[at])) : 0.0f;
-      gout[tid * 4 + 1] = ok ? __bfloat162float(__float2bfloat16(gg[at])) : 0.0f;
-      gout[tid * 4 + 2] = ok ? __bfloat162float(__float2bfloat16(gb[at])) : 0.0f;
-      gout[tid * 4 + 3] = ok ? __bfloat162float(__float2bfloat16(gs[at])) : 0.0f;
-    }
-    __syncthreads();
-    if (dplane)
-      build_emb(emb, rays, nullptr, L_x, EMBX, 0, false);
-    else
-      build_emb(emb, rays, zrow, L_x, EMBX);
-    __syncthreads();
-    stash_tile(s_embx + q0 * EMBX, EMBX, emb, EMB_LD);
+      emb_wg(emb, rays, zrow, L_x, EMBX, 0, true, row0);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(bar, 128);
+    stash_wg(s_embx + q0 * EMBX, EMBX, emb, row0);
 
     // ---- forward recompute, every activation to the stash -------------
-    {
-      Acc<WIDTH> acc;
-      acc.zero();
-      gemm<WIDTH>(acc, emb, EMB_LD, EMBX, w + OFF_W0, wbuf);
-      epilogue<WIDTH, true>(acc, b + OFF_B0, true, act, ACT_LD, scratch, s_h(0) + q0 * WIDTH,
-                            WIDTH);
+    zero_acc(acc);
+    chain_gemm<WIDTH, true>(acc, a_emb, EMBX, ring, full, empty, it);
+    chain_epilogue<WIDTH>(acc, b + OFF_B0, true, act, row0, maskbuf);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(bar, 128);
+    stash_wg(s_h(0) + q0 * WIDTH, WIDTH, act, row0);
 #pragma unroll 1
-      for (int i = 1; i <= 7; ++i) {
-        acc.zero();
-        if (i == 5) gemm<WIDTH>(acc, emb, EMB_LD, EMBX, w + OFF_W5E, wbuf);  // skip
-        gemm<WIDTH>(acc, act, ACT_LD, WIDTH, w + trunk_off(i), wbuf);
-        epilogue<WIDTH, true>(acc, b + OFF_B0 + WIDTH * i, true, act, ACT_LD, scratch,
-                              s_h(i) + q0 * WIDTH, WIDTH);
-      }
+    for (int i = 1; i <= 7; ++i) {
+      zero_acc(acc);
+      if (i == 5) chain_gemm<WIDTH, true>(acc, a_emb, EMBX, ring, full, empty, it);  // skip
+      chain_gemm<WIDTH, true>(acc, a_act, WIDTH, ring, full, empty, it);
+      hopper::named_barrier(bar, 128);   // every warp is done reading h_{i-1}
+      chain_epilogue<WIDTH>(acc, b + OFF_B0 + WIDTH * i, true, act, row0, maskbuf + i * 1024);
+      hopper::fence_proxy_async();
+      hopper::named_barrier(bar, 128);
+      stash_wg(s_h(i) + q0 * WIDTH, WIDTH, act, row0);
     }
-    __syncthreads();  // h7 visible
-    {                 // density head: dwdens[c] += sum_p h7[p][c] g_sigma[p]
-      float s = 0.0f;
-      for (int p = 0; p < TILE; ++p) s += __bfloat162float(act[p * ACT_LD + tid]) * gout[p * 4 + 3];
-      part[B_TOTAL + tid] += s;
+    {  // density head: dwdens[c] += sum_p h7[p][c] g_sigma[p]
+      for (int c = tid & 127; c < WIDTH; c += 128) {
+        float s = 0.0f;
+        for (int r = row0; r < row0 + 64; ++r) s += ld_sw(act, r, c) * gout[r * 4 + 3];
+        pw[B_TOTAL + c] += s;
+      }
     }
     // the embedding is free after the skip layer; K9's directions as given
-    build_emb(emb, rays, nullptr, L_d, EMBD, 3, dplane == nullptr);
-    {                                          // feature layer (no activation), in place
-      Acc<WIDTH> acc;
-      acc.zero();
-      gemm<WIDTH>(acc, act, ACT_LD, WIDTH, w + OFF_WFEAT, wbuf);
-      epilogue<WIDTH, true>(acc, b + OFF_BFEAT, false, act, ACT_LD, scratch, s_feat + q0 * WIDTH,
-                            WIDTH);
+    emb_wg(emb, rays, nullptr, L_d, EMBD, 3, dplane == nullptr, row0);
+    hopper::fence_proxy_async();
+    zero_acc(acc);  // feature layer (no activation), in place
+    chain_gemm<WIDTH, true>(acc, a_act, WIDTH, ring, full, empty, it);
+    hopper::named_barrier(bar, 128);
+    chain_epilogue<WIDTH>(acc, b + OFF_BFEAT, false, act, row0, nullptr);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(bar, 128);
+    stash_wg(s_feat + q0 * WIDTH, WIDTH, act, row0);
+    stash_wg(s_embd + q0 * EMBD, EMBD, emb, row0);
+    {  // view layer: relu(embd @ wvd + feat @ wvf + bv) -> columns 0-127
+      float acc2[64];
+      zero_acc(acc2);
+      chain_gemm<HALF, true>(acc2, a_emb, EMBD, ring, full, empty, it);
+      chain_gemm<HALF, true>(acc2, a_act, WIDTH, ring, full, empty, it);
+      hopper::named_barrier(bar, 128);
+      chain_epilogue<HALF>(acc2, b + OFF_BV, true, act, row0, nullptr);
     }
-    stash_tile(s_embd + q0 * EMBD, EMBD, emb, EMB_LD);
-    {  // view layer: relu(embd @ wvd + feat @ wvf + bv) -> act[:, :128]
-      Acc<HALF> acc;
-      acc.zero();
-      gemm<HALF>(acc, emb, EMB_LD, EMBD, w + OFF_WVD, wbuf);
-      gemm<HALF>(acc, act, ACT_LD, WIDTH, w + OFF_WVF, wbuf);
-      epilogue<HALF, true>(acc, b + OFF_BV, true, act, ACT_LD, scratch, s_hv + q0 * HALF, HALF);
-    }
-    __syncthreads();  // hv visible
+    hopper::named_barrier(bar, 128);  // hv visible
+    stash_wg(s_hv + q0 * HALF, HALF, act, row0);
 
     // ---- backward -------------------------------------------------------
-    for (int idx = tid; idx < HALF * 3; idx += THREADS) {  // dwcol[k][c]
+    for (int idx = tid & 127; idx < HALF * 3; idx += 128) {  // dwcol[k][c]
       const int kk = idx / 3, c = idx % 3;
       float s = 0.0f;
-      for (int p = 0; p < TILE; ++p) s += __bfloat162float(act[p * ACT_LD + kk]) * gout[p * 4 + c];
-      part[B_TOTAL + WIDTH + idx] += s;
+      for (int r = row0; r < row0 + 64; ++r) s += ld_sw(act, r, kk) * gout[r * 4 + c];
+      pw[B_TOTAL + WIDTH + idx] += s;
     }
-    if (tid < 4) {  // dbcol, dbdens
+    if ((tid & 127) < 4) {  // dbcol, dbdens
+      const int c = tid & 127;
       float s = 0.0f;
-      for (int p = 0; p < TILE; ++p) s += gout[p * 4 + tid];
-      part[tid < 3 ? OFF_BCOL + tid : OFF_BDENS] += s;
+      for (int r = row0; r < row0 + 64; ++r) s += gout[r * 4 + c];
+      pw[c < 3 ? OFF_BCOL + c : OFF_BDENS] += s;
     }
-    // dhv = mask(hv > 0, g_rgb @ wcol^T), bf16 -> dl[:, :128]
-    for (int idx = tid; idx < TILE * HALF; idx += THREADS) {
-      const int p = idx / HALF, kk = idx % HALF;
+    hopper::named_barrier(bar, 128);  // every read of hv is done
+    // dhv = mask(hv > 0, g_rgb @ wcol^T), bf16, in place
+    for (int idx = tid & 127; idx < 64 * HALF; idx += 128) {
+      const int r = row0 + idx / HALF, kk = idx % HALF;
       float v = 0.0f;
-      if (__bfloat162float(act[p * ACT_LD + kk]) > 0.0f) {
+      if (ld_sw(act, r, kk) > 0.0f) {
         const float* wc = heads + WIDTH + kk * 3;
-        v = wc[0] * gout[p * 4] + wc[1] * gout[p * 4 + 1] + wc[2] * gout[p * 4 + 2];
+        v = wc[0] * gout[r * 4] + wc[1] * gout[r * 4 + 1] + wc[2] * gout[r * 4 + 2];
       }
-      const bf16 o = __float2bfloat16(v);
-      dl[p * ACT_LD + kk] = o;
-      s_dhv[(q0 + p) * HALF + kk] = o;
+      st_sw(act, r, kk, v);
     }
-    __syncthreads();
-    colsum_add(dl, HALF, part + OFF_BV);
-    Acc<WIDTH> acc;
-    acc.zero();  // dfeat = dhv @ wvf^T, bf16
-    gemm<WIDTH>(acc, dl, ACT_LD, HALF, wt + WT_WVF, wbuf);
-    epilogue_delta(acc, nullptr, nullptr, heads, dl, s_dfeat + q0 * WIDTH, scratch);
-    __syncthreads();
-    colsum_add(dl, WIDTH, part + OFF_BFEAT);
-    acc.zero();  // g7 = mask(h7, dfeat @ wfeat^T + g_sigma wdens)
-    gemm<WIDTH>(acc, dl, ACT_LD, WIDTH, wt + WT_WFEAT, wbuf);
-    epilogue_delta(acc, s_h(7) + q0 * WIDTH, gout, heads, dl, s_g(7) + q0 * WIDTH, scratch);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(bar, 128);
+    stash_wg(s_dhv + q0 * HALF, HALF, act, row0);
+    colsum_wg(act, row0, HALF, pw + OFF_BV);
+    zero_acc(acc);  // dfeat = dhv @ wvf^T, bf16
+    chain_gemm<WIDTH, false>(acc, a_act, HALF, ring, full, empty, it);
+    hopper::named_barrier(bar, 128);
+    chain_epilogue_delta(acc, nullptr, nullptr, heads, act, row0);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(bar, 128);
+    stash_wg(s_dfeat + q0 * WIDTH, WIDTH, act, row0);
+    colsum_wg(act, row0, WIDTH, pw + OFF_BFEAT);
+    zero_acc(acc);  // g7 = mask(h7, dfeat @ wfeat^T + g_sigma wdens)
+    chain_gemm<WIDTH, false>(acc, a_act, WIDTH, ring, full, empty, it);
+    hopper::named_barrier(bar, 128);
+    chain_epilogue_delta(acc, maskbuf + 7 * 1024, gout, heads, act, row0);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(bar, 128);
+    stash_wg(s_g(7) + q0 * WIDTH, WIDTH, act, row0);
+    colsum_wg(act, row0, WIDTH, pw + OFF_B0 + WIDTH * 7);
 #pragma unroll 1
     for (int j = 7; j >= 1; --j) {  // g_{j-1} = mask(h_{j-1}, g_j @ W_j^T)
-      __syncthreads();
-      colsum_add(dl, WIDTH, part + OFF_B0 + WIDTH * j);
-      acc.zero();
-      gemm<WIDTH>(acc, dl, ACT_LD, WIDTH, wt + (long)(j - 1) * WIDTH * WIDTH, wbuf);
-      epilogue_delta(acc, s_h(j - 1) + q0 * WIDTH, nullptr, heads, dl, s_g(j - 1) + q0 * WIDTH,
-                     scratch);
+      zero_acc(acc);
+      chain_gemm<WIDTH, false>(acc, a_act, WIDTH, ring, full, empty, it);
+      hopper::named_barrier(bar, 128);
+      chain_epilogue_delta(acc, maskbuf + (j - 1) * 1024, nullptr, heads, act, row0);
+      hopper::fence_proxy_async();
+      hopper::named_barrier(bar, 128);
+      stash_wg(s_g(j - 1) + q0 * WIDTH, WIDTH, act, row0);
+      colsum_wg(act, row0, WIDTH, pw + OFF_B0 + WIDTH * (j - 1));
     }
-    __syncthreads();
-    colsum_add(dl, WIDTH, part + OFF_B0);
   }
-  __syncthreads();
-  for (int i = tid; i < PART1; i += THREADS) part1[(long)blockIdx.x * PART1 + i] = part[i];
 }
 
-// the weight gradients dW = A^T G of wgrad_kernel, A and G stash arrays
+// the weight gradients dW = A^T G of wgrad_kernel: A and G are stash arrays,
+// each named by a tensor map (WMAP_*) and an array index within it
+enum { WMAP_H, WMAP_G, WMAP_EMBX, WMAP_EMBD, WMAP_DHV, N_WMAPS };
 struct WJob {
-  long a, g, out;   // stash array units (x pc), packed offset
+  int amap, aarr, gmap, garr;
+  long out;   // packed offset of dW
   int kin, nout;
 };
 
-__device__ WJob wjob(int j) {
-  if (j == 0) return {ST_EMBX, ST_G0, OFF_W0, EMBX, WIDTH};
-  if (j <= 4) return {ST_H0 + WIDTH * (j - 1), ST_G0 + WIDTH * j, trunk_off(j), WIDTH, WIDTH};
-  if (j == 5) return {ST_EMBX, ST_G0 + WIDTH * 5, OFF_W5E, EMBX, WIDTH};
-  if (j <= 8) return {ST_H0 + WIDTH * (j - 2), ST_G0 + WIDTH * (j - 1), trunk_off(j - 1), WIDTH,
-                      WIDTH};  // w5h, w6, w7
-  if (j == 9) return {ST_H0 + WIDTH * 7, ST_DFEAT, OFF_WFEAT, WIDTH, WIDTH};
-  if (j == 10) return {ST_FEAT, ST_DHV, OFF_WVF, WIDTH, HALF};
-  return {ST_EMBD, ST_DHV, OFF_WVD, EMBD, HALF};
+// h0..h7 and feat are 9 consecutive [pc][256] arrays (WMAP_H), g0..g7 and
+// dfeat another 9 (WMAP_G)
+static_assert(ST_FEAT == ST_H0 + 8 * WIDTH && ST_DFEAT == ST_G0 + 8 * WIDTH,
+              "the stash's 256-wide arrays are not evenly spaced");
+
+__host__ __device__ WJob wjob(int j) {
+  if (j == 0) return {WMAP_EMBX, 0, WMAP_G, 0, OFF_W0, EMBX, WIDTH};
+  if (j <= 4) return {WMAP_H, j - 1, WMAP_G, j, trunk_off(j), WIDTH, WIDTH};
+  if (j == 5) return {WMAP_EMBX, 0, WMAP_G, 5, OFF_W5E, EMBX, WIDTH};
+  if (j <= 8) return {WMAP_H, j - 2, WMAP_G, j - 1, trunk_off(j - 1), WIDTH, WIDTH};  // w5h, w6, w7
+  if (j == 9) return {WMAP_H, 7, WMAP_G, 8, OFF_WFEAT, WIDTH, WIDTH};
+  if (j == 10) return {WMAP_H, 8, WMAP_DHV, 0, OFF_WVF, WIDTH, HALF};
+  return {WMAP_EMBD, 0, WMAP_DHV, 0, OFF_WVD, EMBD, HALF};
 }
 constexpr int N_WJOBS = 12;
 constexpr int N_WTILES = 39;   // sum over the jobs of ceil(kin/TM) * ceil(nout/TN)
 
-__global__ void __launch_bounds__(THREADS, 1)
-wgrad_kernel(const bf16* __restrict__ stash, long pc, int ntiles, float* __restrict__ part2,
+struct WMaps {
+  CUtensorMap m[N_WMAPS];
+};
+
+// one 64-column x PK-point box of map `id` (array arr) into dst
+__device__ __forceinline__ void wload(const WMaps& maps, int id, int arr, void* dst, uint64_t* bar,
+                                      int col, int p0) {
+  if (id <= WMAP_G)
+    hopper::tma_load_3d(dst, &maps.m[id], bar, col, p0, arr);
+  else
+    hopper::tma_load_2d(dst, &maps.m[id], bar, col, p0);
+}
+
+// Block (tile, split): the TM x TN tile `tile` of the jobs' dW over the
+// split's range of 64-point slabs.  Warpgroups 0 and 1 consume: each owns
+// 64 rows of the tile (warpgroup 1 idles where the job has <= 64 rows:
+// embx, embd) and keeps its 64 x 128 float32 accumulator in registers over
+// the whole range.  Warp 8 produces: its first lane streams the slabs by
+// TMA into a WG_STAGES-deep ring (per stage the A boxes of the active
+// warpgroups and two G boxes, 64 columns x 64 points each, 128-byte
+// swizzle), signalled by mbarriers.  Both wgmma operands are MN-major
+// views of the point-major stash: A^T needs no copy.
+__global__ void __launch_bounds__(WGRAD_THREADS, 1)
+wgrad_kernel(__grid_constant__ const WMaps maps, int ntiles, float* __restrict__ part2,
              const int* __restrict__ count, long tile0) {
-  extern __shared__ __align__(128) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_STAGES * WG_STAGE_BYTES);
+  uint64_t* empty = full + WG_STAGES;
+
   int tile = blockIdx.x, j = 0, tm = 0, tn = 0;
   WJob job = wjob(0);
   for (; j < N_WJOBS; ++j) {
@@ -456,79 +730,92 @@ wgrad_kernel(const bf16* __restrict__ stash, long pc, int ntiles, float* __restr
     tile -= mt * nt;
   }
   const int m0 = tm * TM, n0 = tn * TN;
-  const int mrows = min(TM, job.kin - m0), ncols = min(TN, job.nout - n0);
-  const bf16* A = stash + job.a * pc + m0;   // row p at A + p * kin
-  const bf16* G = stash + job.g * pc + n0;   // row p at G + p * nout
+  const int mrows = min(TM, job.kin - m0);
+  const int n_a = mrows > 64 ? 2 : 1;   // A boxes = active consumer warpgroups
   const int nsteps = chunk_tiles(count, tile0, ntiles) * TILE / PK;
   const int st0 = (int)((long)blockIdx.y * nsteps / gridDim.y);
-  const int st1 = (int)((long)(blockIdx.y + 1) * nsteps / gridDim.y);
+  const int nst = (int)((long)(blockIdx.y + 1) * nsteps / gridDim.y) - st0;
 
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 64;
-  AccFrag acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) wmma::fill_fragment(acc[i][jj], 0.0f);
-
-  auto load = [&](int st, int buf) {
-    bf16* as = reinterpret_cast<bf16*>(smem + buf * SM_STAGE);
-    bf16* gs = as + PK * AS_LD;
-    const long p0 = (long)st * PK;
-    const int va = mrows / 8, vg = ncols / 8;
-    for (int v = threadIdx.x; v < PK * va; v += THREADS) {
-      const int r = v / va, c = (v % va) * 8;
-      __pipeline_memcpy_async(as + r * AS_LD + c, A + (p0 + r) * job.kin + c, 16);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);   // the 8 consumer warps
     }
-    for (int v = threadIdx.x; v < PK * vg; v += THREADS) {
-      const int r = v / vg, c = (v % vg) * 8;
-      __pipeline_memcpy_async(gs + r * GS_LD + c, G + (p0 + r) * job.nout + c, 16);
-    }
-  };
-
-  if (st0 < st1) {
-    load(st0, 0);
-    __pipeline_commit();
+    hopper::fence_barrier_init();
   }
-  for (int st = st0; st < st1; ++st) {
-    const int buf = (st - st0) & 1;
-    if (st + 1 < st1) {
-      load(st + 1, buf ^ 1);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    const bf16* as = reinterpret_cast<const bf16*>(smem + buf * SM_STAGE);
-    const bf16* gs = as + PK * AS_LD;
-#pragma unroll
-    for (int kk = 0; kk < PK; kk += 16) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (wm + 16 * i >= mrows) continue;
-        // A^T [m x points] is the stashed [points x m] slab read column-major
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-        wmma::load_matrix_sync(a, as + kk * AS_LD + wm + 16 * i, AS_LD);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          if (wn + 16 * jj >= ncols) continue;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(bfr, gs + kk * GS_LD + wn + 16 * jj, GS_LD);
-          wmma::mma_sync(acc[i][jj], a, bfr, acc[i][jj]);
-        }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {   // producer
+    if (threadIdx.x == 256) {
+      for (int i = 0; i < nst; ++i) {
+        const int s = i % WG_STAGES;
+        if (i >= WG_STAGES) hopper::mbar_wait(&empty[s], ((i / WG_STAGES) - 1) & 1);
+        unsigned char* buf = ring + s * WG_STAGE_BYTES;
+        const int p0 = (st0 + i) * PK;
+        hopper::mbar_expect_tx(&full[s], (n_a + 2) * WG_BOX);
+        for (int a = 0; a < n_a; ++a)
+          wload(maps, job.amap, job.aarr, buf + a * WG_BOX, &full[s], m0 + 64 * a, p0);
+        for (int g = 0; g < 2; ++g)
+          wload(maps, job.gmap, job.garr, buf + (2 + g) * WG_BOX, &full[s], n0 + 64 * g, p0);
       }
     }
-    __syncthreads();
+    return;
   }
-  float* out = part2 + (long)blockIdx.y * WG_TOTAL + job.out + (long)m0 * job.nout + n0;
+
+  // consumers
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  const bool active = wg < n_a;
+  for (int i = 0; i < nst; ++i) {
+    const int s = i % WG_STAGES;
+    hopper::mbar_wait(&full[s], (i / WG_STAGES) & 1);
+    if (active) {
+      const unsigned char* buf = ring + s * WG_STAGE_BYTES;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      if (wm + 16 * i < mrows && wn + 16 * jj < ncols)
-        wmma::store_matrix_sync(out + (long)(wm + 16 * i) * job.nout + wn + 16 * jj, acc[i][jj],
-                                job.nout, wmma::mem_row_major);
+      for (int kk = 0; kk < PK / 16; ++kk) {
+        const uint64_t da = hopper::desc_sw128(buf + wg * WG_BOX + kk * 2048, WG_BOX, 1024);
+        const uint64_t db = hopper::desc_sw128(buf + 2 * WG_BOX + kk * 2048, WG_BOX, 1024);
+        hopper::wgmma_m64n128k16<1, 1>(acc, da, db);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+    }
+    if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&empty[s]);
+  }
+  if (!active) return;
+  const int t = threadIdx.x & 127;
+  const int rows = min(64, mrows - 64 * wg);
+  const int r0 = 16 * (t >> 5) + ((t & 31) >> 2), c0 = 2 * (t & 3);
+  float* out = part2 + (long)blockIdx.y * WG_TOTAL + job.out + (long)(m0 + 64 * wg) * job.nout + n0;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r < rows)
+        *reinterpret_cast<float2*>(out + (long)r * job.nout + 8 * q + c0) =
+            make_float2(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
+    }
+  }
+}
+
+// the tensor maps of the stash of a chunk of pc points (base sb)
+int wgrad_maps(WMaps* maps, const bf16* sb, long pc) {
+  using hopper::encode_bf16_map;
+  const long span = (long)WIDTH * pc;
+  int rc;
+  if ((rc = encode_bf16_map(&maps->m[WMAP_H], sb + ST_H0 * pc, WIDTH, pc, 9, span, PK))) return rc;
+  if ((rc = encode_bf16_map(&maps->m[WMAP_G], sb + ST_G0 * pc, WIDTH, pc, 9, span, PK))) return rc;
+  if ((rc = encode_bf16_map(&maps->m[WMAP_EMBX], sb + ST_EMBX * pc, EMBX, pc, 1, 0, PK)))
+    return rc;
+  if ((rc = encode_bf16_map(&maps->m[WMAP_EMBD], sb + ST_EMBD * pc, EMBD, pc, 1, 0, PK)))
+    return rc;
+  return encode_bf16_map(&maps->m[WMAP_DHV], sb + ST_DHV * pc, HALF, pc, 1, 0, PK);
 }
 
 // dw, db <- the partials, added in a fixed order
@@ -562,22 +849,36 @@ Plan make_plan(int n, int s) {
   p.nchunks = (int)((p.tiles + p.chunk - 1) / p.chunk);
   const int nsm = sm_count();
   p.g1 = p.chunk < nsm ? p.chunk : nsm;
-  // about two waves of weight-gradient blocks, at least one slab each
-  p.nsplit = (2 * nsm + N_WTILES - 1) / N_WTILES;
+  // just under three waves of weight-gradient blocks (one block per SM),
+  // at least one slab each
+  p.nsplit = 3 * nsm / N_WTILES > 0 ? 3 * nsm / N_WTILES : 1;
   const int slabs = p.chunk * TILE / PK;
   if (p.nsplit > slabs) p.nsplit = slabs;
   return p;
 }
 
+// the chain kernel's tensor maps over the packed weights w: the 256-wide
+// matrices w0 .. wfeat as one [2176][256] array, wvf and wvd as one
+// [288][128] array, each with forward (64 x 64) and backward (64 x 256) boxes
+int chain_maps(CMaps* maps, const bf16* w) {
+  using hopper::encode_bf16_map;
+  const long rows256 = OFF_WVF / WIDTH, rows128 = (OFF_WDENS - OFF_WVF) / HALF;
+  int rc;
+  if ((rc = encode_bf16_map(&maps->m[CMAP_W256F], w, WIDTH, rows256, 1, 0, 64))) return rc;
+  if ((rc = encode_bf16_map(&maps->m[CMAP_W256B], w, WIDTH, rows256, 1, 0, 256))) return rc;
+  if ((rc = encode_bf16_map(&maps->m[CMAP_W128F], w + OFF_WVF, HALF, rows128, 1, 0, 64)))
+    return rc;
+  return encode_bf16_map(&maps->m[CMAP_W128B], w + OFF_WVF, HALF, rows128, 1, 0, 256);
+}
+
 // the three launches of K2, K6 (gate given) or K9 (dplane given, S = 1)
 int bwd_run(const float* od, const float* z, const float* dplane, const float* gr,
             const float* gg, const float* gb, const float* gs, const void* w, const float* b,
-            void* wt, void* stash, float* part1, float* part2, float* dw, float* db,
-            const int* gate, int* tiles, int n, int s, int L_x, int L_d, void* stream) {
+            void* stash, float* part1, float* part2, float* dw, float* db, const int* gate,
+            int* tiles, int n, int s, int L_x, int L_d, void* stream) {
   const Plan p = make_plan(n, s);
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* wb = reinterpret_cast<const bf16*>(w);
-  bf16* wtb = reinterpret_cast<bf16*>(wt);
   bf16* sb = reinterpret_cast<bf16*>(stash);
   const long pc = (long)p.chunk * TILE;
   const int* list = gate ? tiles : nullptr;
@@ -591,56 +892,82 @@ int bwd_run(const float* od, const float* z, const float* dplane, const float* g
                                                         tiles + p.tiles);
     if ((rc = (int)cudaGetLastError())) return rc;
   }
-  transpose_kernel<<<(int)((WT_TOTAL + 255) / 256), 256, 0, st>>>(wb, wtb);
-  if ((rc = (int)cudaGetLastError())) return rc;
+  CMaps cmaps;
+  WMaps wmaps;
+  if ((rc = chain_maps(&cmaps, wb))) return rc;
+  if ((rc = wgrad_maps(&wmaps, sb, pc))) return rc;
   for (int c = 0; c < p.nchunks; ++c) {
     const long t0 = (long)c * p.chunk;
     const int ntc = (int)(p.tiles - t0 < p.chunk ? p.tiles - t0 : p.chunk);
-    bwd_chain_kernel<<<p.g1, THREADS, SMEM_CHAIN, st>>>(od, z, dplane, gr, gg, gb, gs, wb, b,
-                                                        wtb, sb, part1 + (long)c * p.g1 * PART1,
-                                                        n, L_x, L_d, t0, ntc, pc, list, count);
+    bwd_chain_kernel<<<p.g1, CH_THREADS, SMEM_CHAIN, st>>>(
+        cmaps, od, z, dplane, gr, gg, gb, gs, wb, b, sb, part1 + (long)c * p.g1 * 2 * PART1, n,
+        L_x, L_d, t0, ntc, pc, list, count);
     if ((rc = (int)cudaGetLastError())) return rc;
-    wgrad_kernel<<<dim3(N_WTILES, p.nsplit), THREADS, SMEM_WGRAD, st>>>(
-        sb, pc, ntc, part2 + (long)c * p.nsplit * WG_TOTAL, count, t0);
+    wgrad_kernel<<<dim3(N_WTILES, p.nsplit), WGRAD_THREADS, SMEM_WGRAD, st>>>(
+        wmaps, ntc, part2 + (long)c * p.nsplit * WG_TOTAL, count, t0);
     if ((rc = (int)cudaGetLastError())) return rc;
   }
   reduce_kernel<<<(int)((W_TOTAL + B_TOTAL + 255) / 256), 256, 0, st>>>(
-      part2, p.nchunks * p.nsplit, part1, p.nchunks * p.g1, dw, db);
+      part2, p.nchunks * p.nsplit, part1, p.nchunks * p.g1 * 2, dw, db);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Workspace the caller allocates for nerf_bwd_rays at (n, s), in elements:
-// sizes[0] transposed weights (bf16), [1] stash (bf16), [2] chain partials
-// (float32), [3] weight-gradient partials (float32), [4] with a gate: the
-// active tile list and its length (int32).  nerf_bwd_points at P points
-// takes the workspace of (P, 1).
+// sizes[0] stash (bf16), [1] chain partials (float32, one per warpgroup of
+// every chain block and chunk), [2] weight-gradient partials (float32), [3]
+// with a gate: the active tile list and its length (int32).
+// nerf_bwd_points at P points takes the workspace of (P, 1).
 extern "C" void nerf_bwd_rays_workspace(int n, int s, long* sizes) {
   const Plan p = make_plan(n, s);
-  sizes[0] = WT_TOTAL;
-  sizes[1] = (long)p.chunk * TILE * ST_PER_POINT;
-  sizes[2] = (long)p.nchunks * p.g1 * PART1;
-  sizes[3] = (long)p.nchunks * p.nsplit * WG_TOTAL;
-  sizes[4] = p.tiles + 1;
+  sizes[0] = (long)p.chunk * TILE * ST_PER_POINT;
+  sizes[1] = (long)p.nchunks * p.g1 * 2 * PART1;
+  sizes[2] = (long)p.nchunks * p.nsplit * WG_TOTAL;
+  sizes[3] = p.tiles + 1;
 }
 
-// gate null: K2; gate given (S % 8 == 0): K6, with tiles the sizes[4] ints
+// The plan and stash layout of nerf_bwd_rays at (n, s), for a caller that
+// accounts for each launch's work: out[0] chunks, [1] points a chunk, [2]
+// weight-gradient splits a chunk, [3] chain blocks a chunk, [4] bf16 values
+// the chain launch stashes a point, [5] of them the values the
+// weight-gradient launch reads a point (all but hv), [6] its products' count
+// J, then J pairs (rows, columns) of dW = A^T G in launch order.  Writes
+// nothing unless cap holds them all; returns how many there are.
+extern "C" int nerf_bwd_plan(int n, int s, long* out, int cap) {
+  const int len = 7 + 2 * N_WJOBS;
+  if (cap < len) return len;
+  const Plan p = make_plan(n, s);
+  out[0] = p.nchunks;
+  out[1] = (long)p.chunk * TILE;
+  out[2] = p.nsplit;
+  out[3] = p.g1;
+  out[4] = ST_PER_POINT;
+  out[5] = ST_PER_POINT - (ST_EMBD - ST_HV);
+  out[6] = N_WJOBS;
+  for (int j = 0; j < N_WJOBS; ++j) {
+    const WJob job = wjob(j);
+    out[7 + 2 * j] = job.kin;
+    out[8 + 2 * j] = job.nout;
+  }
+  return len;
+}
+
+// gate null: K2; gate given (S % 8 == 0): K6, with tiles the sizes[3] ints
 extern "C" int nerf_bwd_rays(const float* od, const float* z, const float* gr, const float* gg,
                              const float* gb, const float* gs, const void* w, const float* b,
-                             void* wt, void* stash, float* part1, float* part2, float* dw,
-                             float* db, const int* gate, int* tiles, int n, int s, int L_x,
-                             int L_d, void* stream) {
-  return bwd_run(od, z, nullptr, gr, gg, gb, gs, w, b, wt, stash, part1, part2, dw, db, gate,
-                 tiles, n, s, L_x, L_d, stream);
+                             void* stash, float* part1, float* part2, float* dw, float* db,
+                             const int* gate, int* tiles, int n, int s, int L_x, int L_d,
+                             void* stream) {
+  return bwd_run(od, z, nullptr, gr, gg, gb, gs, w, b, stash, part1, part2, dw, db, gate, tiles,
+                 n, s, L_x, L_d, stream);
 }
 
 // K9: x, d [3, P] (d as given), g [4, P] the cotangents of (r, g, b, sigma)
 extern "C" int nerf_bwd_points(const float* x, const float* d, const float* g, const void* w,
-                               const float* b, void* wt, void* stash, float* part1,
-                               float* part2, float* dw, float* db, int p, int L_x, int L_d,
-                               void* stream) {
+                               const float* b, void* stash, float* part1, float* part2,
+                               float* dw, float* db, int p, int L_x, int L_d, void* stream) {
   const long row = (long)p;
-  return bwd_run(x, nullptr, d, g, g + row, g + 2 * row, g + 3 * row, w, b, wt, stash, part1,
-                 part2, dw, db, nullptr, nullptr, p, 1, L_x, L_d, stream);
+  return bwd_run(x, nullptr, d, g, g + row, g + 2 * row, g + 3 * row, w, b, stash, part1, part2,
+                 dw, db, nullptr, nullptr, p, 1, L_x, L_d, stream);
 }

@@ -1,8 +1,10 @@
-// Device code shared by the fused NeRF MLP kernels (fused_mlp.cu, the
-// forward kernels, and fused_mlp_vjp.cu, the backward): the packed weight
-// layout, the streamed-weight tensor-core product, its epilogue and the
-// in-block double-angle embedding.  A block is 256 threads (8 warps) over a
-// tile of 128 points; each warp holds a 32-row slab of the accumulators.
+// Device code shared by the fused NeRF MLP kernels: the packed weight
+// layout (fused_mlp.cu, the forward kernels, and fused_mlp_vjp.cu, the
+// backward), and the forward kernels' streamed-weight tensor-core product
+// (wmma), its epilogue and the in-block double-angle embedding.  A forward
+// block is 256 threads (8 warps) over a tile of 128 points; each warp holds
+// a 32-row slab of the accumulators.  The backward runs on wgmma and TMA
+// (hopper_mma.cuh) with its own tile layout.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -121,12 +123,10 @@ __device__ void gemm(Acc<N>& acc, const bf16* A, int lda, int K,
 }
 
 // dst[TILE x N] (bf16, stride ldd) <- round(act(acc + bias)); bias may be
-// null.  With STASH the rounded tile is also stored to gdst (device memory,
-// row stride ldg).
-template <int N, bool STASH = false>
+// null.
+template <int N>
 __device__ void epilogue(Acc<N>& acc, const float* __restrict__ bias, bool relu,
-                         bf16* dst, int ldd, float* scratch, bf16* gdst = nullptr,
-                         int ldg = 0) {
+                         bf16* dst, int ldd, float* scratch) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = (warp & 3) * 32;
   const int col0 = (warp >> 2) * (N / 2);
@@ -141,9 +141,7 @@ __device__ void epilogue(Acc<N>& acc, const float* __restrict__ bias, bool relu,
         const int r = row0 + 16 * i + (e >> 4), col = col0 + 16 * j + (e & 15);
         float v = sc[e] + (bias ? __ldg(bias + col) : 0.0f);
         if (relu) v = fmaxf(v, 0.0f);
-        const bf16 o = __float2bfloat16(v);
-        dst[r * ldd + col] = o;
-        if (STASH) gdst[(long)r * ldg + col] = o;
+        dst[r * ldd + col] = __float2bfloat16(v);
       }
       __syncwarp();
     }

@@ -249,11 +249,24 @@ def with_weight_dtype(packed: Dict[str, torch.Tensor],
     return _with_views(packed["w"].to(dtype), packed["b"])
 
 
+def kernel_weight_dtype(compute_dtype: str, device) -> torch.dtype:
+    """The type the fused kernels see the packed weights in.  On a CUDA
+    device bf16, whatever ``compute_dtype`` says: the CUDA kernels compute
+    in bf16, as the JAX package's kernels do on the TPU (it packs float32
+    and leaves ``compute_dtype`` to its XLA route).  On the CPU the
+    config's type, so that the plain versions at ``float32`` reproduce the
+    JAX package's float32 interpret mode."""
+    if torch.device(device).type == "cuda" or compute_dtype == "bfloat16":
+        return torch.bfloat16
+    return torch.float32
+
+
 def pack_nerf(model, cfg, device=None) -> Dict[str, Dict]:
     """Both MLPs of a ``NeRF`` packed once, for a whole evaluation run, in
-    the config's compute dtype."""
-    dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
-             else torch.float32)
+    ``kernel_weight_dtype`` for the device they are packed onto."""
+    if device is None:
+        device = next(model.parameters()).device
+    dtype = kernel_weight_dtype(cfg.compute_dtype, device)
     return {
         "coarse": pack_nerf_mlp_params(model.model_coarse, cfg.L_x, cfg.L_d,
                                        dtype, device),

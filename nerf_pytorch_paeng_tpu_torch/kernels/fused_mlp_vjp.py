@@ -180,22 +180,42 @@ def _library() -> ctypes.CDLL:
     lib.nerf_bwd_rays_workspace.argtypes = [i, i, ctypes.POINTER(
         ctypes.c_long)]
     lib.nerf_bwd_rays_workspace.restype = None
-    lib.nerf_bwd_rays.argtypes = [p] * 16 + [i, i, i, i, p]
-    lib.nerf_bwd_points.argtypes = [p] * 11 + [i, i, i, p]
+    lib.nerf_bwd_plan.argtypes = [i, i, ctypes.POINTER(ctypes.c_long), i]
+    lib.nerf_bwd_plan.restype = i
+    lib.nerf_bwd_rays.argtypes = [p] * 15 + [i, i, i, i, p]
+    lib.nerf_bwd_points.argtypes = [p] * 10 + [i, i, i, p]
     lib.nerf_bwd_rays.restype = lib.nerf_bwd_points.restype = i
     return lib
 
 
 def _workspace(lib, n: int, s: int, dev):
     """The backward's scratch at (n, s) (``nerf_bwd_rays_workspace``):
-    (transposed weights, stash, chain partials, weight-gradient partials,
-    the size of the gate's tile list)."""
-    sizes = (ctypes.c_long * 5)()
+    (stash, chain partials, weight-gradient partials, the size of the
+    gate's tile list).  The chain kernel reads the weights as they are
+    packed: no transposed copy."""
+    sizes = (ctypes.c_long * 4)()
     lib.nerf_bwd_rays_workspace(n, s, sizes)
     return (torch.empty(sizes[0], dtype=torch.bfloat16, device=dev),
-            torch.empty(sizes[1], dtype=torch.bfloat16, device=dev),
-            torch.empty(sizes[2], device=dev),
-            torch.empty(sizes[3], device=dev), sizes[4])
+            torch.empty(sizes[1], device=dev),
+            torch.empty(sizes[2], device=dev), sizes[3])
+
+
+def bwd_plan(n: int, s: int) -> dict:
+    """The CUDA backward's plan at (n, s) as the kernel makes it on the
+    current card (``nerf_bwd_plan``), for accounting each launch's work:
+    ``chunks``, ``chunk_points``, ``nsplit`` (weight-gradient splits a
+    chunk), ``g1`` (chain blocks a chunk), ``stash_per_point`` (bf16
+    values stashed a point), ``wgrad_read_per_point`` (of them, those the
+    weight-gradient launch reads) and ``wgrad_jobs``: the (rows, columns)
+    of its products dW = A^T G in launch order.  Needs the card."""
+    lib = _library()
+    cap = lib.nerf_bwd_plan(n, s, None, 0)
+    out = (ctypes.c_long * cap)()
+    lib.nerf_bwd_plan(n, s, out, cap)
+    keys = ("chunks", "chunk_points", "nsplit", "g1", "stash_per_point",
+            "wgrad_read_per_point")
+    jobs = tuple((out[7 + 2 * j], out[8 + 2 * j]) for j in range(out[6]))
+    return {**dict(zip(keys, out[:6])), "wgrad_jobs": jobs}
 
 
 def fused_mlp_bwd_rays(od: torch.Tensor, z_t: torch.Tensor,
@@ -221,13 +241,13 @@ def fused_mlp_bwd_rays(od: torch.Tensor, z_t: torch.Tensor,
     if s * n == 0:
         return dw.zero_(), db.zero_()
     with torch.cuda.device(dev):
-        wt, stash, part1, part2, n_list = _workspace(lib, n, s, dev)
+        stash, part1, part2, n_list = _workspace(lib, n, s, dev)
         # K6: the list of active chain tiles and its length
         tiles = (None if gate is None else
                  torch.empty(n_list, dtype=torch.int32, device=dev))
         rc = lib.nerf_bwd_rays(
             od.data_ptr(), z_t.data_ptr(), *(g.data_ptr() for g in grads),
-            packed["w"].data_ptr(), packed["b"].data_ptr(), wt.data_ptr(),
+            packed["w"].data_ptr(), packed["b"].data_ptr(),
             stash.data_ptr(), part1.data_ptr(), part2.data_ptr(),
             dw.data_ptr(), db.data_ptr(), _ptr(gate), _ptr(tiles), n, s,
             L_x, L_d, torch.cuda.current_stream().cuda_stream)
@@ -265,10 +285,10 @@ def fused_mlp_bwd(xplane: torch.Tensor, dplane: torch.Tensor,
     if p == 0:
         return dw.zero_(), db.zero_()
     with torch.cuda.device(dev):
-        wt, stash, part1, part2, _ = _workspace(lib, p, 1, dev)
+        stash, part1, part2, _ = _workspace(lib, p, 1, dev)
         rc = lib.nerf_bwd_points(
             xplane.data_ptr(), dplane.data_ptr(), g4.data_ptr(),
-            packed["w"].data_ptr(), packed["b"].data_ptr(), wt.data_ptr(),
+            packed["w"].data_ptr(), packed["b"].data_ptr(),
             stash.data_ptr(), part1.data_ptr(), part2.data_ptr(),
             dw.data_ptr(), db.data_ptr(), p, L_x, L_d,
             torch.cuda.current_stream().cuda_stream)

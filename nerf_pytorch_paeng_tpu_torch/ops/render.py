@@ -177,7 +177,7 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
     module's support intervals (``_gated_train_pass``; the two modules are
     independent networks) and ``gate_frac`` is set.  The loss is the
     ungated one bit for bit; the gradients differ in summation order."""
-    from ..kernels.fused_mlp import pack_flat
+    from ..kernels.fused_mlp import kernel_weight_dtype, pack_flat
     from ..kernels.fused_mlp_vjp import fused_mlp_train_rays
 
     n = rays_o.shape[0]
@@ -187,7 +187,7 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
         "a multiple of 128 rays and sample counts that are multiples of 8; "
         "other shapes train on the plane layout (render_rays_from_cfg with "
         "make_train_field_fns)")
-    wdt = _weight_dtype(cfg)
+    wdt = kernel_weight_dtype(cfg.compute_dtype, rays_o.device)
     near, far = float(cfg.near), float(cfg.far)
     od = pack_od(rays_o, rays_d)
     if support is not None:
@@ -232,11 +232,6 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
 # ---------------------------------------------------------- the plane layout
 
 
-def _weight_dtype(cfg) -> torch.dtype:
-    """The type the training kernels see the weights in."""
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-
-
 def make_train_field_fns(model, cfg) -> Tuple[Callable, Callable]:
     """Differentiable field functions of a ``NeRF``'s two modules on the
     plane pair (``kernels/fused_mlp_vjp.fused_mlp_train``: K8 forward, K9
@@ -245,14 +240,15 @@ def make_train_field_fns(model, cfg) -> Tuple[Callable, Callable]:
     parameters differentiably, so ``loss.backward()`` reaches the module.
     The JAX version pads the planes to its 1024-point tile; the kernels
     here mask their ragged last block instead."""
-    from ..kernels.fused_mlp import pack_flat
+    from ..kernels.fused_mlp import kernel_weight_dtype, pack_flat
     from ..kernels.fused_mlp_vjp import fused_mlp_train
 
     def build(mlp):
         def fn(xplane, dplane):
             w, b = pack_flat(mlp, cfg.L_x, cfg.L_d)
-            return fused_mlp_train(w, b, xplane, dplane, cfg.L_x, cfg.L_d,
-                                   _weight_dtype(cfg))
+            return fused_mlp_train(
+                w, b, xplane, dplane, cfg.L_x, cfg.L_d,
+                kernel_weight_dtype(cfg.compute_dtype, xplane.device))
         return fn
     return build(model.model_coarse), build(model.model_fine)
 

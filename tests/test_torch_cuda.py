@@ -198,6 +198,39 @@ def test_bwd_kernel_matches_plain(dev, n, s):
     _grads_close(got, *_plain_both(od, z, gout, p))
 
 
+def test_bwd_kernel_ragged_rays_match_plain(dev):
+    """1000 rays (not a multiple of the 128-ray tile) x 64 samples: the
+    launch gives the bits of the same rays padded to 1024 with zero
+    cotangents (the chain tiles and the weight-gradient launch's TMA boxes
+    end at the ragged edge, and its dummy rays add exact zeros), and is
+    within ``_grads_close`` of the plain version under cotangents shaped
+    like a training loss's (``_loss_cotangents``)."""
+    p = _packed(40, dev)
+    od, z = _inputs(41, 1024, 64, dev)
+    gout = _loss_cotangents(fm.fused_mlp_eval_rays(od, z, p), 42, dev)
+    pad = [g.clone() for g in gout]
+    for g in pad:
+        g[:, 1000:] = 0.0
+    od_r, z_r = od[:, :1000].contiguous(), z[:, :1000].contiguous()
+    gout_r = [g[:, :1000].contiguous() for g in gout]
+    got = fv.fused_mlp_bwd_rays(od_r, z_r, *gout_r, p)
+    padded = fv.fused_mlp_bwd_rays(od, z, *pad, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], padded[0]) and torch.equal(got[1], padded[1])
+    _grads_close(got, *_plain_both(od_r, z_r, gout_r, p))
+
+
+def _loss_cotangents(outs, seed, dev):
+    """d/d logit of a mean squared error of sigmoid(logit) against a seeded
+    per-ray target (chip_smoke.py's ``loss_like_cotangents``)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    s, n = outs[0].shape
+    tgt = torch.rand(4, n, generator=g, device=dev)
+    return [((torch.sigmoid(o) - tgt[i]) * torch.sigmoid(o)
+             * (1 - torch.sigmoid(o)) * (2.0 / (n * s))).contiguous()
+            for i, o in enumerate(outs)]
+
+
 def test_bwd_kernel_is_deterministic(dev):
     """No atomics: two launches on the same inputs give the same bits
     (more than one chunk of points, so the partials' order is pinned)."""
@@ -207,6 +240,38 @@ def test_bwd_kernel_is_deterministic(dev):
     a = fv.fused_mlp_bwd_rays(od, z, *gout, p)
     b = fv.fused_mlp_bwd_rays(od, z, *gout, p)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_bwd_workspace_holds_no_transposed_weights(dev):
+    """The chain launch reads the packed weights as they are (TMA boxes,
+    K-major wgmma operands for g W^T): the workspace is the stash of one
+    chunk (131,072 points x 4960 values), the two float32 partials and the
+    gate's list, and the stash is its only bf16 buffer."""
+    ws = fv._workspace(fv._library(), 4096, 64, dev)
+    assert len(ws) == 4
+    bf16 = [t for t in ws[:3] if t.dtype == torch.bfloat16]
+    assert len(bf16) == 1 and bf16[0].numel() == 131072 * 4960
+
+
+def test_bwd_plan_matches_workspace_and_weights(dev):
+    """``bwd_plan`` reports the kernel's own chunking and layout: the
+    stash of one chunk is the workspace's bf16 buffer, the partials match
+    its chunks and splits, and the weight-gradient products are the packed
+    weights below wdens in their packed order."""
+    lib = fv._library()
+    for n, s in ((4096, 64), (1000, 8), (4096, 192)):
+        plan = fv.bwd_plan(n, s)
+        stash, part1, part2, n_list = fv._workspace(lib, n, s, dev)
+        assert stash.numel() == plan["chunk_points"] * plan["stash_per_point"]
+        assert plan["chunks"] * plan["chunk_points"] >= -(-n // 128) * 128 * s
+        assert part2.numel() == (plan["chunks"] * plan["nsplit"]
+                                 * fm.W_OFFSETS["wdens"])
+        assert n_list == -(-n // 128) * s + 1
+    layout = dict(fm._W_LAYOUT)
+    order = ("w0", "w1", "w2", "w3", "w4", "w5e", "w5h", "w6", "w7",
+             "wfeat", "wvf", "wvd")
+    assert plan["wgrad_jobs"] == tuple(layout[k] for k in order)
+    assert plan["wgrad_read_per_point"] < plan["stash_per_point"]
 
 
 def test_bwd_launch_counter(dev):
@@ -283,6 +348,43 @@ def test_full_width_training_step(dev):
             fv.fused_mlp_bwd_rays.launches - launches[1]) == (2, 2)
     for k, v in state.model.state_dict().items():     # Adam's first step
         assert float((v != before[k]).float().mean()) > 0.5, k
+
+
+@pytest.mark.parametrize("what", ["train_step", "eval_frame"])
+def test_float32_compute_dtype_equals_bf16_on_the_card(dev, what):
+    """``--compute_dtype float32`` on the card: the kernels get bf16 packed
+    weights at either compute dtype (``fm.kernel_weight_dtype``), so a
+    lego-config training step (8x256, 4096 rays, 64+128 samples) and a
+    64x64 ``--eval_only`` frame (the dense renderer) run and equal the
+    bfloat16 runs bit for bit."""
+    from nerf_pytorch_paeng_tpu_torch.train import create_train_state
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_image_train_step
+
+    H = W = 64
+    images, K, poses = make_synth_scene(n_views=1, H=H, W=W)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        if what == "train_step":
+            cfg = NerfConfig(N_rays=4096, N_samples_c=64, N_samples_f=128,
+                             iter_warmup=0, iter_N=10, compute_dtype=dtype)
+            state = create_train_state(cfg, dev)
+            step = make_image_train_step(cfg, schedule_from_cfg(cfg), H, W, K)
+            m = step(state, torch.from_numpy(images[0]).to(dev),
+                     torch.from_numpy(poses[0][:3, :4]).to(dev))
+            out[dtype] = [m["loss"]] + [v.detach().clone() for v in
+                                        state.model.state_dict().values()]
+        else:
+            cfg = NerfConfig(render_cull="none", compute_dtype=dtype)
+            packed = fm.pack_nerf(init_nerf(cfg, seed=0, device=dev), cfg)
+            assert packed["fine"]["w"].dtype == torch.bfloat16
+            render = make_frame_renderer(cfg, H, W, K, dev, block_rays=1500)
+            out[dtype] = list(render(packed, torch.from_numpy(poses[0]),
+                                     torch.Generator(dev).manual_seed(0)))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(out["float32"][0].float().mean()))
+    assert all(torch.equal(a, b) for a, b in zip(out["bfloat16"],
+                                                 out["float32"]))
 
 
 def _gate(kind, n, s, dev, seed=22):
@@ -572,6 +674,28 @@ def test_gated_bwd_kernel_is_deterministic_and_counted(dev):
     assert (fv.fused_mlp_bwd_rays.launches,
             fv.fused_mlp_bwd_rays.gated_launches) == (before[0],
                                                       before[1] + 2)
+
+
+def test_gated_bwd_kernel_over_chunks(dev):
+    """K6 at a half-on gate over more than one chunk of active points
+    (4096 rays x 96 samples: 3072 chain tiles, about half on, against
+    1024 tiles (131,072 points) a chunk): two launches bit-equal, and
+    within ``_grads_close`` of the gated plain version."""
+    p = _packed(43, dev)
+    n, s = 4096, 96
+    od, z = _inputs(44, n, s, dev)
+    gout = _cotangents(45, s, n, dev)
+    gate = _gate("mixed", n, s, dev, seed=46)
+    assert int(gate.sum()) * 8 > 1024      # a gate entry is 8 chain tiles
+    a = fv.fused_mlp_bwd_rays(od, z, *gout, p, gate=gate)
+    b = fv.fused_mlp_bwd_rays(od, z, *gout, p, gate=gate)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    want = fv.fused_mlp_bwd_rays_plain(od, z, *gout, p, gate=gate)
+    other = fv.fused_mlp_bwd_rays_plain(od.cpu(), z.cpu(),
+                                        *(g.cpu() for g in gout), _on_cpu(p),
+                                        gate=gate.cpu())
+    _grads_close(a, want, other)
 
 
 def test_gated_full_width_training_step(dev):
