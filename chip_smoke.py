@@ -5,15 +5,20 @@
 
 1. Builds the port's CUDA kernels from the sources in the checkout (one
    nvcc per source, all at once) and prints each kernel's registers and
-   spills as ``-Xptxas -v`` reported them.
+   spills as ``-Xptxas -v`` reported them; the ray kernels' launch plan
+   (persistent blocks, shared memory a block, ring stages, blocks an SM
+   holds) and the host time to encode their tensor maps.
 2. Kernel phase: each kernel at the shapes its paths give it, seeded
    inputs and seeded weights, against its plain PyTorch version on the
    same inputs (stated tolerance), with kernel and plain times (CUDA
    events, median after warm-up) and the least time the card could take
    for the work: the sigma kernel (K3) and the full-field kernel (K1) at
-   the eval block (131072 rays; 64, and 64+128 merged samples); K1 with
-   float32 outputs and the backward kernel (K2) at the training batch
-   (4096 rays; 64 and 192 samples); K2 launched twice must give the same
+   the eval block (131072 rays; 64, and 64+128 merged samples), each
+   beside its bf16 products alone as chained ``torch.mm`` at the row's own
+   points (``library_ms``, a yardstick the port never calls), and K3's
+   sigma bit-equal to K1's; K1 with float32 outputs (two launches
+   bit-equal) and the backward kernel (K2) at the training batch (4096
+   rays; 64 and 192 samples); K2 launched twice must give the same
    bits, and its three launches (chain, weight-gradient, reduction) are
    timed apart under the profiler, each beside its own bound, and the
    weight-gradient products beside the same 12 products as ``torch.mm``
@@ -21,7 +26,8 @@
    with a seeded gate that leaves about half the (128-ray tile, 8-sample
    row) blocks on: gated blocks exactly 0, active blocks bit-equal to the
    ungated kernel and within the tolerance of the gated plain version,
-   timed at that gate and at an all-on gate beside the bound of the
+   timed at that gate and at an all-on gate (bit-equal to the ungated
+   kernel) beside the bound of the
    active work; the points kernel K7 on the 128^3 support grid; the gated
    training pair at the training batch (4096 rays; 64 and 192 samples)
    under an all-on, a seeded half-on and an all-off gate: K5 with float32
@@ -62,8 +68,8 @@
    without (1e-5), kernels against plain versions (>= 35 dB); culled and
    dense frame times, and one culled frame under the profiler.  Last, K4
    and K5 on the very inputs that pose and the first orbit view gave them
-   (K4 over the 640,000 rays, K5 on each cover block and sample class, the
-   small blocks under the sample-axis split) with the seeded random
+   (K4 over the 640,000 rays, K5 on each cover block and sample class,
+   some with fewer ray tiles than the card has SMs) with the seeded random
    weights, every unit live: gated blocks 0, active blocks bit-equal to
    the ungated kernel and within the tolerance of the plain version.
 6. Gated training phase: the training entry resumes from a checkpoint of
@@ -246,6 +252,7 @@ def kernel_phase(fm, packed, cfg, device):
         ref = ref if isinstance(ref, tuple) else (ref,)
         bf16_abs, bf16_rel = errors([o[:, chunk] for o in p_out], ref)
         n_out = len(k_out)
+        lib_ms = products_ms(p, BLOCK * s, full=n_out == 4)
         flop = (fm.sigma_flop_per_sample(cfg.L_x) if n_out == 1
                 else fm.eval_flop_per_sample(cfg.L_x)) * s * BLOCK
         if n_out == 4:
@@ -257,7 +264,8 @@ def kernel_phase(fm, packed, cfg, device):
             f"rel_l2={rel_l2:.3e} (tolerance {KERNEL_TOL}; plain bf16 vs "
             f"float32: max_abs={bf16_abs:.3e} rel_l2={bf16_rel:.3e}) "
             f"ms={k_ms:.3f} plain_ms={p_ms:.3f} bound_ms={max(t_ops, t_bytes):.3f} "
-            f"({flop / k_ms / 1e9:.1f} TFLOP/s)")
+            f"({flop / k_ms / 1e9:.1f} TFLOP/s); its products alone as "
+            f"torch.mm over the same {BLOCK * s} points {lib_ms:.3f} ms")
         check(max_abs <= KERNEL_TOL["max_abs"]
               and rel_l2 <= KERNEL_TOL["rel_l2"],
               f"{name} disagrees with its plain version")
@@ -268,7 +276,21 @@ def kernel_phase(fm, packed, cfg, device):
             "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+            "library_ms": lib_ms, "library": "its bf16 products alone as "
+            "chained torch.mm at this row's points", "plan": fm.rays_plan(
+                BLOCK, s)}
+    # K3 and K1 share the trunk and the density head: their sigma bits agree
+    od, z = seeded_rays(BLOCK, 192, seed=192, device=device)
+    check(torch.equal(fm.fused_mlp_sigma_rays(od, z, packed["fine"]),
+                      fm.fused_mlp_eval_rays(od, z, packed["fine"])[3]),
+          "K3's sigma differs from K1's on the same inputs and weights")
+    maps_us = fm._library().nerf_fwd_maps_us(packed["fine"]["w"].data_ptr(),
+                                              1000)
+    log(f"kernel phase: K3's sigma equals K1's bit for bit at ({BLOCK}, 192); "
+        f"host time to encode a ray launch's two tensor maps {maps_us:.2f} "
+        f"us (mean of 1000); plan at ({BLOCK}, 192) "
+        f"{rows['fused_mlp_eval_rays']['plan']}")
+    rows["fused_mlp_eval_rays"]["tma_encode_us"] = maps_us
     return rows
 
 
@@ -276,6 +298,50 @@ def bound(flop: float, nbytes: float):
     """(least ms for the work on this card, what sets it)."""
     t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def products_ms(p, points: int, full: bool, chunk: int = 1 << 20) -> float:
+    """The ray kernels' bf16 products alone as chained ``torch.mm`` calls
+    (bf16 in and out; no embedding, bias, activation or rounding of its
+    own): the trunk (the skip layer as ``mm`` + ``addmm``) and the density
+    head, and for the full field the feature, view (``mm`` + ``addmm``)
+    and colour products, over ``points`` points in chunks of ``chunk``:
+    timed at the row's own point count (CUDA events), not scaled.  A
+    yardstick the port never calls (the K1/K3 rows' ``library_ms``)."""
+    dev = p["w"].device
+    m = min(points, chunk)
+    g = torch.Generator(dev).manual_seed(0)
+    embx = torch.randn(m, 64, generator=g, device=dev).bfloat16()
+    embd = torch.randn(m, 32, generator=g, device=dev).bfloat16()
+    h = [torch.empty(m, 256, dtype=torch.bfloat16, device=dev)
+         for _ in range(3)]
+    hv = [torch.empty(m, 128, dtype=torch.bfloat16, device=dev)
+          for _ in range(2)]
+    dens = torch.empty(m, 1, dtype=torch.bfloat16, device=dev)
+    col = torch.empty(m, 3, dtype=torch.bfloat16, device=dev)
+    wdens = p["wdens"][:, None]
+
+    def run():
+        for i in range(0, points, m):
+            r = min(m, points - i)
+            a, b, c = (t[:r] for t in h)
+            torch.mm(embx[:r], p["w0"], out=a)
+            for name in ("w1", "w2", "w3", "w4"):
+                torch.mm(a, p[name], out=b)
+                a, b = b, a
+            torch.mm(embx[:r], p["w5e"], out=b)
+            torch.addmm(b, a, p["w5h"], out=c)
+            torch.mm(c, p["w6"], out=a)
+            torch.mm(a, p["w7"], out=b)
+            torch.mm(b, wdens, out=dens[:r])
+            if full:
+                torch.mm(b, p["wfeat"], out=a)
+                torch.mm(embd[:r], p["wvd"], out=hv[0][:r])
+                torch.addmm(hv[0][:r], a, p["wvf"], out=hv[1][:r])
+                torch.mm(hv[1][:r], p["wcol"], out=col[:r])
+
+    ms, _ = cuda_ms(run, reps=3)
+    return ms
 
 
 def gated_flop(gate, n: int, s: int, per_sample: int, per_ray: int = 0):
@@ -315,8 +381,13 @@ def gated_kernel_phase(fm, packed, cfg, device):
         on = fm.gate_mask(half, s, BLOCK)
         kw = dict(out_dtype=torch.bfloat16)
         k_ms, k_out = cuda_ms(lambda: kern(od, z, p, gate=half, **kw), reps=5)
-        on_ms, _ = cuda_ms(lambda: kern(od, z, p, gate=all_on, **kw), reps=3)
+        on_ms, on_out = cuda_ms(lambda: kern(od, z, p, gate=all_on, **kw),
+                                reps=3)
         ungated = kern(od, z, p, **kw)
+        on_out = on_out if isinstance(on_out, tuple) else (on_out,)
+        check(all(torch.equal(a, b) for a, b in zip(
+            on_out, ungated if isinstance(ungated, tuple) else (ungated,))),
+            f"{name}: an all-on gate does not give the ungated kernel's bits")
         p_ms, p_out = cuda_ms(lambda: plain(od, z, p, gate=half, **kw),
                               reps=1)
         k_out, ungated, p_out = (x if isinstance(x, tuple) else (x,)
@@ -343,7 +414,8 @@ def gated_kernel_phase(fm, packed, cfg, device):
             f"ungated kernel, vs plain max_abs={max_abs:.3e} "
             f"rel_l2={rel_l2:.3e} (tolerance {KERNEL_TOL}); ms={k_ms:.3f} "
             f"plain_ms={p_ms:.3f} bound_ms={b_ms:.3f} "
-            f"({flop / k_ms / 1e9:.1f} TFLOP/s); all on: ms={on_ms:.3f} "
+            f"({flop / k_ms / 1e9:.1f} TFLOP/s); all on (bit-equal to the "
+            f"ungated kernel): ms={on_ms:.3f} "
             f"bound_ms={b_on_ms:.3f} ({flop_on / on_ms / 1e9:.1f} TFLOP/s)")
         rows[name] = {
             "name": name, "route": "cuda",
@@ -598,6 +670,12 @@ def train_kernel_phase(fm, fv, packed, cfg, device):
         k1_flop = (fm.eval_flop_per_sample(cfg.L_x) * s
                    + fm.eval_flop_per_ray(cfg.L_d)) * n
         k1_bound = k1_flop / PEAK_BF16_FLOPS * 1e3
+        k1_lib_ms = products_ms(p, n * s, full=True)
+        again = fm.fused_mlp_eval_rays(od, z, p)
+        check(all(torch.equal(a, b) for a, b in zip(outs, again)),
+              f"K1 float32 at ({n}, {s}): two launches differ")
+        check(torch.equal(fm.fused_mlp_sigma_rays(od, z, p), outs[3]),
+              f"K3's sigma differs from K1's at ({n}, {s})")
 
         cots = loss_like_cotangents(outs, seed=2000 + s, device=device)
         k2_ms, got = cuda_ms(lambda: fv.fused_mlp_bwd_rays(od, z, *cots, p),
@@ -618,7 +696,9 @@ def train_kernel_phase(fm, fv, packed, cfg, device):
         log(f"kernel fused_mlp_eval_rays (float32 out): N={n} S={s} "
             f"max_abs={k1_abs:.3e} rel_l2={k1_rel:.3e} ms={k1_ms:.3f} "
             f"plain_ms={k1_plain_ms:.3f} bound_ms={k1_bound:.3f} "
-            f"({k1_flop / k1_ms / 1e9:.1f} TFLOP/s)")
+            f"({k1_flop / k1_ms / 1e9:.1f} TFLOP/s); products alone as "
+            f"torch.mm {k1_lib_ms:.3f} ms; two launches bit-equal, K3's "
+            f"sigma equal to K1's; plan {fm.rays_plan(n, s)}")
         log(f"kernel fused_mlp_bwd_rays: N={n} S={s} worst rel_l2={rel:.3e} "
             f"against its limit {limit:.3e} ({at}) min cos={cos:.6f} "
             f"max_abs={max_abs:.3e} (tolerance {GRAD_TOL}; two launches "
@@ -640,6 +720,7 @@ def train_kernel_phase(fm, fv, packed, cfg, device):
             f"{launches.get('wgrad_kernel', {}).get('ms', float('nan')):.3f}")
         shapes.append(dict(N=n, S=s, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
                            k1_bound_ms=k1_bound, k1_max_abs=k1_abs,
+                           k1_library_ms=k1_lib_ms,
                            k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
                            k2_bound_ms=max(t_ops, t_bytes), k2_rel_l2=rel,
                            k2_rel_l2_limit=limit, k2_worst=at, k2_cos=cos,
@@ -701,9 +782,12 @@ def gated_train_kernel_phase(fm, fv, packed, cfg, device):
         k5_ms, k5 = cuda_ms(
             lambda: fm.fused_mlp_eval_rays(od, z, p, gate=gates["half"]),
             reps=5)
-        k5_on_ms, _ = cuda_ms(
+        k5_on_ms, k5_on = cuda_ms(
             lambda: fm.fused_mlp_eval_rays(od, z, p, gate=gates["on"]), reps=3)
         k1 = fm.fused_mlp_eval_rays(od, z, p)
+        check(all(torch.equal(a, b) for a, b in zip(k5_on, k1)),
+              f"K5 float32 at ({n}, {s}): an all-on gate does not give K1's "
+              "bits")
         k5_plain_ms, k5_plain = cuda_ms(
             lambda: fm.fused_mlp_eval_rays_plain(od, z, p, gate=gates["half"]),
             reps=1)
@@ -754,8 +838,9 @@ def gated_train_kernel_phase(fm, fv, packed, cfg, device):
                                                            gates["half"]))
         b_on, _ = bound(per * s * n, bwd_bytes(fm, od, z, gates["on"]))
         log(f"kernel fused_mlp_eval_rays gated (float32 out): N={n} S={s} "
-            f"gate on {share:.3f}: gated blocks 0, active blocks bit-equal "
-            f"to K1, vs plain max_abs={k5_abs:.3e} rel_l2={k5_rel:.3e}; "
+            f"gate on {share:.3f}: gated blocks 0, active blocks and an "
+            f"all-on gate bit-equal to K1, vs plain max_abs={k5_abs:.3e} "
+            f"rel_l2={k5_rel:.3e}; "
             f"ms={k5_ms:.3f} plain_ms={k5_plain_ms:.3f} bound_ms={k5_b:.3f}; "
             f"all on ms={k5_on_ms:.3f} bound_ms={k5_b_on:.3f}")
         log(f"kernel fused_mlp_bwd_rays gated: N={n} S={s} gate on "
@@ -913,7 +998,10 @@ def slice_phase(fm, work: str, data_root: str, device):
         f"{sum(frame_ms) / 1e3:.2f} s of the eval wall {wall:.2f} s; "
         f"test PSNR {res['psnr']} SSIM {res['ssim']} LPIPS {res['lpips']}")
 
-    # one view again, kernels and plain versions on the card, same draws
+    # one view again through the eval entry's dense renderer, kernels and
+    # plain versions on the card, same draws
+    import dataclasses
+
     from nerf_pytorch_paeng_tpu_torch.data import load_blender
     from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import pack_nerf
     model = driver.load_model(cfg, cfg.testing_idx, device)
@@ -921,11 +1009,12 @@ def slice_phase(fm, work: str, data_root: str, device):
     _, (K, ext), (H, W), i_split = load_blender(
         data_root, cfg.bkg_white, cfg.downsample, cfg.testskip)
     pose = torch.as_tensor(ext[i_split[2][0]][:3, :4])
+    dense = dataclasses.replace(cfg, render_cull="none")   # as eval/test.py
     frames = {}
     for label, kw in (("kernels", {}),
                       ("plain", dict(sigma_fn=fm.fused_mlp_sigma_rays_plain,
                                      field_fn=fm.fused_mlp_eval_rays_plain))):
-        render = make_frame_renderer(cfg, H, W, K, device, **kw)
+        render = make_frame_renderer(dense, H, W, K, device, **kw)
         gen = torch.Generator(device).manual_seed(cfg.seed + cfg.testing_idx)
         t0 = time.perf_counter()
         frames[label] = render(packed, pose, gen)
@@ -942,9 +1031,10 @@ def slice_phase(fm, work: str, data_root: str, device):
         f"{frames['kernels_s'] * 1e3:.1f} ms kernels, "
         f"{frames['plain_s'] * 1e3:.1f} ms plain")
     check(p_rgb >= FRAME_PSNR_MIN, f"kernels vs plain frame {p_rgb} dB")
-    render = make_frame_renderer(cfg, H, W, K, device)
+    render = make_frame_renderer(dense, H, W, K, device)
     gen = torch.Generator(device).manual_seed(cfg.seed + cfg.testing_idx)
-    prof = profile_call(lambda: render(packed, pose, gen), "frame", device)
+    prof = profile_call(lambda: render(packed, pose, gen), "dense frame",
+                        device)
     return launches, dict(profile=prof, frame_ms=frame_ms, eval_wall_s=wall,
                           psnr=res["psnr"],
                           ssim=res["ssim"], kernels_vs_plain_psnr=p_rgb,
@@ -1135,11 +1225,11 @@ def recording(fn, calls: list, name: str):
 def path_kernel_phase(fm, calls, packed, cfg) -> dict:
     """K4 and K5 on the inputs one culled frame gave them (its rays,
     depths and gates: K4 over the whole frame, K5 on every cover block and
-    sample class, under the sample-axis split where the block is small),
+    sample class, the small blocks with fewer ray tiles than SMs),
     with the seeded random weights of the kernel phase, whose every unit
     is live: gated blocks exactly 0, active blocks bit-equal to the
     ungated kernel and within ``KERNEL_TOL`` of the gated plain version.
-    Returns {kernel: (worst max abs, [(N, S, on share, splits), ...])}."""
+    Returns {kernel: (worst max abs, [(N, S, on share, blocks), ...])}."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for name, od, z, gate in calls:
@@ -1162,12 +1252,10 @@ def path_kernel_phase(fm, calls, packed, cfg) -> dict:
             check(torch.equal(g[on], u[on]), f"{name} at ({n}, {s}): active "
                   "blocks differ from the ungated kernel")
         max_abs, rel_l2 = errors([g[on] for g in got], [w[on] for w in want])
-        tiles, splits = -(-n // 128), 1   # K5's sample-axis split of small
-        if len(got) == 4 and tiles < 2 * sms:   # grids (csrc/fused_mlp.cu)
-            kchunk = -(-s // min(s, -(-2 * sms // tiles)))
-            splits = -(-s // kchunk)
+        blocks = fm.rays_plan(n, s, gated=True)["blocks"]
         share = float(on.float().mean())
-        log(f"path kernel {name}: N={n} S={s} sample-axis splits {splits} "
+        log(f"path kernel {name}: N={n} S={s} ({-(-n // 128)} ray tiles, "
+            f"{sms} SMs) walk blocks {blocks} "
             f"gate on {share:.3f}: gated blocks 0, active blocks bit-equal "
             f"to the ungated kernel, vs plain max_abs={max_abs:.3e} "
             f"rel_l2={rel_l2:.3e} (tolerance {KERNEL_TOL})")
@@ -1175,7 +1263,7 @@ def path_kernel_phase(fm, calls, packed, cfg) -> dict:
               and rel_l2 <= KERNEL_TOL["rel_l2"],
               f"{name} at ({n}, {s}) disagrees with its plain version")
         worst, shapes = out.get(name, (0.0, []))
-        out[name] = (max(worst, max_abs), shapes + [(n, s, share, splits)])
+        out[name] = (max(worst, max_abs), shapes + [(n, s, share, blocks)])
     for name in ("fused_mlp_sigma_rays_gated", "fused_mlp_eval_rays_gated"):
         check(name in out, f"{name} was not called by the culled frame")
     return out
@@ -1304,8 +1392,8 @@ def render_phase(fm, packed_rand, work: str, data_root: str, device):
     render(packed, pose)
     prof = profile_call(lambda: render(packed, pose), "culled frame", device)
 
-    # this pose and the first orbit view (whose cover ends in the small
-    # blocks that K5 runs under the sample-axis split) once more, keeping
+    # this pose and the first orbit view (whose cover ends in small blocks
+    # of fewer ray tiles than the card has SMs) once more, keeping
     # what K4 and K5 were given; then the kernels on those inputs with
     # weights that exercise every unit (the compact field's live only 6 of
     # each layer's 256)
@@ -1320,8 +1408,10 @@ def render_phase(fm, packed_rand, work: str, data_root: str, device):
         render(packed, c2w)
     path = path_kernel_phase(fm, calls, packed_rand, cfg)
     del calls
-    check(any(sp > 1 for *_, sp in path["fused_mlp_eval_rays_gated"][1]),
-          "no K5 block of the render path ran under the sample-axis split")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(any(-(-n // 128) < sms
+              for n, *_ in path["fused_mlp_eval_rays_gated"][1]),
+          "no K5 cover block of the render path had fewer ray tiles than SMs")
     return launches, dict(
         views=RENDER_VIEWS, wall_s=wall, frame_ms=frame_ms, n_act=n_act,
         active_share=[a / (H * W) for a in n_act],
@@ -2017,6 +2107,14 @@ def main() -> int:
     rows = kernel_phase(fm, packed, cfg, device)
     rows["fused_mlp_bwd_rays"], train_shapes = train_kernel_phase(
         fm, fv, packed, cfg, device)
+    rows["fused_mlp_eval_rays"]["train_f32"] = [
+        dict(N=t["N"], S=t["S"], ms=t["k1_ms"], plain_ms=t["k1_plain_ms"],
+             bound_ms=t["k1_bound_ms"], library_ms=t["k1_library_ms"],
+             max_abs_err=t["k1_max_abs"]) for t in train_shapes]
+    log("kernel fused_mlp_eval_rays at the training batch (float32 out): " +
+        "; ".join(f"{t['N']} x {t['S']} ms={t['k1_ms']:.3f} "
+                  f"bound_ms={t['k1_bound_ms']:.3f} products-only "
+                  f"torch.mm {t['k1_library_ms']:.3f}" for t in train_shapes))
     gated_rows, gated_shapes = gated_train_kernel_phase(fm, fv, packed, cfg,
                                                         device)
     rows.update(gated_rows)

@@ -1,4 +1,4 @@
-// Fused NeRF MLP for Hopper (sm_90a): four kernels.
+// Fused NeRF MLP for Hopper (sm_90a): the forward kernels.
 //
 //   nerf_sigma_rays   replaces the JAX package's TPU kernels
 //                     kernels/fused_mlp.py::_sigma_rays_kernel (gate null) and
@@ -22,58 +22,71 @@
 // nerf_pytorch_paeng_tpu_torch/kernels/fused_mlp.py (bf16, [in, out] row-major
 // per layer) and float32 biases.  The optional gate is int32
 // [ceil(N / 128) * (S / 8)], tile-major over (128-ray block, 8-sample row):
-// where it is 0 the block skips embedding, trunk and heads for those 8
-// samples and stores 0 to every output (the caller certifies that their
-// density logits are <= 0, so the compositing weights do not change).
+// where it is 0 no work is done for those 8 samples of those rays and 0 is
+// stored to every output (the caller certifies that their density logits
+// are <= 0, so the compositing weights do not change).  Rounding follows the
+// TPU kernels: bf16 operands, float32 accumulation, every hidden activation
+// rounded to bf16, the feature layer without activation, the heads summed
+// in float32 over the bf16 activations.
 //
-// What bounds it on this card: operations.  A sample costs ~0.99 MFLOP
+// What bounds them on this card: operations.  A sample costs ~0.99 MFLOP
 // (sigma) or ~1.19 MFLOP (full field) of bf16 matrix products against 4 B
 // of depth in and 2-8 B out, far above the ~295 FLOP/B at which an H100
 // stops being limited by device memory.  The weights (~1.2 MB in bf16) do
-// not fit in the 227 KB of shared memory a block can use.
+// not fit in the 227 KB of shared memory a block can use, so every 128-point
+// tile streams them from L2 (127 FLOP a byte of L2 traffic).
 //
-// What the design does about it:
-//  * a block owns 128 rays and walks their samples one at a time, so a step
-//    is a [128 x 256] activation tile that never leaves shared memory; the
-//    positions x = o + d z and their double-angle embedding are built in
-//    the block from od and z (no [3, P] plane in device memory);
-//  * every layer is a tensor-core product (wmma bf16 16x16x16, float32
-//    accumulate): 8 warps as 4 x 2, each holding a 32 x 128 accumulator
-//    tile in registers, so a layer's output can overwrite its input in
-//    place after one barrier;
-//  * weights stream from device memory (L2-resident after the first
-//    blocks) through a double-buffered 32-row ring in shared memory filled
-//    with cp.async, the next chunk in flight while the current one is
-//    multiplied;
-//  * the skip layer is two products into one accumulator; for the full
-//    field the direction embedding and its product (plus the view bias) are
-//    computed once per ray at block start and seed the view layer's
-//    accumulators at every sample; when the rays alone give fewer than two
-//    waves of blocks (a training batch), the samples are split over blocks
-//    too, each computing its rays' direction term itself;
-//  * the 1-wide density and 3-wide colour heads are dot products on the
-//    CUDA cores (two threads per point), not padded tensor-core tiles;
-//  * gating: the TPU grid's (ray tile, 8-sample row) step becomes a
-//    128-ray block's 8 sample iterations; the gate test is the same for the
-//    whole block and comes before the step's first barrier, so a gated row
-//    costs a few stores.  The work bound counts the active blocks only.
-//    The full field skips its per-ray view term where all of a block's
-//    rows are gated;
-//  * points (the grid kernel): a block takes 128 consecutive points as
-//    rays with origin x, direction 0 and depth 0, so the in-block
-//    embedding sees x itself, and runs one trunk and the density head;
-//  * points with directions (the plane kernel): a block takes 128
-//    consecutive points of both planes, so where K1 shares one direction
-//    term among a ray's S samples, here every point has its own: the
-//    direction embedding (of d as given: the caller's unit vectors, not
-//    normalised again) and its product with wvd run once per block, 6,912
-//    FLOP a point beside ~1.18 MFLOP (0.6%).  Bound by operations too: a
-//    point moves 24 B in and 8-16 B out.  The planes cost ~24 B a point of
-//    device memory that K1's layout avoids; a ragged last block is masked.
-// First cut: no wgmma/TMA and one block per SM; the rate against the bound
-// is in PERF.md.
+// The ray kernels (eval_rays_wgmma_kernel, sigma_rays_wgmma_kernel; the
+// walk is rays_walk below) are built on hopper_mlp.cuh, the machinery of
+// the backward's chain launch:
+//  * warp specialisation: a producer warpgroup (one thread issues, 40
+//    registers by setmaxnreg) streams every product's weights by TMA, in
+//    64-deep k-chunks of 32 KB (128-byte swizzle), into a 3-stage mbarrier
+//    ring; two consumer warpgroups (232 registers) each carry 64 of a
+//    tile's 128 points through the whole MLP with wgmma m64n256k16
+//    (m64n128k16 for the view layer), bf16 -> f32, the activation tile
+//    swizzled in shared memory as A and W [in][out] as the MN-major B;
+//  * a register epilogue: bias, ReLU and the bf16 rounding on the
+//    accumulator, stored as bf16 pairs into the tile; the 1-wide density
+//    and 3-wide colour heads are float32 sums of the same rounded registers
+//    across the 4 threads of a quad, so nothing makes a round trip through
+//    shared memory but the activations themselves;
+//  * the positions x = o + d z and their double-angle embedding are built
+//    in the block from od and z (no [3, P] plane in device memory); the view
+//    layer is embd @ wvd + feat @ wvf + bv in one accumulator, embd embedding
+//    d / |d| at every sample, as the backward recomputes it: 6,912 FLOP a
+//    sample beside ~1.19 MFLOP (0.6%), and no per-ray state, so any unit
+//    can go to any block;
+//  * a persistent walk: about one block per SM walks units of one 128-ray
+//    tile at one sample, an equal share of them whatever N, S or the gate
+//    (rays_walk); gated rows are taken out of the walk by a fixed-order
+//    prefix sum over the gate, and their zeros are stored by the producer
+//    warpgroup's idle warps;
+//  * outputs: each warpgroup stores its 64 rays' logits as contiguous runs
+//    of a row of [S, N], float32 (training) or bf16 (frames).
+//
+// The points kernels (sigma_points_kernel, eval_points_kernel) keep the
+// wmma machinery of nerf_mlp_common.cuh:
+//  * a block owns 128 points, an 8-warp [128 x 256] activation tile that
+//    never leaves shared memory; every layer is a wmma bf16 16x16x16 product
+//    (float32 accumulate) of 8 warps as 4 x 2, each holding a 32 x 128
+//    accumulator tile, against weights streamed through a double-buffered
+//    32-row cp.async ring; the skip layer is two products into one
+//    accumulator; the heads are dot products on the CUDA cores (two threads
+//    a point);
+//  * the grid kernel takes each point as a ray with origin x, direction 0
+//    and depth 0, so the in-block embedding sees x itself, and runs one
+//    trunk and the density head;
+//  * the plane kernel takes 128 consecutive points of both planes; every
+//    point has its own direction term (d as given: the caller's unit
+//    vectors, not normalised again), emb(d) @ wvd + bv once per block in
+//    float32.  Bound by operations too: a point moves 24 B in and 8-16 B
+//    out; a ragged last block is masked.
+// Times against the bound are in PERF.md.
 
-#include "nerf_mlp_common.cuh"
+#include <chrono>
+
+#include "hopper_mlp.cuh"
 
 namespace {
 
@@ -124,25 +137,12 @@ __device__ __forceinline__ void store_out(void* out, long i, float v) {
     reinterpret_cast<float*>(out)[i] = v;
 }
 
-// true where the gate turns this block's sample row of sample k off
-__device__ __forceinline__ bool gated_off(const int* __restrict__ gate, int s, int k) {
-  return gate != nullptr && gate[blockIdx.x * (s >> 3) + (k >> 3)] == 0;
-}
-
 // the density and colour head weights as float
 __device__ void load_heads(const Smem& sm, const bf16* __restrict__ w) {
   for (int i = threadIdx.x; i < WIDTH; i += THREADS)
     sm.heads[i] = __bfloat162float(w[OFF_WDENS + i]);
   for (int i = threadIdx.x; i < HALF * 3; i += THREADS)
     sm.heads[WIDTH + i] = __bfloat162float(w[OFF_WCOL + i]);
-}
-
-// block start: rays of this tile into shared memory (rays past N are never
-// stored), head weights as float
-__device__ void load_block_inputs(const Smem& sm, const float* __restrict__ od,
-                                  const bf16* __restrict__ w, int n, int ray0) {
-  load_rays(sm.rays, od, n, ray0);
-  load_heads(sm, w);
 }
 
 // the trunk for the current sample: act <- h7 (bf16), emb holds the
@@ -187,43 +187,13 @@ __device__ void density_head(const Smem& sm, const float* __restrict__ b, void* 
   if (half == 0 && ray0 + p < n) store_out<OUT_BF16>(out, row_off + ray0 + p, acc + b[OFF_BDENS]);
 }
 
-template <bool OUT_BF16>
-__global__ void __launch_bounds__(THREADS, 1)
-sigma_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
-                  const bf16* __restrict__ w, const float* __restrict__ b,
-                  void* sigma, int n, int s, int L_x, const int* __restrict__ gate) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Smem sm = carve(smem, false);
-  const int ray0 = blockIdx.x * TILE;
-  load_block_inputs(sm, od, w, n, ray0);
-  float* zrow = sm.scratch;  // staged depths of the current sample
-#pragma unroll 1
-  for (int k = 0; k < s; ++k) {
-    if (gated_off(gate, s, k)) {  // uniform over the block, before any barrier
-      if (threadIdx.x < TILE && ray0 + (int)threadIdx.x < n)
-        store_out<OUT_BF16>(sigma, (long)k * n + ray0 + threadIdx.x, 0.0f);
-      continue;
-    }
-    __syncthreads();  // previous step's heads are done with act / scratch
-    if (threadIdx.x < TILE) {
-      const int ray = ray0 + threadIdx.x;
-      zrow[threadIdx.x] = ray < n ? z[(long)k * n + ray] : 0.0f;
-    }
-    __syncthreads();
-    build_emb(sm.emb, sm.rays, zrow, L_x, EMBX);
-    trunk(sm, w, b);
-    density_head<OUT_BF16>(sm, b, sigma, (long)k * n, n, ray0);
-  }
-}
-
-// the view term of the tile's directions (rays 3-5): hvd = emb(d) @ wvd +
-// bv, float32; d scaled to unit length first when unit is set (the ray
-// kernels), as given otherwise (the points kernel)
+// the view term of the tile's directions (rays 3-5), as given: hvd =
+// emb(d) @ wvd + bv, float32
 __device__ void view_term(const Smem& sm, const bf16* __restrict__ w,
-                          const float* __restrict__ b, int L_d, bool unit) {
+                          const float* __restrict__ b, int L_d) {
   const int warp = threadIdx.x >> 5;
   const int row0 = (warp & 3) * 32, col0 = (warp >> 2) * (HALF / 2);
-  build_emb(sm.emb, sm.rays, nullptr, L_d, EMBD, 3, unit);
+  build_emb(sm.emb, sm.rays, nullptr, L_d, EMBD, 3);
   Acc<HALF> acc;
   acc.zero();
   gemm<HALF>(acc, sm.emb, EMB_LD, EMBD, w + OFF_WVD, sm.wbuf);
@@ -288,63 +258,6 @@ __device__ void field_heads(Smem& sm, const bf16* __restrict__ w, const float* _
   }
 }
 
-template <bool OUT_BF16>
-__global__ void __launch_bounds__(THREADS, 1)
-eval_rays_kernel(const float* __restrict__ od, const float* __restrict__ z,
-                 const bf16* __restrict__ w, const float* __restrict__ b,
-                 void* r_out, void* g_out, void* b_out, void* s_out,
-                 int n, int s, int L_x, int L_d, int kchunk, const int* __restrict__ gate) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Smem sm = carve(smem, true);
-  const int ray0 = blockIdx.x * TILE;
-  const int k_begin = blockIdx.y * kchunk;
-  const int k_end = min(s, k_begin + kchunk);
-  if (gate != nullptr) {  // every row of this block's run gated: zeros, no view term
-    bool any = false;
-    for (int r = k_begin >> 3; r <= (k_end - 1) >> 3; ++r)
-      any |= gate[blockIdx.x * (s >> 3) + r] != 0;
-    if (!any) {
-      for (int idx = threadIdx.x; idx < (k_end - k_begin) * TILE; idx += THREADS) {
-        const int ray = ray0 + idx % TILE;
-        if (ray >= n) continue;
-        const long at = (long)(k_begin + idx / TILE) * n + ray;
-        store_out<OUT_BF16>(r_out, at, 0.0f);
-        store_out<OUT_BF16>(g_out, at, 0.0f);
-        store_out<OUT_BF16>(b_out, at, 0.0f);
-        store_out<OUT_BF16>(s_out, at, 0.0f);
-      }
-      return;
-    }
-  }
-  load_block_inputs(sm, od, w, n, ray0);
-  __syncthreads();
-  view_term(sm, w, b, L_d, true);  // once per ray: emb(d / |d|) @ wvd + bv
-
-  float* zrow = sm.scratch;
-#pragma unroll 1
-  for (int k = k_begin; k < k_end; ++k) {
-    if (gated_off(gate, s, k)) {  // uniform over the block, before any barrier
-      if (threadIdx.x < TILE && ray0 + (int)threadIdx.x < n) {
-        const long at = (long)k * n + ray0 + threadIdx.x;
-        store_out<OUT_BF16>(r_out, at, 0.0f);
-        store_out<OUT_BF16>(g_out, at, 0.0f);
-        store_out<OUT_BF16>(b_out, at, 0.0f);
-        store_out<OUT_BF16>(s_out, at, 0.0f);
-      }
-      continue;
-    }
-    __syncthreads();
-    if (threadIdx.x < TILE) {
-      const int ray = ray0 + threadIdx.x;
-      zrow[threadIdx.x] = ray < n ? z[(long)k * n + ray] : 0.0f;
-    }
-    __syncthreads();
-    build_emb(sm.emb, sm.rays, zrow, L_x, EMBX);
-    trunk(sm, w, b);
-    field_heads<OUT_BF16>(sm, w, b, r_out, g_out, b_out, s_out, (long)k * n, n, ray0);
-  }
-}
-
 // the full field at 128 consecutive points of the planes x, d [3, P]: the
 // view term per point (d as given), one trunk, the heads; out [4, P]
 template <bool OUT_BF16>
@@ -358,9 +271,9 @@ eval_points_kernel(const float* __restrict__ x, const float* __restrict__ d,
   load_points(sm.rays, x, d, p, pt0);
   load_heads(sm, w);
   __syncthreads();
-  view_term(sm, w, b, L_d, false);
-  build_emb(sm.emb, sm.rays, nullptr, L_x, EMBX, 0, false);  // emb is free: the product ended
-                                                             // on a barrier
+  view_term(sm, w, b, L_d);
+  build_emb(sm.emb, sm.rays, nullptr, L_x, EMBX, 0);  // emb is free: the product ended on a
+                                                      // barrier
   trunk(sm, w, b);
   field_heads<OUT_BF16>(sm, w, b, r_out, g_out, b_out, s_out, 0, p, pt0);
 }
@@ -386,6 +299,335 @@ sigma_points_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
   build_emb(sm.emb, sm.rays, zrow, L_x, EMBX);
   trunk(sm, w, b);
   density_head<OUT_BF16>(sm, b, sigma, 0, p, pt0);
+}
+
+// ---- K1/K5 and K3/K4: the ray kernels on wgmma, TMA and a persistent walk --
+
+constexpr int FW_THREADS = 384;   // 2 consumer warpgroups + 1 producer warpgroup
+constexpr int FW_PRODUCER_REGS = 40, FW_CONSUMER_REGS = 232;
+constexpr int FW_LIST = 1024;     // gate entries one block's share can span
+// shared memory (bytes), from a 1024-byte boundary: the activation tile (4
+// column blocks), the embedding tile, the weight ring; then float32 rays
+// [TILE][8], depths [TILE], head weights (wdens 256, wcol 128 x 3) and the
+// unit's staged outputs [4][TILE]; the gate's prefix sum and the block's
+// entry list; the ring's mbarriers
+constexpr int FW_ACT = 4 * CB;
+constexpr int FW_EMB = CB;
+constexpr int FW_RING = CH_STAGES * CH_STAGE;
+constexpr int FW_FLOATS = TILE * 8 + TILE + WIDTH + HALF * 3 + 4 * TILE;
+constexpr int SMEM_FWD = 1024 + FW_ACT + FW_EMB + FW_RING + FW_FLOATS * 4 +
+                         (FW_THREADS + FW_LIST) * 4 + 2 * CH_STAGES * 8;
+
+struct FMaps {
+  CUtensorMap m[N_FMAPS];
+};
+
+// The heads from the accumulator of a layer's output (64 x N, this
+// warpgroup's rows): out[h][m] = sum over the columns c of
+// round(relu(acc + bias))[c] * wv[c * M + m] for this thread's two rows
+// (h = 0: acc_row(., 0); h = 1: 8 rows below), the activations rounded to
+// bf16 as chain_epilogue stores them and summed in float32, first over the
+// thread's own columns, then over the 4 threads of its quad, which hold the
+// rest of those rows.
+template <int N, int M>
+__device__ __forceinline__ void head_dots(const float (&acc)[N / 2],
+                                          const float* __restrict__ bias, const float* wv,
+                                          float (&out)[2][M]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int m = 0; m < M; ++m) out[h][m] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int c = acc_col(i);
+    const float v = __bfloat162float(__float2bfloat16(fmaxf(acc[i] + __ldg(bias + c), 0.0f)));
+#pragma unroll
+    for (int m = 0; m < M; ++m) out[(i >> 1) & 1][m] += v * wv[c * M + m];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      out[h][m] += __shfl_xor_sync(0xffffffffu, out[h][m], 1);
+      out[h][m] += __shfl_xor_sync(0xffffffffu, out[h][m], 2);
+    }
+}
+
+// The walk.  A unit is one 128-ray tile at one sample.  Ungated, the S x
+// ray_tiles units in the backward's chain order (unit u: sample
+// u / ray_tiles, ray tile u % ray_tiles); gated, the 8 samples of every
+// active (ray tile, 8-sample row) gate entry, in entry order, so gated rows
+// are not in the walk at all.  Block b of G takes units [b U / G,
+// (b + 1) U / G) of the U there are: the blocks' shares differ by one unit
+// at most, however the gate falls.  Gated, every block first takes the
+// prefix sum of the gate's active entries in a fixed order (each thread
+// counts a contiguous run, as compact_tiles_kernel in fused_mlp_vjp.cu) and
+// lists the entries its units span; the producer warpgroup's idle warps
+// store the zeros of the gated-off entries e = b, b + G, ...
+//
+// Per unit, each consumer warpgroup loads its 64 rays' origin, direction
+// and depth, embeds x = o + d z, runs the trunk (h0 .. h7, the skip layer as
+// two products into one accumulator) and, for the full field, the feature
+// layer (no activation) and the view layer relu(embd @ wvd + feat @ wvf +
+// bv) in one accumulator, where embd embeds d / |d| (the backward's
+// recompute, in its order).  Bias, ReLU and the bf16 rounding are applied
+// to the accumulator in registers; the density and colour heads come from
+// the same registers (head_dots).  The unit's outputs are staged in shared
+// memory and stored as 64-wide runs of a row of [S, N].
+template <bool FULL, bool OUT_BF16>
+__device__ __forceinline__ void rays_walk(const CUtensorMap* maps, const float* __restrict__ od,
+                                          const float* __restrict__ z,
+                                          const bf16* __restrict__ w,
+                                          const float* __restrict__ b, void* r_out,
+                                          void* g_out, void* b_out, void* s_out, int n, int s,
+                                          int L_x, int L_d, const int* __restrict__ gate) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const act = hopper::align1024(smem_raw);
+  unsigned char* const emb = act + FW_ACT;
+  unsigned char* const ring = emb + FW_EMB;
+  float* const rays = reinterpret_cast<float*>(ring + FW_RING);
+  float* const zrow = rays + TILE * 8;
+  float* const heads = zrow + TILE;
+  float* const outs = heads + WIDTH + HALF * 3;   // rows r, g, b, sigma
+  int* const scan = reinterpret_cast<int*>(outs + 4 * TILE);
+  int* const list = scan + FW_THREADS;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(list + FW_LIST);
+  uint64_t* const empty = full + CH_STAGES;
+  const int tid = threadIdx.x;
+  const int ray_tiles = (n + TILE - 1) / TILE, rows = s >> 3;
+
+  if (tid == 0) {
+    for (int i = 0; i < CH_STAGES; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 8);   // the 8 consumer warps
+    }
+    hopper::fence_barrier_init();
+  }
+  for (int i = tid; i < WIDTH; i += FW_THREADS) heads[i] = __bfloat162float(w[OFF_WDENS + i]);
+  if (FULL)
+    for (int i = tid; i < HALF * 3; i += FW_THREADS)
+      heads[WIDTH + i] = __bfloat162float(w[OFF_WCOL + i]);
+
+  long lo, hi;      // this block's units
+  int e_lo = 0;     // gated: the active index of list[0]
+  if (gate == nullptr) {
+    const long units = (long)s * ray_tiles;
+    lo = (long)blockIdx.x * units / gridDim.x;
+    hi = (long)(blockIdx.x + 1) * units / gridDim.x;
+  } else {
+    const int entries = ray_tiles * rows;
+    const int per = (entries + FW_THREADS - 1) / FW_THREADS;
+    const int t0 = min(entries, tid * per), t1 = min(entries, t0 + per);
+    int c = 0;
+    for (int e = t0; e < t1; ++e) c += gate[e] != 0;
+    scan[tid] = c;
+    __syncthreads();
+    for (int off = 1; off < FW_THREADS; off <<= 1) {  // inclusive prefix sum
+      const int v = tid >= off ? scan[tid - off] : 0;
+      __syncthreads();
+      scan[tid] += v;
+      __syncthreads();
+    }
+    const long units = 8L * scan[FW_THREADS - 1];
+    lo = (long)blockIdx.x * units / gridDim.x;
+    hi = (long)(blockIdx.x + 1) * units / gridDim.x;
+    e_lo = (int)(lo >> 3);
+    const int e_hi = (int)((hi + 7) >> 3);
+    int at = scan[tid] - c;
+    for (int e = t0; e < t1 && at < e_hi; ++e)
+      if (gate[e] != 0) {
+        if (at >= e_lo) list[at - e_lo] = e;
+        ++at;
+      }
+  }
+  __syncthreads();
+
+  if (tid >= 256) {   // producer warpgroup
+    hopper::setmaxnreg_dec<FW_PRODUCER_REGS>();
+    if (tid == 256) {
+      constexpr int nprods = FULL ? N_FWD_PRODS : N_TRUNK_PRODS;
+      uint32_t it = 0;
+      for (long v = lo; v < hi; ++v)
+        for (int pi = 0; pi < nprods; ++pi) {
+          const Prod pr = fwd_prod(pi);
+          for (int c = 0; c * 64 < pr.k; ++c, ++it) {
+            const int st = it % CH_STAGES;
+            if (it >= CH_STAGES) hopper::mbar_wait(&empty[st], ((it / CH_STAGES) - 1) & 1);
+            load_fwd_stage(ring + st * CH_STAGE, maps, pr, c, &full[st]);
+          }
+        }
+    } else if (gate != nullptr && tid >= 288) {   // warps 9-11: the gated-off zeros
+      const int entries = ray_tiles * rows;
+      for (int e = blockIdx.x; e < entries; e += gridDim.x) {
+        if (gate[e] != 0) continue;
+        const int k0 = 8 * (e % rows), ray0 = (e / rows) * TILE;
+        for (int idx = tid - 288; idx < 8 * TILE; idx += 96) {
+          const int ray = ray0 + idx % TILE;
+          if (ray >= n) continue;
+          const long at = (long)(k0 + idx / TILE) * n + ray;
+          store_out<OUT_BF16>(s_out, at, 0.0f);
+          if (FULL) {
+            store_out<OUT_BF16>(r_out, at, 0.0f);
+            store_out<OUT_BF16>(g_out, at, 0.0f);
+            store_out<OUT_BF16>(b_out, at, 0.0f);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<FW_CONSUMER_REGS>();
+  const int wg = tid >> 7, row0 = 64 * wg, bar = 1 + wg, t = tid & 127;
+  const unsigned char* const a_act = act + wg * 8192;   // its rows of each column block
+  const unsigned char* const a_emb = emb + wg * 8192;
+  const int r_lo = acc_row(row0, 0), r_hi = acc_row(row0, 2);   // this thread's rows
+  uint32_t it = 0;
+  float acc[128];
+#pragma unroll 1
+  for (long v = lo; v < hi; ++v) {
+    int k, ray0;
+    if (gate == nullptr) {
+      k = (int)(v / ray_tiles);
+      ray0 = (int)(v % ray_tiles) * TILE;
+    } else {
+      const int e = list[(int)(v >> 3) - e_lo];
+      k = 8 * (e % rows) + (int)(v & 7);
+      ray0 = (e / rows) * TILE;
+    }
+    hopper::named_barrier(bar, 128);  // the previous unit is done with our rows
+    load_wg(rays, zrow, nullptr, od, z, nullptr, nullptr, nullptr, nullptr, nullptr, n, k, ray0,
+            row0);
+    hopper::named_barrier(bar, 128);
+    emb_wg(emb, rays, zrow, L_x, EMBX, 0, true, row0);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(bar, 128);
+
+    zero_acc(acc);   // h0
+    chain_gemm<WIDTH, true>(acc, a_emb, EMBX, ring, full, empty, it);
+    chain_epilogue<WIDTH>(acc, b + OFF_B0, true, act, row0, nullptr);
+    hopper::fence_proxy_async();
+    hopper::named_barrier(bar, 128);
+#pragma unroll 1
+    for (int i = 1; i <= 7; ++i) {
+      zero_acc(acc);
+      if (i == 5) chain_gemm<WIDTH, true>(acc, a_emb, EMBX, ring, full, empty, it);  // skip
+      chain_gemm<WIDTH, true>(acc, a_act, WIDTH, ring, full, empty, it);
+      if (!FULL && i == 7) break;        // h7 feeds the density head alone
+      hopper::named_barrier(bar, 128);   // every warp is done reading h_{i-1}
+      chain_epilogue<WIDTH>(acc, b + OFF_B0 + WIDTH * i, true, act, row0, nullptr);
+      hopper::fence_proxy_async();
+      hopper::named_barrier(bar, 128);
+    }
+    {  // density: round(relu(h7)) . wdens + bdens
+      float d[2][1];
+      head_dots<WIDTH, 1>(acc, b + OFF_B0 + WIDTH * 7, heads, d);
+      if ((t & 3) == 0) {
+        outs[3 * TILE + r_lo] = d[0][0] + b[OFF_BDENS];
+        outs[3 * TILE + r_hi] = d[1][0] + b[OFF_BDENS];
+      }
+    }
+    if (FULL) {
+      emb_wg(emb, rays, nullptr, L_d, EMBD, 3, true, row0);  // the skip layer is done with emb
+      hopper::fence_proxy_async();
+      zero_acc(acc);   // feature layer (no activation), in place
+      chain_gemm<WIDTH, true>(acc, a_act, WIDTH, ring, full, empty, it);
+      hopper::named_barrier(bar, 128);
+      chain_epilogue<WIDTH>(acc, b + OFF_BFEAT, false, act, row0, nullptr);
+      hopper::fence_proxy_async();
+      hopper::named_barrier(bar, 128);
+      float acc2[64];  // view layer, then the colour head: round(relu(hv)) . wcol + bcol
+      zero_acc(acc2);
+      chain_gemm<HALF, true>(acc2, a_emb, EMBD, ring, full, empty, it);
+      chain_gemm<HALF, true>(acc2, a_act, WIDTH, ring, full, empty, it);
+      float c3[2][3];
+      head_dots<HALF, 3>(acc2, b + OFF_BV, heads + WIDTH, c3);
+      if ((t & 3) == 0) {
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          outs[m * TILE + r_lo] = c3[0][m] + b[OFF_BCOL + m];
+          outs[m * TILE + r_hi] = c3[1][m] + b[OFF_BCOL + m];
+        }
+      }
+    }
+    hopper::named_barrier(bar, 128);  // the unit's outputs are staged
+    for (int idx = t; idx < (FULL ? 4 : 1) * 64; idx += 128) {
+      const int o = FULL ? idx >> 6 : 3, p = row0 + (idx & 63), ray = ray0 + p;
+      if (ray < n)
+        store_out<OUT_BF16>(o == 0 ? r_out : o == 1 ? g_out : o == 2 ? b_out : s_out,
+                            (long)k * n + ray, outs[o * TILE + p]);
+    }
+  }
+}
+
+template <bool OUT_BF16>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+eval_rays_wgmma_kernel(__grid_constant__ const FMaps maps, const float* __restrict__ od,
+                       const float* __restrict__ z, const bf16* __restrict__ w,
+                       const float* __restrict__ b, void* r_out, void* g_out, void* b_out,
+                       void* s_out, int n, int s, int L_x, int L_d,
+                       const int* __restrict__ gate) {
+  rays_walk<true, OUT_BF16>(maps.m, od, z, w, b, r_out, g_out, b_out, s_out, n, s, L_x, L_d,
+                            gate);
+}
+
+template <bool OUT_BF16>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+sigma_rays_wgmma_kernel(__grid_constant__ const FMaps maps, const float* __restrict__ od,
+                        const float* __restrict__ z, const bf16* __restrict__ w,
+                        const float* __restrict__ b, void* sigma, int n, int s, int L_x,
+                        const int* __restrict__ gate) {
+  rays_walk<false, OUT_BF16>(maps.m, od, z, w, b, nullptr, nullptr, nullptr, sigma, n, s, L_x,
+                             1, gate);
+}
+
+// blocks of a ray launch: one per SM, or one per unit where there are
+// fewer units; gated, also at least enough that no block's share spans
+// more gate entries than its list holds
+int walk_blocks(int n, int s, bool gated) {
+  const long tiles = (n + TILE - 1) / TILE, units = (long)s * tiles;
+  long g = sm_count();
+  if (g > units) g = units;
+  if (gated) {
+    const long entries = tiles * (s / 8), need = (entries + FW_LIST - 5) / (FW_LIST - 4);
+    if (g < need) g = need;
+  }
+  return (int)g;
+}
+
+template <bool FULL>
+int rays_run(const float* od, const float* z, const void* w, const float* b, void* r, void* g,
+             void* bl, void* sigma, int n, int s, int L_x, int L_d, int out_bf16,
+             const int* gate, void* stream) {
+  if (gate != nullptr && s % 8 != 0) return (int)cudaErrorInvalidValue;
+  const bf16* wb = reinterpret_cast<const bf16*>(w);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  FMaps maps;
+  int rc;
+  if ((rc = fwd_maps(maps.m, wb))) return rc;
+  const int grid = walk_blocks(n, s, gate != nullptr);
+  if constexpr (FULL) {
+    if (out_bf16) {
+      if ((rc = launch_prep(eval_rays_wgmma_kernel<true>, SMEM_FWD))) return rc;
+      eval_rays_wgmma_kernel<true><<<grid, FW_THREADS, SMEM_FWD, st>>>(
+          maps, od, z, wb, b, r, g, bl, sigma, n, s, L_x, L_d, gate);
+    } else {
+      if ((rc = launch_prep(eval_rays_wgmma_kernel<false>, SMEM_FWD))) return rc;
+      eval_rays_wgmma_kernel<false><<<grid, FW_THREADS, SMEM_FWD, st>>>(
+          maps, od, z, wb, b, r, g, bl, sigma, n, s, L_x, L_d, gate);
+    }
+  } else {
+    if (out_bf16) {
+      if ((rc = launch_prep(sigma_rays_wgmma_kernel<true>, SMEM_FWD))) return rc;
+      sigma_rays_wgmma_kernel<true><<<grid, FW_THREADS, SMEM_FWD, st>>>(maps, od, z, wb, b,
+                                                                        sigma, n, s, L_x, gate);
+    } else {
+      if ((rc = launch_prep(sigma_rays_wgmma_kernel<false>, SMEM_FWD))) return rc;
+      sigma_rays_wgmma_kernel<false><<<grid, FW_THREADS, SMEM_FWD, st>>>(
+          maps, od, z, wb, b, sigma, n, s, L_x, gate);
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -429,48 +671,44 @@ extern "C" int nerf_eval_points(const float* x, const float* d, const void* w, c
   return (int)cudaGetLastError();
 }
 
+
 extern "C" int nerf_sigma_rays(const float* od, const float* z, const void* w, const float* b,
                                void* sigma, int n, int s, int L_x, int out_bf16,
                                const int* gate, void* stream) {
-  const dim3 grid((n + TILE - 1) / TILE);
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bf16* wb = reinterpret_cast<const bf16*>(w);
-  int rc;
-  if (out_bf16) {
-    if ((rc = launch_prep(sigma_rays_kernel<true>, SMEM_SIGMA))) return rc;
-    sigma_rays_kernel<true><<<grid, THREADS, SMEM_SIGMA, st>>>(od, z, wb, b, sigma, n, s, L_x,
-                                                                gate);
-  } else {
-    if ((rc = launch_prep(sigma_rays_kernel<false>, SMEM_SIGMA))) return rc;
-    sigma_rays_kernel<false><<<grid, THREADS, SMEM_SIGMA, st>>>(od, z, wb, b, sigma, n, s, L_x,
-                                                                 gate);
-  }
-  return (int)cudaGetLastError();
+  return rays_run<false>(od, z, w, b, nullptr, nullptr, nullptr, sigma, n, s, L_x, 1, out_bf16,
+                         gate, stream);
 }
 
 extern "C" int nerf_eval_rays(const float* od, const float* z, const void* w, const float* b,
                               void* r, void* g, void* bl, void* sigma, int n, int s, int L_x,
                               int L_d, int out_bf16, const int* gate, void* stream) {
-  // A block owns 128 rays and a run of their samples.  With fewer than two
-  // waves of ray tiles (a 4096-ray training batch has 32) the sample axis
-  // is split too, so the card fills; an 800x800 frame's 131072-ray blocks
-  // keep one run of all S samples per block.
-  const int ray_tiles = (n + TILE - 1) / TILE;
-  int splits = 1;
-  if (ray_tiles < 2 * sm_count()) splits = min(s, (2 * sm_count() + ray_tiles - 1) / ray_tiles);
-  const int kchunk = (s + splits - 1) / splits;
-  const dim3 grid(ray_tiles, (s + kchunk - 1) / kchunk);
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bf16* wb = reinterpret_cast<const bf16*>(w);
-  int rc;
-  if (out_bf16) {
-    if ((rc = launch_prep(eval_rays_kernel<true>, SMEM_EVAL))) return rc;
-    eval_rays_kernel<true><<<grid, THREADS, SMEM_EVAL, st>>>(od, z, wb, b, r, g, bl, sigma, n, s,
-                                                              L_x, L_d, kchunk, gate);
-  } else {
-    if ((rc = launch_prep(eval_rays_kernel<false>, SMEM_EVAL))) return rc;
-    eval_rays_kernel<false><<<grid, THREADS, SMEM_EVAL, st>>>(od, z, wb, b, r, g, bl, sigma, n,
-                                                               s, L_x, L_d, kchunk, gate);
-  }
-  return (int)cudaGetLastError();
+  return rays_run<true>(od, z, w, b, r, g, bl, sigma, n, s, L_x, L_d, out_bf16, gate, stream);
+}
+
+// Host microseconds a ray launch spends encoding its tensor maps: the mean
+// of reps encodings of the maps over the packed weights w (-1 on failure).
+extern "C" double nerf_fwd_maps_us(const void* w, int reps) {
+  FMaps maps;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i)
+    if (fwd_maps(maps.m, reinterpret_cast<const bf16*>(w))) return -1.0;
+  const std::chrono::duration<double, std::micro> dt = std::chrono::steady_clock::now() - t0;
+  return dt.count() / (reps > 0 ? reps : 1);
+}
+
+// The ray kernels' launch at (n, s), gated or not, into out[5]: [0] blocks,
+// [1] dynamic shared memory a block (bytes), [2] the weight ring's stages,
+// [3] the units (128-ray tiles at one sample) of an ungated launch, [4]
+// blocks an SM holds (-1 if the query failed).
+extern "C" void nerf_rays_plan(int n, int s, int gated, long* out) {
+  int per_sm = 0;
+  if (launch_prep(eval_rays_wgmma_kernel<true>, SMEM_FWD) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, eval_rays_wgmma_kernel<true>,
+                                                    FW_THREADS, SMEM_FWD))
+    per_sm = -1;
+  out[0] = walk_blocks(n, s, gated != 0);
+  out[1] = SMEM_FWD;
+  out[2] = CH_STAGES;
+  out[3] = (long)s * ((n + TILE - 1) / TILE);
+  out[4] = per_sm;
 }

@@ -48,8 +48,10 @@
 // points.  So the work is split where the contraction changes direction:
 //  1. bwd_chain_kernel (point-parallel, one 128-ray x 1-sample tile at a
 //     time): recompute the forward, then the chain of input gradients
-//     dh = g W^T, every product on wgmma (hopper_mma.cuh).  Two consumer
-//     warpgroups each carry 64 of the tile's points through the whole MLP;
+//     dh = g W^T, every product on wgmma (hopper_mma.cuh; the forward
+//     products' code, hopper_mlp.cuh, is shared with the ray kernels of
+//     fused_mlp.cu).  Two consumer warpgroups each carry 64 of the tile's
+//     points through the whole MLP;
 //     a producer warpgroup streams the weights by TMA into a 3-stage
 //     mbarrier ring that both read, and hands its registers to them
 //     (setmaxnreg: 232 a consumer thread).  Forward products read
@@ -95,8 +97,7 @@
 // launch and read back by the weight-gradient launch) is this design's cost
 // beside the tensor-core rate; PERF.md has the times.
 
-#include "hopper_mma.cuh"
-#include "nerf_mlp_common.cuh"
+#include "hopper_mlp.cuh"
 
 namespace {
 
@@ -126,9 +127,6 @@ constexpr int CHUNK_TILES = 1024;
 // thread, for the 64 x 256 float32 accumulator (128 a thread)
 constexpr int CH_THREADS = 384;
 constexpr int CH_PRODUCER_REGS = 40, CH_CONSUMER_REGS = 232;
-constexpr int CH_STAGES = 3;
-constexpr int CH_STAGE = 32768;           // a 64-deep k-chunk of a 256-wide weight
-constexpr int CB = TILE * 64 * 2;         // 16384: a column block [128 points][64] bf16
 // shared memory (bytes): operand tiles are column blocks of 64, each row 128
 // bytes with the 128-byte swizzle (hopper_mma.cuh), 1024-byte aligned
 constexpr int SM_ACT = 4 * CB;           // h_i, feat, hv, then the deltas, in place
@@ -151,133 +149,18 @@ constexpr int WG_BOX = 64 * PK * 2;                 // 8192 bytes
 constexpr int WG_STAGE_BYTES = 4 * WG_BOX;
 constexpr int SMEM_WGRAD = 1024 + WG_STAGES * WG_STAGE_BYTES + 2 * WG_STAGES * 8;
 
-// packed offset of W_j, j = 1..7 (j = 5: w5h): two runs of 256 x 256 matrices
-static_assert(OFF_W2 == OFF_W1 + WIDTH * WIDTH && OFF_W4 == OFF_W1 + 3 * WIDTH * WIDTH &&
-                  OFF_W7 == OFF_W5H + 2 * WIDTH * WIDTH,
-              "the trunk weights are not packed back to back");
-__host__ __device__ __forceinline__ long trunk_off(int j) {
-  return j <= 4 ? OFF_W1 + (long)(j - 1) * WIDTH * WIDTH
-                : OFF_W5H + (long)(j - 5) * WIDTH * WIDTH;
-}
-
-// byte offset of element (r, c) of a [128 points][K] bf16 operand tile held
-// as column blocks of 64, 128-byte swizzled: the layout TMA writes and
-// wgmma reads as a K-major operand
-__device__ __forceinline__ int sw_off(int r, int c) {
-  return (c >> 6) * CB + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
-}
-
-__device__ __forceinline__ float ld_sw(const unsigned char* t, int r, int c) {
-  return __bfloat162float(*reinterpret_cast<const bf16*>(t + sw_off(r, c)));
-}
-
-__device__ __forceinline__ void st_sw(unsigned char* t, int r, int c, float v) {
-  *reinterpret_cast<bf16*>(t + sw_off(r, c)) = __float2bfloat16(v);
-}
-
-// The chain kernel's weight products, in the order the consumers run them.
-// Each names a tensor map over the packed weights and the first row of its
-// matrix there; N is the map's width.  Forward products (*F maps) read
-// W [in][out] in 64-row k-chunks as an MN-major B (boxes of 64 columns x 64
-// rows); backward products g W^T (*B maps) read the same W as a K-major B
-// (one box of 64 columns (k = out) x 256 rows (n = in)).  No transposed copy.
-enum { CMAP_W256F, CMAP_W256B, CMAP_W128F, CMAP_W128B, N_CMAPS };
+// The chain kernel's tensor maps: the forward ones (hopper_mlp.cuh) and the
+// backward ones, K-major views of the same weights
 struct CMaps {
   CUtensorMap m[N_CMAPS];
-};
-struct Prod {
-  int map, row0, k;
 };
 constexpr int N_PRODS = 21;
 
 __device__ __forceinline__ Prod prod(int i) {
-  if (i == 0) return {CMAP_W256F, (int)(OFF_W0 / WIDTH), EMBX};            // h0
-  if (i <= 4) return {CMAP_W256F, (int)(trunk_off(i) / WIDTH), WIDTH};     // h1..h4
-  if (i == 5) return {CMAP_W256F, (int)(OFF_W5E / WIDTH), EMBX};           // h5: skip
-  if (i <= 8) return {CMAP_W256F, (int)(trunk_off(i - 1) / WIDTH), WIDTH}; // w5h, w6, w7
-  if (i == 9) return {CMAP_W256F, (int)(OFF_WFEAT / WIDTH), WIDTH};        // feat
-  if (i == 10) return {CMAP_W128F, (int)((OFF_WVD - OFF_WVF) / HALF), EMBD};  // hv
-  if (i == 11) return {CMAP_W128F, 0, WIDTH};
+  if (i < N_FWD_PRODS) return fwd_prod(i);                                 // h0 .. hv
   if (i == 12) return {CMAP_W128B, 0, HALF};                               // dfeat
   if (i == 13) return {CMAP_W256B, (int)(OFF_WFEAT / WIDTH), WIDTH};       // g7
   return {CMAP_W256B, (int)(trunk_off(7 - (i - 14)) / WIDTH), WIDTH};      // g6..g0
-}
-
-template <int R>
-__device__ __forceinline__ void zero_acc(float (&acc)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = 0.0f;
-}
-
-// acc (64 x N, this warpgroup's rows) += A (its rows of a swizzled operand
-// tile at a, k columns) @ the next product's weights from the ring.  `it`
-// counts the ring stages this thread has consumed.
-template <int N, bool FWD>
-__device__ __forceinline__ void chain_gemm(float (&acc)[N / 2], const unsigned char* a, int k,
-                                           const unsigned char* ring, uint64_t* full,
-                                           uint64_t* empty, uint32_t& it) {
-  for (int c = 0; c * 64 < k; ++c) {
-    const int s = it % CH_STAGES;
-    hopper::mbar_wait(&full[s], (it / CH_STAGES) & 1);
-    const unsigned char* st = ring + s * CH_STAGE;
-    hopper::fence_regs(acc);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (c * 64 + kk * 16 < k) {
-        const uint64_t da = hopper::desc_sw128(a + c * CB + kk * 32, 16, 1024);
-        const uint64_t db = FWD ? hopper::desc_sw128(st + kk * 2048, 8192, 1024)
-                                : hopper::desc_sw128(st + kk * 32, 16, 1024);
-        if constexpr (N == 256)
-          hopper::wgmma_m64n256k16<0, FWD ? 1 : 0>(acc, da, db);
-        else
-          hopper::wgmma_m64n128k16<0, FWD ? 1 : 0>(acc, da, db);
-      }
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(acc);
-    if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&empty[s]);
-    ++it;
-  }
-}
-
-// the accumulator element i of this thread: row (in the tile) and column
-__device__ __forceinline__ int acc_row(int row0, int i) {
-  const int t = threadIdx.x & 127;
-  return row0 + 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
-}
-__device__ __forceinline__ int acc_col(int i) {
-  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
-}
-
-// out <- round(act(acc + bias)) for the warpgroup's 64 rows, in registers,
-// stored as bf16 pairs into the swizzled tile; with `mask` the ReLU bits of
-// the rounded values go to mask[word * 256 + thread] (word = element / 32)
-template <int N>
-__device__ __forceinline__ void chain_epilogue(const float (&acc)[N / 2],
-                                               const float* __restrict__ bias, bool relu,
-                                               unsigned char* out, int row0, uint32_t* mask) {
-  uint32_t bits[N / 64];
-#pragma unroll
-  for (int w = 0; w < N / 64; ++w) bits[w] = 0u;
-#pragma unroll
-  for (int i = 0; i < N / 2; i += 2) {
-    const int c = acc_col(i);
-    float v0 = acc[i] + __ldg(bias + c), v1 = acc[i + 1] + __ldg(bias + c + 1);
-    if (relu) {
-      v0 = fmaxf(v0, 0.0f);
-      v1 = fmaxf(v1, 0.0f);
-    }
-    const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
-    *reinterpret_cast<__nv_bfloat162*>(out + sw_off(acc_row(row0, i), c)) = o;
-    bits[i >> 5] |= ((uint32_t)(__low2float(o) > 0.0f) << (i & 31)) |
-                    ((uint32_t)(__high2float(o) > 0.0f) << ((i + 1) & 31));
-  }
-  if (mask) {
-#pragma unroll
-    for (int w = 0; w < N / 64; ++w) mask[w * 256 + threadIdx.x] = bits[w];
-  }
 }
 
 // delta epilogue: out <- round(v) with v = acc (+ g_sigma[p] wdens[c] when
@@ -327,75 +210,6 @@ __device__ __forceinline__ void colsum_wg(const unsigned char* t, int row0, int 
     for (int r = row0; r < row0 + 64; ++r) s += ld_sw(t, r, c);
     dst[c] += s;
   }
-}
-
-// the warpgroup's 64 rays (or points) of a tile into rays [TILE][8], zrow
-// and the bf16-rounded cotangents gout [TILE][4] (rows row0 .. row0 + 63).
-// Rays past N get a harmless unit direction and zero cotangents, points past
-// P zeros, so they contribute nothing.
-__device__ __forceinline__ void load_wg(float* rays, float* zrow, float* gout,
-                                        const float* __restrict__ od,
-                                        const float* __restrict__ z,
-                                        const float* __restrict__ dplane,
-                                        const float* __restrict__ gr,
-                                        const float* __restrict__ gg,
-                                        const float* __restrict__ gb,
-                                        const float* __restrict__ gs, int n, int k, int ray0,
-                                        int row0) {
-  const int t = threadIdx.x & 127;
-  for (int idx = t; idx < 64 * 6; idx += 128) {
-    const int kk = idx / 64, p = row0 + idx % 64, ray = ray0 + p;
-    float v;
-    if (dplane) {
-      v = 0.0f;
-      if (ray < n) v = kk < 3 ? od[(long)kk * n + ray] : dplane[(long)(kk - 3) * n + ray];
-    } else {
-      v = (kk == 3) ? 1.0f : 0.0f;
-      if (ray < n) v = od[(long)kk * n + ray];
-    }
-    rays[p * 8 + kk] = v;
-  }
-  if (t < 64) {
-    const int p = row0 + t, ray = ray0 + p;
-    const bool ok = ray < n;
-    const long at = (long)k * n + ray;
-    zrow[p] = ok && !dplane ? z[at] : 0.0f;
-    gout[p * 4 + 0] = ok ? __bfloat162float(__float2bfloat16(gr[at])) : 0.0f;
-    gout[p * 4 + 1] = ok ? __bfloat162float(__float2bfloat16(gg[at])) : 0.0f;
-    gout[p * 4 + 2] = ok ? __bfloat162float(__float2bfloat16(gb[at])) : 0.0f;
-    gout[p * 4 + 3] = ok ? __bfloat162float(__float2bfloat16(gs[at])) : 0.0f;
-  }
-}
-
-// build_emb (nerf_mlp_common.cuh) for the warpgroup's 64 rows, into a
-// swizzled tile: the same values, the same double-angle recurrence
-__device__ __forceinline__ void emb_wg(unsigned char* emb, const float* rays, const float* zrow,
-                                       int L, int cols, int col, bool unit, int row0) {
-  const int t = threadIdx.x & 127;
-  for (int idx = t; idx < 64 * 3; idx += 128) {
-    const int p = row0 + idx / 3, c = idx % 3;
-    const float* ray = rays + p * 8;
-    float x;
-    if (zrow) {
-      x = ray[c] + ray[3 + c] * zrow[p];
-    } else if (unit) {
-      const float dx = ray[col], dy = ray[col + 1], dz = ray[col + 2];
-      x = ray[col + c] * rsqrtf(dx * dx + dy * dy + dz * dz);
-    } else {
-      x = ray[col + c];
-    }
-    st_sw(emb, p, c, x);
-    float s = sinf(x), co = cosf(x);
-    for (int j = 0; j < L; ++j) {
-      st_sw(emb, p, 3 + 3 * j + c, s);
-      st_sw(emb, p, 3 + 3 * L + 3 * j + c, co);
-      const float s2 = 2.0f * s * co;
-      co = 1.0f - 2.0f * s * s;
-      s = s2;
-    }
-  }
-  const int used = 3 + 6 * L, pad = cols - used;
-  for (int idx = t; idx < 64 * pad; idx += 128) st_sw(emb, row0 + idx / pad, used + idx % pad, 0.0f);
 }
 
 // K6: list[0 .. *count) <- the chain tiles (k * ray_tiles + ray tile, K2's
@@ -501,16 +315,12 @@ bwd_chain_kernel(__grid_constant__ const CMaps maps, const float* __restrict__ o
         for (int pi = 0; pi < N_PRODS; ++pi) {
           const Prod pr = prod(pi);
           const bool fwd = pr.map == CMAP_W256F || pr.map == CMAP_W128F;
-          const int boxes = pr.map == CMAP_W256F ? 4 : 2;
           for (int c = 0; c * 64 < pr.k; ++c, ++it) {
             const int s = it % CH_STAGES;
             if (it >= CH_STAGES) hopper::mbar_wait(&empty[s], ((it / CH_STAGES) - 1) & 1);
             unsigned char* st = ring + s * CH_STAGE;
             if (fwd) {
-              hopper::mbar_expect_tx(&full[s], boxes * 8192);
-              for (int bx = 0; bx < boxes; ++bx)
-                hopper::tma_load_2d(st + bx * 8192, &maps.m[pr.map], &full[s], 64 * bx,
-                                    pr.row0 + 64 * c);
+              load_fwd_stage(st, maps.m, pr, c, &full[s]);
             } else {
               hopper::mbar_expect_tx(&full[s], CH_STAGE);
               hopper::tma_load_2d(st, &maps.m[pr.map], &full[s], 64 * c, pr.row0);
@@ -857,17 +667,14 @@ Plan make_plan(int n, int s) {
   return p;
 }
 
-// the chain kernel's tensor maps over the packed weights w: the 256-wide
-// matrices w0 .. wfeat as one [2176][256] array, wvf and wvd as one
-// [288][128] array, each with forward (64 x 64) and backward (64 x 256) boxes
+// the chain kernel's tensor maps over the packed weights w: the forward maps
+// (fwd_maps) and the backward ones, the same two arrays in 64 x 256 boxes
 int chain_maps(CMaps* maps, const bf16* w) {
   using hopper::encode_bf16_map;
   const long rows256 = OFF_WVF / WIDTH, rows128 = (OFF_WDENS - OFF_WVF) / HALF;
   int rc;
-  if ((rc = encode_bf16_map(&maps->m[CMAP_W256F], w, WIDTH, rows256, 1, 0, 64))) return rc;
+  if ((rc = fwd_maps(maps->m, w))) return rc;
   if ((rc = encode_bf16_map(&maps->m[CMAP_W256B], w, WIDTH, rows256, 1, 0, 256))) return rc;
-  if ((rc = encode_bf16_map(&maps->m[CMAP_W128F], w + OFF_WVF, HALF, rows128, 1, 0, 64)))
-    return rc;
   return encode_bf16_map(&maps->m[CMAP_W128B], w + OFF_WVF, HALF, rows128, 1, 0, 256);
 }
 

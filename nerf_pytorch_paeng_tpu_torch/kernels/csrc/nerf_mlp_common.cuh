@@ -1,10 +1,12 @@
 // Device code shared by the fused NeRF MLP kernels: the packed weight
-// layout (fused_mlp.cu, the forward kernels, and fused_mlp_vjp.cu, the
-// backward), and the forward kernels' streamed-weight tensor-core product
-// (wmma), its epilogue and the in-block double-angle embedding.  A forward
-// block is 256 threads (8 warps) over a tile of 128 points; each warp holds
-// a 32-row slab of the accumulators.  The backward runs on wgmma and TMA
-// (hopper_mma.cuh) with its own tile layout.
+// layout (every kernel of fused_mlp.cu and fused_mlp_vjp.cu reads it), and
+// the points kernels' machinery (fused_mlp.cu: K7 sigma_points_kernel, K8
+// eval_points_kernel): the streamed-weight tensor-core product on wmma, its
+// epilogue through shared memory, and the in-block double-angle embedding.
+// A points block is 256 threads (8 warps) over a tile of 128 points; each
+// warp holds a 32-row slab of the accumulators.  The ray kernels (K1/K5,
+// K3/K4) and the backward (K2/K6/K9) run on wgmma and TMA instead
+// (hopper_mlp.cuh, hopper_mma.cuh), with their own tile layout.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -150,23 +152,15 @@ __device__ void epilogue(Acc<N>& acc, const float* __restrict__ bias, bool relu,
 
 // emb[p][:] <- [x, sin 2^j x (j < L), cos 2^j x (j < L), 0 ...] for the
 // TILE vectors x_p = o_p + d_p * z_p; when z is null, the three floats at
-// column col of each row (3: d), scaled to unit length when unit is set;
-// sin/cos(2^j x) by the double-angle recurrence, as the TPU kernels do.
-// rays is [TILE][8]: o (or a point) in 0-2, d in 3-5.
+// column col of each row (3: d) as given; sin/cos(2^j x) by the
+// double-angle recurrence, as the TPU kernels do.  rays is [TILE][8]: o (or
+// a point) in 0-2, d in 3-5.
 __device__ void build_emb(bf16* emb, const float* rays, const float* zrow, int L,
-                          int cols, int col = 3, bool unit = true) {
+                          int cols, int col = 3) {
   for (int idx = threadIdx.x; idx < TILE * 3; idx += THREADS) {
     const int p = idx / 3, c = idx % 3;
     const float* ray = rays + p * 8;
-    float x;
-    if (zrow) {
-      x = ray[c] + ray[3 + c] * zrow[p];
-    } else if (unit) {
-      const float dx = ray[col], dy = ray[col + 1], dz = ray[col + 2];
-      x = ray[col + c] * rsqrtf(dx * dx + dy * dy + dz * dz);
-    } else {
-      x = ray[col + c];
-    }
+    const float x = zrow ? ray[c] + ray[3 + c] * zrow[p] : ray[col + c];
     bf16* e = emb + p * EMB_LD;
     e[c] = __float2bfloat16(x);
     float s = sinf(x), co = cosf(x);
@@ -181,18 +175,6 @@ __device__ void build_emb(bf16* emb, const float* rays, const float* zrow, int L
   const int used = 3 + 6 * L, pad = cols - used;
   for (int idx = threadIdx.x; idx < TILE * pad; idx += THREADS)
     emb[(idx / pad) * EMB_LD + used + idx % pad] = __float2bfloat16(0.0f);
-}
-
-// rays of one tile into shared memory [TILE][8] (rays past N get a
-// harmless unit direction and contribute nothing)
-__device__ __forceinline__ void load_rays(float* rays, const float* __restrict__ od, int n,
-                                          int ray0) {
-  for (int idx = threadIdx.x; idx < TILE * 6; idx += THREADS) {
-    const int k = idx / TILE, p = idx % TILE, ray = ray0 + p;
-    float v = (k == 3) ? 1.0f : 0.0f;
-    if (ray < n) v = od[(long)k * n + ray];
-    rays[p * 8 + k] = v;
-  }
 }
 
 // TILE consecutive points of the planes x and d [3, P] into the same

@@ -37,8 +37,10 @@ weights are the same.
 Arithmetic: operands in the packed weights' type (bf16 on the card),
 float32 accumulation, float32 biases, activations rounded to that type
 after every ReLU; the skip layer is two products (embedding and hidden),
-the view layer is the feature product plus a direction term computed
-once per ray (once per point in ``fused_mlp_eval``).
+the view layer is the feature product plus a direction term: the plain
+versions compute the direction term once per ray (once per point in
+``fused_mlp_eval``); the ray kernels sum both products in one
+accumulator at every sample, as the backward recomputes them.
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 goes to the kernel, or the wrapper raises.  Each wrapper counts its kernel
@@ -459,7 +461,23 @@ def _library() -> ctypes.CDLL:
     lib.nerf_eval_points.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.nerf_sigma_rays.restype = lib.nerf_eval_rays.restype = i
     lib.nerf_sigma_points.restype = lib.nerf_eval_points.restype = i
+    lib.nerf_fwd_maps_us.argtypes = [p, i]
+    lib.nerf_fwd_maps_us.restype = ctypes.c_double
+    lib.nerf_rays_plan.argtypes = [i, i, i, p]
+    lib.nerf_rays_plan.restype = None
     return lib
+
+
+def rays_plan(n: int, s: int, gated: bool = False) -> Dict[str, int]:
+    """How the ray kernels (K1/K5, K3/K4) launch at N rays x S samples
+    (C ``nerf_rays_plan``; card only): blocks of the persistent walk,
+    dynamic shared memory a block, the weight ring's stages, the units
+    (128-ray tiles at one sample) of an ungated launch, blocks an SM
+    holds."""
+    out = (ctypes.c_long * 5)()
+    _library().nerf_rays_plan(n, s, int(gated), out)
+    return dict(zip(("blocks", "smem_bytes", "ring_stages", "units",
+                     "blocks_per_sm"), out))
 
 
 def _cuda_lib(od: torch.Tensor, packed, library=_library) -> ctypes.CDLL:

@@ -62,10 +62,14 @@ def _close(got, want):
     assert float((got - want).norm() / want.norm()) < 1e-2
 
 
-@pytest.mark.parametrize("n,s", [(128, 8), (1000, 8), (4096, 64), (300, 3)])
+@pytest.mark.parametrize("n,s", [(128, 8), (1000, 8), (4096, 64), (300, 3)] + [
+    (n, s) for n in (1, 129, 4096) for s in (1, 3, 64, 192)
+    if (n, s) != (4096, 64)])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain(dev, n, s, out_dtype):
-    """Ragged ray counts (the kernels mask the edge) and any sample count."""
+    """Ragged ray counts (the kernels mask the edge) and any sample count:
+    the persistent walk's edges, from one unit (a block of one ray at one
+    sample) to more units than blocks."""
     p = _packed(0, dev)
     od, z = _inputs(1, n, s, dev)
     k3 = fm.fused_mlp_sigma_rays(od, z, p, out_dtype=out_dtype)
@@ -91,9 +95,27 @@ def test_kernels_short_encodings(dev, L_x, L_d):
 
 
 def test_sigma_kernel_agrees_with_eval_kernels_sigma(dev):
+    """K3 and K1 run the same trunk and density head (csrc/hopper_mlp.cuh
+    and rays_walk): the same bits."""
     p = _packed(4, dev)
     od, z = _inputs(5, 2048, 16, dev)
-    _close(fm.fused_mlp_sigma_rays(od, z, p), fm.fused_mlp_eval_rays(od, z, p)[3])
+    for out_dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(
+            fm.fused_mlp_sigma_rays(od, z, p, out_dtype=out_dtype),
+            fm.fused_mlp_eval_rays(od, z, p, out_dtype=out_dtype)[3])
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_ray_kernels_are_deterministic(dev, gated):
+    """No atomics and a fixed walk: two launches give the same bits."""
+    p = _packed(4, dev)
+    n, s = 1000, 64
+    od, z = _inputs(5, n, s, dev)
+    gate = _gate("mixed", n, s, dev) if gated else None
+    for fn in (fm.fused_mlp_sigma_rays, fm.fused_mlp_eval_rays):
+        a, b = fn(od, z, p, gate=gate), fn(od, z, p, gate=gate)
+        a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_launch_counters(dev):
@@ -388,13 +410,16 @@ def test_float32_compute_dtype_equals_bf16_on_the_card(dev, what):
 
 
 def _gate(kind, n, s, dev, seed=22):
-    """A tile-major (128-ray tile, 8-sample row) gate: all off, all on, or
-    about half on (seeded)."""
+    """A tile-major (128-ray tile, 8-sample row) gate: all off, all on, one
+    entry on (the last tile's last row), or about half on (seeded)."""
     size = -(-n // 128) * (s // 8)
     if kind == "off":
         g = np.zeros(size)
     elif kind == "on":
         g = np.ones(size)
+    elif kind == "one":
+        g = np.zeros(size)
+        g[-1] = 1
     else:
         g = np.random.default_rng(seed).random(size) < 0.5
     return torch.as_tensor(g, dtype=torch.int32, device=dev)
@@ -403,11 +428,16 @@ def _gate(kind, n, s, dev, seed=22):
 @pytest.mark.parametrize("kind,n,s", [("off", 512, 16), ("on", 512, 16),
                                       ("mixed", 4096, 64),
                                       ("mixed", 1000, 24),
-                                      ("mixed", 300, 192)])
+                                      ("mixed", 300, 192),
+                                      ("off", 4096, 192), ("on", 4096, 192),
+                                      ("one", 129, 64), ("one", 4096, 192),
+                                      ("mixed", 1, 8), ("mixed", 4096, 192)])
 def test_gated_kernels_match_plain(dev, kind, n, s):
     """K4 and K5: gated blocks exactly 0, active blocks bit-equal to the
-    ungated kernel and within the kernel tolerance of the gated plain
-    version; ragged ray counts (a partial last tile) included."""
+    ungated kernel (an all-on gate gives K3's and K1's bits) and within the
+    kernel tolerance of the gated plain version; ragged ray counts (a
+    partial last tile) included, and a gate with one entry on, whose
+    8 units go to 8 of the walk's blocks."""
     p = _packed(23, dev)
     od, z = _inputs(24, n, s, dev)
     gate = _gate(kind, n, s, dev)
@@ -464,7 +494,10 @@ def test_gated_wrapper_rejects_bad_gates(dev):
 @pytest.mark.parametrize("n_pts", [128, 100_003, 2 ** 18])
 def test_points_kernel_matches_plain(dev, n_pts):
     """K7 on a plane of points (ragged counts included) against its plain
-    version, and the points kernel's sigma equals K3's at depth 0."""
+    version, and the points kernel's sigma against K3's at depth 0: within
+    the kernel tolerance, not bit for bit, since K7 keeps the wmma
+    products of nerf_mlp_common.cuh and K3 sums on wgmma in another
+    order."""
     p = _packed(27, dev)
     g = torch.Generator(dev).manual_seed(28)
     x = (torch.rand(3, n_pts, generator=g, device=dev) * 4 - 2).contiguous()
@@ -477,7 +510,7 @@ def test_points_kernel_matches_plain(dev, n_pts):
     od = torch.cat([x, torch.zeros(5, n_pts, device=dev)]).contiguous()
     od[3] = 1.0
     k3 = fm.fused_mlp_sigma_rays(od, torch.zeros(1, n_pts, device=dev), p)
-    assert torch.equal(got, k3[0])
+    _close(got, k3[0])
 
 
 def test_culled_frame_gates_change_nothing(dev):

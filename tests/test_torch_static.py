@@ -1,6 +1,6 @@
 """The port stands alone: no module of nerf_pytorch_paeng_tpu_torch, and
-not chip_smoke.py, imports JAX (or flax, optax, orbax) or the JAX package,
-and the packaging ships the kernel sources."""
+not chip_smoke.py or the port's card tools, imports JAX (or flax, optax,
+orbax) or the JAX package, and the packaging ships the kernel sources."""
 import ast
 import pathlib
 
@@ -22,7 +22,8 @@ def _imports(path: pathlib.Path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "torch_kernel_ab.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
