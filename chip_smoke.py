@@ -28,7 +28,9 @@
    ungated kernel and within the tolerance of the gated plain version,
    timed at that gate and at an all-on gate (bit-equal to the ungated
    kernel) beside the bound of the
-   active work; the points kernel K7 on the 128^3 support grid; the gated
+   active work; the points kernel K7 on the 128^3 support grid (its sigma
+   bit-equal to K3's at depth 0; beside its products alone as chained
+   ``torch.mm``, a yardstick the port never calls); the gated
    training pair at the training batch (4096 rays; 64 and 192 samples)
    under an all-on, a seeded half-on and an all-off gate: K5 with float32
    outputs (gated blocks 0, active blocks bit-equal to K1, within the
@@ -93,7 +95,9 @@
    training planes (4096 x 64 and 4096 x 192), K9 (``fused_mlp_bwd``) at
    the training planes with loss-like cotangents, against their plain
    versions (K9 with K2's tolerance and floor, two launches bit-equal),
-   timed beside their bounds.
+   timed beside their bounds, K8 also beside its products alone as
+   chained ``torch.mm``; K8's sigma row bit-equal to K7's and, at depth 0,
+   to K1's.
 8. Plane training phase: the training entry with ``--use_rays_train
    false`` (30 steps) and at ``--N_rays 4000`` (10 steps): every step must
    launch K8 and K9 twice and nothing else, the losses must be finite
@@ -107,7 +111,7 @@
    ``--render_only --N_samples_f 100`` (3 orbit views of the compact field
    through the culled renderer's plane branches): launches K7 and K8 only,
    frame times beside the ray route's of this run, one frame of each
-   against the plain versions (>= 35 dB).
+   against the plain versions (>= 35 dB) and once more under the profiler.
 
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -167,6 +171,8 @@ PLANE_RENDER_VIEWS = 3
 # the ray and the plane pair on one step from the same state and draws:
 # both bf16, but positions, directions and sums round at other points
 PLANE_AB_LOSS_RTOL = 1e-2
+# the library_ms of the forward kernels' rows (``products_ms``)
+PRODUCTS_ONLY = "its bf16 products alone as chained torch.mm at this row's points"
 
 
 def log(*a):
@@ -276,9 +282,8 @@ def kernel_phase(fm, packed, cfg, device):
             "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms, "library": "its bf16 products alone as "
-            "chained torch.mm at this row's points", "plan": fm.rays_plan(
-                BLOCK, s)}
+            "library_ms": lib_ms, "library": PRODUCTS_ONLY,
+            "plan": fm.rays_plan(BLOCK, s)}
     # K3 and K1 share the trunk and the density head: their sigma bits agree
     od, z = seeded_rays(BLOCK, 192, seed=192, device=device)
     check(torch.equal(fm.fused_mlp_sigma_rays(od, z, packed["fine"]),
@@ -428,9 +433,24 @@ def gated_kernel_phase(fm, packed, cfg, device):
     return rows
 
 
+def depth0_rays(x, d=None):
+    """The points x [3, P] as rays at depth 0: od [8, P] with origin x and
+    direction d (default (1, 0, 0)), z_t [1, P] of zeros; x = o + d 0 = o
+    exactly, so the ray kernels' sigma must equal the points kernels'."""
+    n = x.shape[1]
+    od = torch.zeros(8, n, device=x.device)
+    od[0:3] = x
+    if d is None:
+        od[3] = 1.0
+    else:
+        od[3:6] = d
+    return od, torch.zeros(1, n, device=x.device)
+
+
 def points_kernel_phase(fm, packed, cfg, device):
     """K7 on the support grid the culled renderer builds (128^3 points of
-    the cube of half-side ``far``)."""
+    the cube of half-side ``far``), beside its products alone as chained
+    ``torch.mm``; its sigma must equal K3's at depth 0 bit for bit."""
     from nerf_pytorch_paeng_tpu_torch.ops.occupancy import grid_points
     x = grid_points(float(cfg.far), SUPPORT_GRID, device)
     n = x.shape[1]
@@ -442,19 +462,26 @@ def points_kernel_phase(fm, packed, cfg, device):
     max_abs, rel_l2 = errors([k_out], [p_out])
     check(max_abs <= KERNEL_TOL["max_abs"] and rel_l2 <= KERNEL_TOL["rel_l2"],
           "fused_mlp_sigma disagrees with its plain version")
+    check(torch.equal(k_out, fm.fused_mlp_sigma_rays(*depth0_rays(x), p,
+                                                     **kw)[0]),
+          "K7's sigma differs from K3's at depth 0")
+    lib_ms = products_ms(p, n, full=False)
     flop = fm.sigma_flop_per_sample(cfg.L_x) * n
     b_ms, b_by = bound(flop, x.numel() * 4 + n * 2 + p["w"].numel() * 2
                        + p["b"].numel() * 4)
     log(f"kernel fused_mlp_sigma: P={n} max_abs={max_abs:.3e} "
         f"rel_l2={rel_l2:.3e} (tolerance {KERNEL_TOL}) ms={k_ms:.3f} "
         f"plain_ms={p_ms:.3f} bound_ms={b_ms:.3f} "
-        f"({flop / k_ms / 1e9:.1f} TFLOP/s)")
+        f"({flop / k_ms / 1e9:.1f} TFLOP/s, {100 * b_ms / k_ms:.1f}% of the "
+        f"bound; {k_ms * 1e6 / n:.3f} ns a point); its products alone as "
+        f"torch.mm over the same points {lib_ms:.3f} ms; sigma equals K3's "
+        f"at depth 0 bit for bit")
     return {"name": "fused_mlp_sigma", "route": "cuda",
             "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp.cu",
             "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp.py:585",
             "launches": None, "max_abs_err": max_abs, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": lib_ms, "library": PRODUCTS_ONLY, "points": n}
 
 
 def grad_errors(fm, got, want, other):
@@ -1717,40 +1744,50 @@ def plane_kernel_phase(fm, fv, packed, cfg, device):
     samples, the merged count of ``--N_samples_f 100``), K8 (float32) and
     K9 at the training planes (4096 x 64 and 4096 x 192), seeded weights,
     points, directions and loss-like cotangents; K9 launched twice must
-    give the same bits.  Bounds: FLOP of ``eval_flop_per_point`` and
+    give the same bits; K8's sigma row must equal K7's and, at depth 0,
+    K1's bit for bit.  Bounds: FLOP of ``eval_flop_per_point`` and
     ``bwd_flop_per_point`` over the bf16 peak, bytes of the planes,
-    cotangents, weights and outputs over the memory rate."""
+    cotangents, weights and outputs over the memory rate.  K8 beside its
+    products alone as chained ``torch.mm`` at the row's own points."""
     rows, shapes = {}, []
     wbytes = packed["fine"]["w"].numel() * 2 + packed["fine"]["b"].numel() * 4
     p = packed["fine"]
     s_eval = cfg.N_samples_c + PLANE_FINE
     x, d = seeded_planes(BLOCK, s_eval, seed=7000, device=device)
     n_pts = x.shape[1]
+    flop_pt = fm.eval_flop_per_point(cfg.L_x, cfg.L_d)
     max_abs, rel_l2, k_ms, p_ms = k8_check(fm, x, d, p, torch.bfloat16,
                                            f"bf16 at {n_pts} points")
-    b_ms, b_by = bound(fm.eval_flop_per_point(cfg.L_x, cfg.L_d) * n_pts,
-                       n_pts * (24 + 8) + wbytes)
+    b_ms, b_by = bound(flop_pt * n_pts, n_pts * (24 + 8) + wbytes)
+    lib_ms = products_ms(p, n_pts, full=True)
     log(f"kernel fused_mlp_eval (bf16 out): P={n_pts} ({BLOCK} x {s_eval}) "
         f"max_abs={max_abs:.3e} rel_l2={rel_l2:.3e} (tolerance {KERNEL_TOL})"
         f" ms={k_ms:.3f} plain_ms={p_ms:.3f} bound_ms={b_ms:.3f} "
-        f"({fm.eval_flop_per_point(cfg.L_x, cfg.L_d) * n_pts / k_ms / 1e9:.1f}"
-        f" TFLOP/s; {k_ms * 1e6 / n_pts:.3f} ns a point)")
+        f"({flop_pt * n_pts / k_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * b_ms / k_ms:.1f}% of the bound; {k_ms * 1e6 / n_pts:.3f} ns "
+        f"a point); its products alone as torch.mm {lib_ms:.3f} ms")
     rows["fused_mlp_eval"] = {
         "name": "fused_mlp_eval", "route": "cuda",
         "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp.cu",
         "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp.py:151",
         "launches": None, "max_abs_err": max_abs, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "points": n_pts}
+        "library_ms": lib_ms, "library": PRODUCTS_ONLY, "points": n_pts}
     del x, d
     for s in (cfg.N_samples_c, cfg.N_samples_c + cfg.N_samples_f):
         x, d = seeded_planes(TRAIN_RAYS, s, seed=8000 + s, device=device)
         n_pts = x.shape[1]
         k8_abs, k8_rel, k8_ms, k8_plain_ms = k8_check(
             fm, x, d, p, torch.float32, f"float32 at {n_pts} points")
-        k8_b, k8_by = bound(fm.eval_flop_per_point(cfg.L_x, cfg.L_d) * n_pts,
-                            n_pts * (24 + 16) + wbytes)
-        g4 = plane_cotangents(fm.fused_mlp_eval(x, d, p), 9000 + s, device)
+        k8_b, k8_by = bound(flop_pt * n_pts, n_pts * (24 + 16) + wbytes)
+        k8_lib = products_ms(p, n_pts, full=True)
+        out = fm.fused_mlp_eval(x, d, p)
+        check(torch.equal(out[3], fm.fused_mlp_sigma(x, p))
+              and torch.equal(out[3], fm.fused_mlp_eval_rays(
+                  *depth0_rays(x, d), p)[3][0]),
+              f"K8's sigma at {n_pts} points differs from K7's or from K1's "
+              f"at depth 0")
+        g4 = plane_cotangents(out, 9000 + s, device)
         k9_ms, got = cuda_ms(lambda: fv.fused_mlp_bwd(x, d, g4, p), reps=5)
         again = fv.fused_mlp_bwd(x, d, g4, p)
         torch.cuda.synchronize()
@@ -1763,7 +1800,11 @@ def plane_kernel_phase(fm, fv, packed, cfg, device):
                             + (fm.W_TOTAL + fm.B_TOTAL) * 4)
         log(f"kernel fused_mlp_eval (float32 out): P={n_pts} ({TRAIN_RAYS} x "
             f"{s}) max_abs={k8_abs:.3e} rel_l2={k8_rel:.3e} ms={k8_ms:.3f} "
-            f"plain_ms={k8_plain_ms:.3f} bound_ms={k8_b:.3f}")
+            f"plain_ms={k8_plain_ms:.3f} bound_ms={k8_b:.3f} "
+            f"({flop_pt * n_pts / k8_ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * k8_b / k8_ms:.1f}% of the bound); products alone as "
+            f"torch.mm {k8_lib:.3f} ms; sigma row equals K7's and K1's at "
+            f"depth 0 bit for bit")
         log(f"kernel fused_mlp_bwd: P={n_pts} ({TRAIN_RAYS} x {s}) worst "
             f"rel_l2={rel:.3e} against its limit {limit:.3e} ({at}) min "
             f"cos={cos:.6f} max_abs={k9_abs:.3e} (tolerance {GRAD_TOL}; two "
@@ -1773,6 +1814,7 @@ def plane_kernel_phase(fm, fv, packed, cfg, device):
             f" TFLOP/s of gradient products)")
         shapes.append(dict(N=TRAIN_RAYS, S=s, P=n_pts, k8_ms=k8_ms,
                            k8_plain_ms=k8_plain_ms, k8_bound_ms=k8_b,
+                           k8_library_ms=k8_lib,
                            k8_max_abs=k8_abs, k9_ms=k9_ms,
                            k9_plain_ms=k9_plain_ms, k9_bound_ms=k9_b,
                            k9_rel_l2=rel, k9_rel_l2_limit=limit, k9_worst=at,
@@ -1783,7 +1825,7 @@ def plane_kernel_phase(fm, fv, packed, cfg, device):
             "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp.py:151",
             "launches": None, "max_abs_err": k8_abs, "ms": k8_ms,
             "plain_ms": k8_plain_ms, "bound_ms": k8_b, "bound_by": k8_by,
-            "library_ms": None, "points": n_pts}
+            "library_ms": k8_lib, "library": PRODUCTS_ONLY, "points": n_pts}
         rows["fused_mlp_bwd"] = {
             "name": "fused_mlp_bwd", "route": "cuda",
             "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp_vjp.cu",
@@ -1948,9 +1990,11 @@ def plane_train_phase(fm, fv, packed_rand, work, data_root, device):
                 loss_rel=loss_rel, update_max_abs=ab_max, lr=lr))
 
 
-def plane_frames(fm, cfg, H, W, K, packed, pose, device, generator=None):
+def plane_frames(fm, cfg, H, W, K, packed, pose, device, what: str,
+                 generator=None):
     """One frame through the kernels and through the plain versions, same
-    draws: (PSNR, kernel ms, plain ms)."""
+    draws, then the kernels' frame once more under the profiler: (PSNR,
+    kernel ms, plain ms, profile)."""
     from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
     frames, times = {}, {}
     for label, kw in (("kernels", {}), ("plain", dict(
@@ -1965,11 +2009,16 @@ def plane_frames(fm, cfg, H, W, K, packed, pose, device, generator=None):
         frames[label] = render(packed, pose, gen)
         torch.cuda.synchronize(device)
         times[label] = (time.perf_counter() - t0) * 1e3
+        if label == "kernels":          # once more, the same draws
+            if gen is not None:
+                gen.manual_seed(generator)
+            prof = profile_call(lambda: render(packed, pose, gen),
+                                f"plane frame {what}", device)
     rgb = frames["kernels"][0]
     check(rgb.shape == (H, W, 3) and bool(torch.isfinite(rgb).all())
           and bool(torch.isfinite(frames["kernels"][1]).all()),
           "plane frame shape or finiteness")
-    return psnr(rgb, frames["plain"][0]), times["kernels"], times["plain"]
+    return psnr(rgb, frames["plain"][0]), times["kernels"], times["plain"], prof
 
 
 def plane_eval_phase(fm, work: str, data_root: str, device, ray_frame_ms):
@@ -2030,13 +2079,14 @@ def plane_eval_phase(fm, work: str, data_root: str, device, ray_frame_ms):
         packed = pack_nerf(model, cfg, device=device)
         if label.startswith("eval"):
             pose = torch.as_tensor(ext[i_split[2][0]][:3, :4])
-            p_db, k_ms, p_ms = plane_frames(fm, cfg, H, W, K, packed, pose,
-                                            device, cfg.seed + cfg.testing_idx)
+            p_db, k_ms, p_ms, prof = plane_frames(
+                fm, cfg, H, W, K, packed, pose, device, label,
+                cfg.seed + cfg.testing_idx)
         else:
             pose = torch.as_tensor(get_render_pose(PLANE_RENDER_VIEWS)[1][:3, :4])
-            p_db, k_ms, p_ms = plane_frames(
+            p_db, k_ms, p_ms, prof = plane_frames(
                 fm, dataclasses.replace(cfg, perturb=0.0), H, W, K, packed,
-                pose, device)
+                pose, device, label)
         check(p_db >= FRAME_PSNR_MIN, f"{label}: kernels vs plain {p_db} dB")
         stats = [dict(n_act=st["n_act"], blocks=st["blocks"])
                  for st in res.get("stats", [])]
@@ -2051,23 +2101,26 @@ def plane_eval_phase(fm, work: str, data_root: str, device, ray_frame_ms):
         paths[label] = launches
         out[label] = dict(frame_ms=frame_ms, wall_s=wall, stats=stats,
                           kernels_vs_plain_psnr=p_db, frame_kernels_ms=k_ms,
-                          frame_plain_ms=p_ms,
+                          frame_plain_ms=p_ms, profile=prof,
                           peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
     return paths, out
 
 
 def ptxas_lines(text: str) -> list:
     """(kernel, line) for every register and spill line of a ``-Xptxas -v``
-    log, each under the entry function it reports on (the ``*_kernel``
-    part of the mangled name)."""
+    log, each under the entry function it reports on: the ``*_kernel``
+    part of the mangled name, with its instantiation (``<true>`` or
+    ``<false>``) where the kernel is a template over one bool."""
     import re
     out, kernel = [], "?"
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\S+?)'?(?: for|$)", line.strip())
         if m:
-            k = re.findall(r"\d([a-z][a-z_]*_kernel)", m.group(1))
-            kernel = k[-1] if k else m.group(1)
+            k = re.findall(r"\d([a-z][a-z_]*_kernel)(?:ILb([01])E)?",
+                           m.group(1))
+            kernel = (k[-1][0] + {"1": "<true>", "0": "<false>"}.get(
+                k[-1][1], "")) if k else m.group(1)
         elif "registers" in line or "spill" in line:
             out.append((kernel, line.split(":", 1)[-1].strip()))
     return out

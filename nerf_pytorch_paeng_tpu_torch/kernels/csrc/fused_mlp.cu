@@ -18,7 +18,8 @@
 //                     do not apply.
 //
 // Inputs: od [8, N] float32 (origin rows 0-2, unnormalised direction rows
-// 3-5), z [S, N] float32 depths, the packed weights of
+// 3-5) and z [S, N] float32 depths, or the planes x and d [3, P] float32,
+// the packed weights of
 // nerf_pytorch_paeng_tpu_torch/kernels/fused_mlp.py (bf16, [in, out] row-major
 // per layer) and float32 biases.  The optional gate is int32
 // [ceil(N / 128) * (S / 8)], tile-major over (128-ray block, 8-sample row):
@@ -31,14 +32,14 @@
 //
 // What bounds them on this card: operations.  A sample costs ~0.99 MFLOP
 // (sigma) or ~1.19 MFLOP (full field) of bf16 matrix products against 4 B
-// of depth in and 2-8 B out, far above the ~295 FLOP/B at which an H100
-// stops being limited by device memory.  The weights (~1.2 MB in bf16) do
-// not fit in the 227 KB of shared memory a block can use, so every 128-point
-// tile streams them from L2 (127 FLOP a byte of L2 traffic).
+// of depth (a point: 12-24 B of planes) in and 2-16 B out, far above the
+// ~295 FLOP/B at which an H100 stops being limited by device memory.  The
+// weights (~1.2 MB in bf16) do not fit in the 227 KB of shared memory a
+// block can use, so every 128-point tile streams them from L2 (127 FLOP a
+// byte of L2 traffic).
 //
-// The ray kernels (eval_rays_wgmma_kernel, sigma_rays_wgmma_kernel; the
-// walk is rays_walk below) are built on hopper_mlp.cuh, the machinery of
-// the backward's chain launch:
+// All four are one design (the walk is rays_walk below; its machinery is
+// hopper_mlp.cuh, shared with the backward's chain launch):
 //  * warp specialisation: a producer warpgroup (one thread issues, 40
 //    registers by setmaxnreg) streams every product's weights by TMA, in
 //    64-deep k-chunks of 32 KB (128-byte swizzle), into a 3-stage mbarrier
@@ -51,37 +52,23 @@
 //    and 3-wide colour heads are float32 sums of the same rounded registers
 //    across the 4 threads of a quad, so nothing makes a round trip through
 //    shared memory but the activations themselves;
-//  * the positions x = o + d z and their double-angle embedding are built
-//    in the block from od and z (no [3, P] plane in device memory); the view
-//    layer is embd @ wvd + feat @ wvf + bv in one accumulator, embd embedding
-//    d / |d| at every sample, as the backward recomputes it: 6,912 FLOP a
-//    sample beside ~1.19 MFLOP (0.6%), and no per-ray state, so any unit
-//    can go to any block;
-//  * a persistent walk: about one block per SM walks units of one 128-ray
-//    tile at one sample, an equal share of them whatever N, S or the gate
-//    (rays_walk); gated rows are taken out of the walk by a fixed-order
-//    prefix sum over the gate, and their zeros are stored by the producer
-//    warpgroup's idle warps;
-//  * outputs: each warpgroup stores its 64 rays' logits as contiguous runs
-//    of a row of [S, N], float32 (training) or bf16 (frames).
-//
-// The points kernels (sigma_points_kernel, eval_points_kernel) keep the
-// wmma machinery of nerf_mlp_common.cuh:
-//  * a block owns 128 points, an 8-warp [128 x 256] activation tile that
-//    never leaves shared memory; every layer is a wmma bf16 16x16x16 product
-//    (float32 accumulate) of 8 warps as 4 x 2, each holding a 32 x 128
-//    accumulator tile, against weights streamed through a double-buffered
-//    32-row cp.async ring; the skip layer is two products into one
-//    accumulator; the heads are dot products on the CUDA cores (two threads
-//    a point);
-//  * the grid kernel takes each point as a ray with origin x, direction 0
-//    and depth 0, so the in-block embedding sees x itself, and runs one
-//    trunk and the density head;
-//  * the plane kernel takes 128 consecutive points of both planes; every
-//    point has its own direction term (d as given: the caller's unit
-//    vectors, not normalised again), emb(d) @ wvd + bv once per block in
-//    float32.  Bound by operations too: a point moves 24 B in and 8-16 B
-//    out; a ragged last block is masked.
+//  * the ray kernels build the positions x = o + d z and their double-angle
+//    embedding in the block from od and z (no [3, P] plane in device
+//    memory); the points kernels load x (and d) from their planes; the view
+//    layer is embd @ wvd + feat @ wvf + bv in one accumulator, embd
+//    embedding d / |d| at every sample of a ray, as the backward recomputes
+//    it (6,912 FLOP a sample beside ~1.19 MFLOP, 0.6%), or a point's d as
+//    given; no per-ray state, so any unit can go to any block;
+//  * a persistent walk: about one block per SM walks units of 128 rays at
+//    one sample (or 128 consecutive points), an equal share of them
+//    whatever N, S or the gate (rays_walk); gated rows are taken out of the
+//    walk by a fixed-order prefix sum over the gate, and their zeros are
+//    stored by the producer warpgroup's idle warps;
+//  * outputs: each warpgroup stores its 64 rays' (points') logits as
+//    contiguous runs of a row of [S, N] (or [4, P]), float32 (training) or
+//    bf16 (frames).
+// With one trunk and head code, the four kernels' sigma agree bit for bit
+// where their positions do (a point x is a ray with origin x at depth 0).
 // Times against the bound are in PERF.md.
 
 #include <chrono>
@@ -89,45 +76,6 @@
 #include "hopper_mlp.cuh"
 
 namespace {
-
-constexpr int HVD_LD = HALF + 4;    // float32 row stride
-
-// shared memory carve-up (bytes); every region is a multiple of 128 B
-constexpr int SM_ACT = TILE * ACT_LD * 2;           // 67584
-constexpr int SM_EMB = TILE * EMB_LD * 2;           // 18432
-constexpr int SM_HVD = TILE * HVD_LD * 4;           // 67584
-constexpr int SM_RAYS = TILE * 8 * 4;               // 4096
-constexpr int SM_HEADS = 1024 * 4;                  // wdens 256 + wcol 384 (+pad)
-constexpr int SMEM_SIGMA = SM_ACT + SM_EMB + SM_WBUF + SM_SCRATCH + SM_RAYS + SM_HEADS;
-constexpr int SMEM_EVAL = SMEM_SIGMA + SM_HVD;
-
-struct Smem {
-  bf16* act;      // [TILE][ACT_LD] hidden activations (bf16)
-  bf16* emb;      // [TILE][EMB_LD] position (or direction) embedding
-  bf16* wbuf;     // [2][KCHUNK][W_LD] weight ring
-  float* scratch; // [8 warps][256] accumulator staging
-  float* rays;    // [TILE][8]: o (0-2), d (3-5)
-  float* heads;   // wdens [256], wcol [128*3]
-  float* hvd;     // [TILE][HVD_LD] per-ray view term (full field only)
-};
-
-__device__ __forceinline__ Smem carve(unsigned char* base, bool with_hvd) {
-  Smem s;
-  s.act = reinterpret_cast<bf16*>(base);
-  base += SM_ACT;
-  s.emb = reinterpret_cast<bf16*>(base);
-  base += SM_EMB;
-  s.wbuf = reinterpret_cast<bf16*>(base);
-  base += SM_WBUF;
-  s.scratch = reinterpret_cast<float*>(base);
-  base += SM_SCRATCH;
-  s.rays = reinterpret_cast<float*>(base);
-  base += SM_RAYS;
-  s.heads = reinterpret_cast<float*>(base);
-  base += SM_HEADS;
-  s.hvd = with_hvd ? reinterpret_cast<float*>(base) : nullptr;
-  return s;
-}
 
 template <bool OUT_BF16>
 __device__ __forceinline__ void store_out(void* out, long i, float v) {
@@ -137,171 +85,7 @@ __device__ __forceinline__ void store_out(void* out, long i, float v) {
     reinterpret_cast<float*>(out)[i] = v;
 }
 
-// the density and colour head weights as float
-__device__ void load_heads(const Smem& sm, const bf16* __restrict__ w) {
-  for (int i = threadIdx.x; i < WIDTH; i += THREADS)
-    sm.heads[i] = __bfloat162float(w[OFF_WDENS + i]);
-  for (int i = threadIdx.x; i < HALF * 3; i += THREADS)
-    sm.heads[WIDTH + i] = __bfloat162float(w[OFF_WCOL + i]);
-}
-
-// the trunk for the current sample: act <- h7 (bf16), emb holds the
-// position embedding
-__device__ void trunk(Smem& sm, const bf16* __restrict__ w, const float* __restrict__ b) {
-  Acc<WIDTH> acc;
-  acc.zero();
-  gemm<WIDTH>(acc, sm.emb, EMB_LD, EMBX, w + OFF_W0, sm.wbuf);
-  epilogue<WIDTH>(acc, b + OFF_B0, true, sm.act, ACT_LD, sm.scratch);
-  const long offs[4] = {OFF_W1, OFF_W2, OFF_W3, OFF_W4};
-#pragma unroll 1
-  for (int i = 0; i < 4; ++i) {
-    acc.zero();
-    gemm<WIDTH>(acc, sm.act, ACT_LD, WIDTH, w + offs[i], sm.wbuf);
-    epilogue<WIDTH>(acc, b + OFF_B0 + WIDTH * (i + 1), true, sm.act, ACT_LD, sm.scratch);
-  }
-  acc.zero();  // skip: [emb | h] @ [w5e ; w5h]
-  gemm<WIDTH>(acc, sm.emb, EMB_LD, EMBX, w + OFF_W5E, sm.wbuf);
-  gemm<WIDTH>(acc, sm.act, ACT_LD, WIDTH, w + OFF_W5H, sm.wbuf);
-  epilogue<WIDTH>(acc, b + OFF_B0 + WIDTH * 5, true, sm.act, ACT_LD, sm.scratch);
-  const long offs2[2] = {OFF_W6, OFF_W7};
-#pragma unroll 1
-  for (int i = 0; i < 2; ++i) {
-    acc.zero();
-    gemm<WIDTH>(acc, sm.act, ACT_LD, WIDTH, w + offs2[i], sm.wbuf);
-    epilogue<WIDTH>(acc, b + OFF_B0 + WIDTH * (6 + i), true, sm.act, ACT_LD, sm.scratch);
-  }
-  __syncthreads();  // h7 visible to the heads
-}
-
-// density head on the CUDA cores: two threads per point, half the width each
-template <bool OUT_BF16>
-__device__ void density_head(const Smem& sm, const float* __restrict__ b, void* out,
-                             long row_off, int n, int ray0) {
-  const int p = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const bf16* h = sm.act + p * ACT_LD + half * HALF;
-  const float* wd = sm.heads + half * HALF;
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int k = 0; k < HALF; ++k) acc += __bfloat162float(h[k]) * wd[k];
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  if (half == 0 && ray0 + p < n) store_out<OUT_BF16>(out, row_off + ray0 + p, acc + b[OFF_BDENS]);
-}
-
-// the view term of the tile's directions (rays 3-5), as given: hvd =
-// emb(d) @ wvd + bv, float32
-__device__ void view_term(const Smem& sm, const bf16* __restrict__ w,
-                          const float* __restrict__ b, int L_d) {
-  const int warp = threadIdx.x >> 5;
-  const int row0 = (warp & 3) * 32, col0 = (warp >> 2) * (HALF / 2);
-  build_emb(sm.emb, sm.rays, nullptr, L_d, EMBD, 3);
-  Acc<HALF> acc;
-  acc.zero();
-  gemm<HALF>(acc, sm.emb, EMB_LD, EMBD, w + OFF_WVD, sm.wbuf);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < HALF / 32; ++j)
-      wmma::store_matrix_sync(sm.hvd + (row0 + 16 * i) * HVD_LD + col0 + 16 * j,
-                              acc.f[i][j], HVD_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * HALF; idx += THREADS)
-    sm.hvd[(idx / HALF) * HVD_LD + idx % HALF] += b[OFF_BV + idx % HALF];
-}
-
-// after the trunk (act holds h7): density, feature, view layer and colour;
-// the four logits of the tile's row at out + row_off + ray0 + p, p < n - ray0
-template <bool OUT_BF16>
-__device__ void field_heads(Smem& sm, const bf16* __restrict__ w, const float* __restrict__ b,
-                            void* r_out, void* g_out, void* b_out, void* s_out, long row_off,
-                            int n, int ray0) {
-  const int warp = threadIdx.x >> 5;
-  const int row0 = (warp & 3) * 32, col0 = (warp >> 2) * (HALF / 2);
-  density_head<OUT_BF16>(sm, b, s_out, row_off, n, ray0);
-  {  // feature head (no activation), in place over h7
-    Acc<WIDTH> acc;
-    acc.zero();
-    gemm<WIDTH>(acc, sm.act, ACT_LD, WIDTH, w + OFF_WFEAT, sm.wbuf);
-    epilogue<WIDTH>(acc, b + OFF_BFEAT, false, sm.act, ACT_LD, sm.scratch);
-  }
-  {  // view layer: relu(feat @ wvf + hvd) -> act[:, :128]
-    Acc<HALF> acc;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < HALF / 32; ++j)
-        wmma::load_matrix_sync(acc.f[i][j], sm.hvd + (row0 + 16 * i) * HVD_LD + col0 + 16 * j,
-                               HVD_LD, wmma::mem_row_major);
-    gemm<HALF>(acc, sm.act, ACT_LD, WIDTH, w + OFF_WVF, sm.wbuf);
-    epilogue<HALF>(acc, nullptr, true, sm.act, ACT_LD, sm.scratch);
-  }
-  __syncthreads();
-  {  // colour head on the CUDA cores
-    const int p = threadIdx.x >> 1, half = threadIdx.x & 1;
-    const bf16* h = sm.act + p * ACT_LD + half * (HALF / 2);
-    const float* wc = sm.heads + WIDTH + half * (HALF / 2) * 3;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < HALF / 2; ++k) {
-      const float hk = __bfloat162float(h[k]);
-      a0 += hk * wc[3 * k];
-      a1 += hk * wc[3 * k + 1];
-      a2 += hk * wc[3 * k + 2];
-    }
-    a0 += __shfl_xor_sync(0xffffffffu, a0, 1);
-    a1 += __shfl_xor_sync(0xffffffffu, a1, 1);
-    a2 += __shfl_xor_sync(0xffffffffu, a2, 1);
-    if (half == 0 && ray0 + p < n) {
-      store_out<OUT_BF16>(r_out, row_off + ray0 + p, a0 + b[OFF_BCOL]);
-      store_out<OUT_BF16>(g_out, row_off + ray0 + p, a1 + b[OFF_BCOL + 1]);
-      store_out<OUT_BF16>(b_out, row_off + ray0 + p, a2 + b[OFF_BCOL + 2]);
-    }
-  }
-}
-
-// the full field at 128 consecutive points of the planes x, d [3, P]: the
-// view term per point (d as given), one trunk, the heads; out [4, P]
-template <bool OUT_BF16>
-__global__ void __launch_bounds__(THREADS, 1)
-eval_points_kernel(const float* __restrict__ x, const float* __restrict__ d,
-                   const bf16* __restrict__ w, const float* __restrict__ b, void* r_out,
-                   void* g_out, void* b_out, void* s_out, int p, int L_x, int L_d) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Smem sm = carve(smem, true);
-  const int pt0 = blockIdx.x * TILE;
-  load_points(sm.rays, x, d, p, pt0);
-  load_heads(sm, w);
-  __syncthreads();
-  view_term(sm, w, b, L_d);
-  build_emb(sm.emb, sm.rays, nullptr, L_x, EMBX, 0);  // emb is free: the product ended on a
-                                                      // barrier
-  trunk(sm, w, b);
-  field_heads<OUT_BF16>(sm, w, b, r_out, g_out, b_out, s_out, 0, p, pt0);
-}
-
-// trunk + density head at 128 consecutive points of x [3, P]
-template <bool OUT_BF16>
-__global__ void __launch_bounds__(THREADS, 1)
-sigma_points_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
-                    const float* __restrict__ b, void* sigma, int p, int L_x) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Smem sm = carve(smem, false);
-  const int pt0 = blockIdx.x * TILE;
-  // each point as a ray with origin x, direction 0, at depth 0
-  for (int idx = threadIdx.x; idx < TILE * 6; idx += THREADS) {
-    const int k = idx / TILE, q = idx % TILE, pt = pt0 + q;
-    sm.rays[q * 8 + k] = (k < 3 && pt < p) ? x[(long)k * p + pt] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < WIDTH; i += THREADS)
-    sm.heads[i] = __bfloat162float(w[OFF_WDENS + i]);
-  float* zrow = sm.scratch;
-  if (threadIdx.x < TILE) zrow[threadIdx.x] = 0.0f;
-  __syncthreads();
-  build_emb(sm.emb, sm.rays, zrow, L_x, EMBX);
-  trunk(sm, w, b);
-  density_head<OUT_BF16>(sm, b, sigma, 0, p, pt0);
-}
-
-// ---- K1/K5 and K3/K4: the ray kernels on wgmma, TMA and a persistent walk --
+// ---- the walk: K1/K5 and K3/K4 along rays, K8 and K7 at points ------------
 
 constexpr int FW_THREADS = 384;   // 2 consumer warpgroups + 1 producer warpgroup
 constexpr int FW_PRODUCER_REGS = 40, FW_CONSUMER_REGS = 232;
@@ -355,9 +139,11 @@ __device__ __forceinline__ void head_dots(const float (&acc)[N / 2],
 
 // The walk.  A unit is one 128-ray tile at one sample.  Ungated, the S x
 // ray_tiles units in the backward's chain order (unit u: sample
-// u / ray_tiles, ray tile u % ray_tiles); gated, the 8 samples of every
-// active (ray tile, 8-sample row) gate entry, in entry order, so gated rows
-// are not in the walk at all.  Block b of G takes units [b U / G,
+// u / ray_tiles, ray tile u % ray_tiles); in points mode (dplane given, as
+// in the chain launch: od the position plane [3, P], dplane the direction
+// plane, n = P, s = 1, no gate) a unit is 128 consecutive points; gated,
+// the 8 samples of every active (ray tile, 8-sample row) gate entry, in
+// entry order, so gated rows are not in the walk at all.  Block b of G takes units [b U / G,
 // (b + 1) U / G) of the U there are: the blocks' shares differ by one unit
 // at most, however the gate falls.  Gated, every block first takes the
 // prefix sum of the gate's active entries in a fixed order (each thread
@@ -366,17 +152,19 @@ __device__ __forceinline__ void head_dots(const float (&acc)[N / 2],
 // store the zeros of the gated-off entries e = b, b + G, ...
 //
 // Per unit, each consumer warpgroup loads its 64 rays' origin, direction
-// and depth, embeds x = o + d z, runs the trunk (h0 .. h7, the skip layer as
-// two products into one accumulator) and, for the full field, the feature
-// layer (no activation) and the view layer relu(embd @ wvd + feat @ wvf +
-// bv) in one accumulator, where embd embeds d / |d| (the backward's
-// recompute, in its order).  Bias, ReLU and the bf16 rounding are applied
+// and depth (points: position and direction), embeds x = o + d z (points:
+// x), runs the trunk (h0 .. h7, the skip layer as two products into one
+// accumulator) and, for the full field, the feature layer (no activation)
+// and the view layer relu(embd @ wvd + feat @ wvf + bv) in one accumulator,
+// where embd embeds d / |d| (points: d as given; the backward's recompute,
+// in its order).  Bias, ReLU and the bf16 rounding are applied
 // to the accumulator in registers; the density and colour heads come from
 // the same registers (head_dots).  The unit's outputs are staged in shared
-// memory and stored as 64-wide runs of a row of [S, N].
+// memory and stored as 64-wide runs of a row of [S, N] ([4, P]: k = 0).
 template <bool FULL, bool OUT_BF16>
 __device__ __forceinline__ void rays_walk(const CUtensorMap* maps, const float* __restrict__ od,
                                           const float* __restrict__ z,
+                                          const float* __restrict__ dplane,
                                           const bf16* __restrict__ w,
                                           const float* __restrict__ b, void* r_out,
                                           void* g_out, void* b_out, void* s_out, int n, int s,
@@ -496,10 +284,10 @@ __device__ __forceinline__ void rays_walk(const CUtensorMap* maps, const float* 
       ray0 = (e / rows) * TILE;
     }
     hopper::named_barrier(bar, 128);  // the previous unit is done with our rows
-    load_wg(rays, zrow, nullptr, od, z, nullptr, nullptr, nullptr, nullptr, nullptr, n, k, ray0,
+    load_wg(rays, zrow, nullptr, od, z, dplane, nullptr, nullptr, nullptr, nullptr, n, k, ray0,
             row0);
     hopper::named_barrier(bar, 128);
-    emb_wg(emb, rays, zrow, L_x, EMBX, 0, true, row0);
+    emb_wg(emb, rays, dplane ? nullptr : zrow, L_x, EMBX, 0, false, row0);
     hopper::fence_proxy_async();
     hopper::named_barrier(bar, 128);
 
@@ -528,7 +316,8 @@ __device__ __forceinline__ void rays_walk(const CUtensorMap* maps, const float* 
       }
     }
     if (FULL) {
-      emb_wg(emb, rays, nullptr, L_d, EMBD, 3, true, row0);  // the skip layer is done with emb
+      // the skip layer is done with emb; points: d as given
+      emb_wg(emb, rays, nullptr, L_d, EMBD, 3, dplane == nullptr, row0);
       hopper::fence_proxy_async();
       zero_acc(acc);   // feature layer (no activation), in place
       chain_gemm<WIDTH, true>(acc, a_act, WIDTH, ring, full, empty, it);
@@ -567,8 +356,8 @@ eval_rays_wgmma_kernel(__grid_constant__ const FMaps maps, const float* __restri
                        const float* __restrict__ b, void* r_out, void* g_out, void* b_out,
                        void* s_out, int n, int s, int L_x, int L_d,
                        const int* __restrict__ gate) {
-  rays_walk<true, OUT_BF16>(maps.m, od, z, w, b, r_out, g_out, b_out, s_out, n, s, L_x, L_d,
-                            gate);
+  rays_walk<true, OUT_BF16>(maps.m, od, z, nullptr, w, b, r_out, g_out, b_out, s_out, n, s, L_x,
+                            L_d, gate);
 }
 
 template <bool OUT_BF16>
@@ -577,13 +366,41 @@ sigma_rays_wgmma_kernel(__grid_constant__ const FMaps maps, const float* __restr
                         const float* __restrict__ z, const bf16* __restrict__ w,
                         const float* __restrict__ b, void* sigma, int n, int s, int L_x,
                         const int* __restrict__ gate) {
-  rays_walk<false, OUT_BF16>(maps.m, od, z, w, b, nullptr, nullptr, nullptr, sigma, n, s, L_x,
-                             1, gate);
+  rays_walk<false, OUT_BF16>(maps.m, od, z, nullptr, w, b, nullptr, nullptr, nullptr, sigma, n,
+                             s, L_x, 1, gate);
 }
 
-// blocks of a ray launch: one per SM, or one per unit where there are
-// fewer units; gated, also at least enough that no block's share spans
-// more gate entries than its list holds
+// the full field at the planes x and d [3, P] (d as given) -> r, g, b, sigma
+// rows of [4, P].  The assumption that d is given lets the compiler drop the
+// ray mode's branches of the loads and the embedding (236 bytes of spills
+// without it, none with it).
+template <bool OUT_BF16>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+eval_points_wgmma_kernel(__grid_constant__ const FMaps maps, const float* __restrict__ x,
+                         const float* __restrict__ d, const bf16* __restrict__ w,
+                         const float* __restrict__ b, void* r_out, void* g_out, void* b_out,
+                         void* s_out, int p, int L_x, int L_d) {
+  __builtin_assume(d != nullptr);
+  rays_walk<true, OUT_BF16>(maps.m, x, nullptr, d, w, b, r_out, g_out, b_out, s_out, p, 1, L_x,
+                            L_d, nullptr);
+}
+
+// trunk + density at the plane x [3, P] -> sigma [P]; x stands in for the
+// direction plane the points mode loads (its rows are read and never used),
+// and is assumed given, as d is in eval_points_wgmma_kernel
+template <bool OUT_BF16>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+sigma_points_wgmma_kernel(__grid_constant__ const FMaps maps, const float* __restrict__ x,
+                          const bf16* __restrict__ w, const float* __restrict__ b, void* sigma,
+                          int p, int L_x) {
+  __builtin_assume(x != nullptr);
+  rays_walk<false, OUT_BF16>(maps.m, x, nullptr, x, w, b, nullptr, nullptr, nullptr, sigma, p, 1,
+                             L_x, 1, nullptr);
+}
+
+// blocks of a walk: one per SM, or one per unit where there are fewer
+// units; gated, also at least enough that no block's share spans more gate
+// entries than its list holds
 int walk_blocks(int n, int s, bool gated) {
   const long tiles = (n + TILE - 1) / TILE, units = (long)s * tiles;
   long g = sm_count();
@@ -595,38 +412,17 @@ int walk_blocks(int n, int s, bool gated) {
   return (int)g;
 }
 
-template <bool FULL>
-int rays_run(const float* od, const float* z, const void* w, const float* b, void* r, void* g,
-             void* bl, void* sigma, int n, int s, int L_x, int L_d, int out_bf16,
-             const int* gate, void* stream) {
-  if (gate != nullptr && s % 8 != 0) return (int)cudaErrorInvalidValue;
-  const bf16* wb = reinterpret_cast<const bf16*>(w);
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+// one launch of a walk kernel at (n, s), after encoding the forward tensor
+// maps over the packed weights w (the kernel's first argument)
+template <typename Kernel, typename... Args>
+int walk_launch(Kernel kernel, int n, int s, bool gated, const bf16* w, void* stream,
+                Args... args) {
   FMaps maps;
   int rc;
-  if ((rc = fwd_maps(maps.m, wb))) return rc;
-  const int grid = walk_blocks(n, s, gate != nullptr);
-  if constexpr (FULL) {
-    if (out_bf16) {
-      if ((rc = launch_prep(eval_rays_wgmma_kernel<true>, SMEM_FWD))) return rc;
-      eval_rays_wgmma_kernel<true><<<grid, FW_THREADS, SMEM_FWD, st>>>(
-          maps, od, z, wb, b, r, g, bl, sigma, n, s, L_x, L_d, gate);
-    } else {
-      if ((rc = launch_prep(eval_rays_wgmma_kernel<false>, SMEM_FWD))) return rc;
-      eval_rays_wgmma_kernel<false><<<grid, FW_THREADS, SMEM_FWD, st>>>(
-          maps, od, z, wb, b, r, g, bl, sigma, n, s, L_x, L_d, gate);
-    }
-  } else {
-    if (out_bf16) {
-      if ((rc = launch_prep(sigma_rays_wgmma_kernel<true>, SMEM_FWD))) return rc;
-      sigma_rays_wgmma_kernel<true><<<grid, FW_THREADS, SMEM_FWD, st>>>(maps, od, z, wb, b,
-                                                                        sigma, n, s, L_x, gate);
-    } else {
-      if ((rc = launch_prep(sigma_rays_wgmma_kernel<false>, SMEM_FWD))) return rc;
-      sigma_rays_wgmma_kernel<false><<<grid, FW_THREADS, SMEM_FWD, st>>>(
-          maps, od, z, wb, b, sigma, n, s, L_x, gate);
-    }
-  }
+  if ((rc = fwd_maps(maps.m, w))) return rc;
+  if ((rc = launch_prep(kernel, SMEM_FWD))) return rc;
+  kernel<<<walk_blocks(n, s, gated), FW_THREADS, SMEM_FWD,
+           reinterpret_cast<cudaStream_t>(stream)>>>(maps, args...);
   return (int)cudaGetLastError();
 }
 
@@ -634,55 +430,47 @@ int rays_run(const float* od, const float* z, const void* w, const float* b, voi
 
 extern "C" int nerf_sigma_points(const float* x, const void* w, const float* b, void* sigma,
                                  int p, int L_x, int out_bf16, void* stream) {
-  const dim3 grid((p + TILE - 1) / TILE);
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* wb = reinterpret_cast<const bf16*>(w);
-  int rc;
-  if (out_bf16) {
-    if ((rc = launch_prep(sigma_points_kernel<true>, SMEM_SIGMA))) return rc;
-    sigma_points_kernel<true><<<grid, THREADS, SMEM_SIGMA, st>>>(x, wb, b, sigma, p, L_x);
-  } else {
-    if ((rc = launch_prep(sigma_points_kernel<false>, SMEM_SIGMA))) return rc;
-    sigma_points_kernel<false><<<grid, THREADS, SMEM_SIGMA, st>>>(x, wb, b, sigma, p, L_x);
-  }
-  return (int)cudaGetLastError();
+  return out_bf16 ? walk_launch(sigma_points_wgmma_kernel<true>, p, 1, false, wb, stream, x, wb,
+                                b, sigma, p, L_x)
+                  : walk_launch(sigma_points_wgmma_kernel<false>, p, 1, false, wb, stream, x, wb,
+                                b, sigma, p, L_x);
 }
 
 extern "C" int nerf_eval_points(const float* x, const float* d, const void* w, const float* b,
                                 void* out, int p, int L_x, int L_d, int out_bf16, void* stream) {
-  const dim3 grid((p + TILE - 1) / TILE);
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* wb = reinterpret_cast<const bf16*>(w);
   // out [4, P]: rows r, g, b, sigma
   const long row = (long)p * (out_bf16 ? 2 : 4);
   char* o = reinterpret_cast<char*>(out);
-  int rc;
-  if (out_bf16) {
-    if ((rc = launch_prep(eval_points_kernel<true>, SMEM_EVAL))) return rc;
-    eval_points_kernel<true><<<grid, THREADS, SMEM_EVAL, st>>>(x, d, wb, b, o, o + row,
-                                                                o + 2 * row, o + 3 * row, p,
-                                                                L_x, L_d);
-  } else {
-    if ((rc = launch_prep(eval_points_kernel<false>, SMEM_EVAL))) return rc;
-    eval_points_kernel<false><<<grid, THREADS, SMEM_EVAL, st>>>(x, d, wb, b, o, o + row,
-                                                                 o + 2 * row, o + 3 * row, p,
-                                                                 L_x, L_d);
-  }
-  return (int)cudaGetLastError();
+  return out_bf16 ? walk_launch(eval_points_wgmma_kernel<true>, p, 1, false, wb, stream, x, d, wb,
+                                b, o, o + row, o + 2 * row, o + 3 * row, p, L_x, L_d)
+                  : walk_launch(eval_points_wgmma_kernel<false>, p, 1, false, wb, stream, x, d,
+                                wb, b, o, o + row, o + 2 * row, o + 3 * row, p, L_x, L_d);
 }
-
 
 extern "C" int nerf_sigma_rays(const float* od, const float* z, const void* w, const float* b,
                                void* sigma, int n, int s, int L_x, int out_bf16,
                                const int* gate, void* stream) {
-  return rays_run<false>(od, z, w, b, nullptr, nullptr, nullptr, sigma, n, s, L_x, 1, out_bf16,
-                         gate, stream);
+  if (gate != nullptr && s % 8 != 0) return (int)cudaErrorInvalidValue;
+  const bf16* wb = reinterpret_cast<const bf16*>(w);
+  const bool gated = gate != nullptr;
+  return out_bf16 ? walk_launch(sigma_rays_wgmma_kernel<true>, n, s, gated, wb, stream, od, z, wb,
+                                b, sigma, n, s, L_x, gate)
+                  : walk_launch(sigma_rays_wgmma_kernel<false>, n, s, gated, wb, stream, od, z,
+                                wb, b, sigma, n, s, L_x, gate);
 }
 
 extern "C" int nerf_eval_rays(const float* od, const float* z, const void* w, const float* b,
                               void* r, void* g, void* bl, void* sigma, int n, int s, int L_x,
                               int L_d, int out_bf16, const int* gate, void* stream) {
-  return rays_run<true>(od, z, w, b, r, g, bl, sigma, n, s, L_x, L_d, out_bf16, gate, stream);
+  if (gate != nullptr && s % 8 != 0) return (int)cudaErrorInvalidValue;
+  const bf16* wb = reinterpret_cast<const bf16*>(w);
+  const bool gated = gate != nullptr;
+  return out_bf16 ? walk_launch(eval_rays_wgmma_kernel<true>, n, s, gated, wb, stream, od, z, wb,
+                                b, r, g, bl, sigma, n, s, L_x, L_d, gate)
+                  : walk_launch(eval_rays_wgmma_kernel<false>, n, s, gated, wb, stream, od, z, wb,
+                                b, r, g, bl, sigma, n, s, L_x, L_d, gate);
 }
 
 // Host microseconds a ray launch spends encoding its tensor maps: the mean

@@ -212,8 +212,12 @@ __device__ __forceinline__ void load_wg(float* rays, float* zrow, float* gout,
   }
 }
 
-// build_emb (nerf_mlp_common.cuh) for the warpgroup's 64 rows, into a
-// swizzled tile: the same values, the same double-angle recurrence
+// The warpgroup's 64 rows of a swizzled embedding tile (cols wide):
+// [x, sin 2^j x (j < L), cos 2^j x (j < L), 0 ...] for x = o + d z where
+// zrow is given, else the three floats at column col of each row of rays
+// (0: a point's position, 3: a direction), normalised with unit, as given
+// without; sin and cos of 2^j x by the double-angle recurrence, as the TPU
+// kernels build them.
 __device__ __forceinline__ void emb_wg(unsigned char* emb, const float* rays, const float* zrow,
                                        int L, int cols, int col, bool unit, int row0) {
   const int t = threadIdx.x & 127;

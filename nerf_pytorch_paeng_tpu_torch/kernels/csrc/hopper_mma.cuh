@@ -2,9 +2,9 @@
 // mbarriers, TMA tensor loads, wgmma shared-memory descriptors and the
 // wgmma instruction itself (m64n128k16 and m64n256k16, bf16 -> f32), named
 // barriers, setmaxnreg, the async-proxy fence, and the host-side encoding of
-// TMA tensor maps.  The training backward (fused_mlp_vjp.cu) is built on
-// them; they are the starting point for moving the forward kernels off
-// wmma.  No PyTorch and no CUTLASS headers: the driver's
+// TMA tensor maps.  Every kernel of the port is built on them: the forward
+// walk (fused_mlp.cu) and the backward (fused_mlp_vjp.cu).  No PyTorch and
+// no CUTLASS headers: the driver's
 // cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so the
 // library links against the CUDA runtime only.
 //

@@ -494,10 +494,8 @@ def test_gated_wrapper_rejects_bad_gates(dev):
 @pytest.mark.parametrize("n_pts", [128, 100_003, 2 ** 18])
 def test_points_kernel_matches_plain(dev, n_pts):
     """K7 on a plane of points (ragged counts included) against its plain
-    version, and the points kernel's sigma against K3's at depth 0: within
-    the kernel tolerance, not bit for bit, since K7 keeps the wmma
-    products of nerf_mlp_common.cuh and K3 sums on wgmma in another
-    order."""
+    version, and the points kernel's sigma against K3's at depth 0: bit for
+    bit, since both run the one walk (rays_walk) and x = o + d 0 = o."""
     p = _packed(27, dev)
     g = torch.Generator(dev).manual_seed(28)
     x = (torch.rand(3, n_pts, generator=g, device=dev) * 4 - 2).contiguous()
@@ -510,7 +508,7 @@ def test_points_kernel_matches_plain(dev, n_pts):
     od = torch.cat([x, torch.zeros(5, n_pts, device=dev)]).contiguous()
     od[3] = 1.0
     k3 = fm.fused_mlp_sigma_rays(od, torch.zeros(1, n_pts, device=dev), p)
-    _close(got, k3[0])
+    assert torch.equal(got, k3[0])
 
 
 def test_culled_frame_gates_change_nothing(dev):
@@ -570,6 +568,43 @@ def test_plane_kernel_matches_plain(dev, n_pts, out_dtype):
     assert got.shape == (4, n_pts) and got.dtype == out_dtype
     _close(got, fm.fused_mlp_eval_plain(x, d, p, out_dtype=out_dtype))
     assert torch.equal(got[3], fm.fused_mlp_sigma(x, p, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_plane_kernel_sigma_equals_ray_kernel_at_depth_0(dev, out_dtype):
+    """K8's sigma row against K1's sigma with the same positions as
+    origins, unit directions and depth 0: bit for bit (one trunk and
+    density head code; x = o + d 0 = o)."""
+    p = _packed(50, dev)
+    n_pts = 4096 * 3 + 5
+    x, d = _planes(51, n_pts, dev)
+    od = torch.cat([x, d, torch.zeros(2, n_pts, device=dev)]).contiguous()
+    k1 = fm.fused_mlp_eval_rays(od, torch.zeros(1, n_pts, device=dev), p,
+                                out_dtype=out_dtype)
+    got = fm.fused_mlp_eval(x, d, p, out_dtype=out_dtype)
+    assert torch.equal(got[3], k1[3][0])
+
+
+@pytest.mark.parametrize("n_pts", [1, 127, 132 * 128 + 1, 132 * 128 * 5 + 3])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_points_kernels_walk_edges(dev, n_pts, out_dtype):
+    """K8 and K7 on the persistent walk at its edges: a lone point, one
+    ragged unit, one unit more than the card has SMs, several units a
+    block: finite, within the kernel tolerance of their plain versions,
+    two launches bit-equal."""
+    p = _packed(52, dev)
+    x, d = _planes(53, n_pts, dev)
+    k8 = fm.fused_mlp_eval(x, d, p, out_dtype=out_dtype)
+    k7 = fm.fused_mlp_sigma(x, p, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert k8.shape == (4, n_pts) and k7.shape == (n_pts,)
+    assert bool(torch.isfinite(k8.float()).all())
+    assert bool(torch.isfinite(k7.float()).all())
+    _close(k8, fm.fused_mlp_eval_plain(x, d, p, out_dtype=out_dtype))
+    _close(k7, fm.fused_mlp_sigma_plain(x, p, out_dtype=out_dtype))
+    assert torch.equal(k8, fm.fused_mlp_eval(x, d, p, out_dtype=out_dtype))
+    assert torch.equal(k7, fm.fused_mlp_sigma(x, p, out_dtype=out_dtype))
+    assert torch.equal(k8[3], k7)
 
 
 def test_plane_kernel_takes_directions_as_given(dev):

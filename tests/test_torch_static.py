@@ -41,3 +41,14 @@ def test_kernel_sources_are_package_data():
     assert "csrc/*.cu" in text and "csrc/*.cuh" in text
     assert list((PORT / "kernels" / "csrc").glob("*.cu"))
     assert list((PORT / "kernels" / "csrc").glob("*.cuh"))
+
+
+@pytest.mark.parametrize(
+    "path", sorted((PORT / "kernels" / "csrc").glob("*.cu*")),
+    ids=lambda p: p.name)
+def test_kernel_sources_use_no_wmma(path):
+    """Every kernel runs on wgmma and TMA (csrc/hopper_mma.cuh): no source
+    uses the older warp-level wmma API or includes its header."""
+    text = path.read_text()
+    assert "wmma" not in text and "nvcuda" not in text, path
+    assert "<mma.h>" not in text, path

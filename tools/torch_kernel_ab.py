@@ -7,11 +7,13 @@
 Copies ``nerf_pytorch_paeng_tpu_torch/kernels/csrc`` to
 ``build/kernel_ab/``, applies each ``--replace OLD NEW`` to ``--file``
 there (OLD must occur exactly once), builds that copy's ``fused_mlp.cu``
-with the port's nvcc flags, and times the ray kernels of the committed
+with the port's nvcc flags, and times the forward kernels of the committed
 build (base) and of the copy (variant) in turns, base, variant, variant,
 base: K1 with bf16 outputs at 131072 x 192, K3 at 131072 x 64, K1 with
-float32 outputs at 4096 x 192 and 4096 x 64 (CUDA-event medians of 5
-after one warm-up, seeded inputs and weights as ``chip_smoke.py``'s).
+float32 outputs at 4096 x 192 and 4096 x 64, K7 on the 128^3 support
+grid, K8 with bf16 outputs at 131072 x 164 points and with float32
+outputs at 4096 x 192 (CUDA-event medians of 5 after one warm-up, seeded
+inputs and weights as ``chip_smoke.py``'s).
 Each variant row says whether its outputs equal the base's bit for bit.
 Prints the card's name and power limit first.  Needs the card; the
 backward's library is not touched.
@@ -36,11 +38,13 @@ from nerf_pytorch_paeng_tpu_torch.config import NerfConfig  # noqa: E402
 from nerf_pytorch_paeng_tpu_torch.kernels import build  # noqa: E402
 from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp as fm  # noqa: E402
 from nerf_pytorch_paeng_tpu_torch.models.nerf import init_nerf  # noqa: E402
+from nerf_pytorch_paeng_tpu_torch.ops.occupancy import (  # noqa: E402
+    grid_points)
 
 
 def variant_library(file: str, replacements):
     """The patched copy of csrc, built; a loader in ``fm._library``'s
-    shape (the ray entry points' C signatures)."""
+    shape (the forward entry points' C signatures)."""
     d = ROOT / "build" / "kernel_ab"
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(build.SRC_DIR, d)
@@ -58,14 +62,17 @@ def variant_library(file: str, replacements):
     if r.returncode:
         raise SystemExit(f"nvcc failed:\n{r.stdout[-4000:]}")
     for kernel, line in cs.ptxas_lines(r.stdout):
-        if "rays_wgmma" in kernel:
+        if "wgmma" in kernel:
             print(f"variant ptxas {kernel}: {line}")
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nerf_sigma_rays.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
     lib.nerf_eval_rays.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                    p, p]
+    lib.nerf_sigma_points.argtypes = [p, p, p, p, i, i, i, p]
+    lib.nerf_eval_points.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.nerf_sigma_rays.restype = lib.nerf_eval_rays.restype = i
+    lib.nerf_sigma_points.restype = lib.nerf_eval_points.restype = i
     return lambda: lib
 
 
@@ -88,26 +95,34 @@ def main() -> int:
     cfg = NerfConfig()
     packed = fm.pack_nerf(init_nerf(cfg, seed=1, device=dev), cfg,
                           device=dev)
-    cases = [("K1 bf16 131072x192", fm.fused_mlp_eval_rays, "fine", 131072,
-              192, torch.bfloat16),
-             ("K3 bf16 131072x64", fm.fused_mlp_sigma_rays, "coarse", 131072,
-              64, torch.bfloat16),
-             ("K1 f32 4096x192", fm.fused_mlp_eval_rays, "fine", 4096, 192,
-              torch.float32),
-             ("K1 f32 4096x64", fm.fused_mlp_eval_rays, "fine", 4096, 64,
+    grid = grid_points(float(cfg.far), cs.SUPPORT_GRID, dev)
+    plane_eval = cs.seeded_planes(131072, 164, seed=7000, device=dev)
+    plane_train = cs.seeded_planes(4096, 192, seed=8192, device=dev)
+    cases = [("K1 bf16 131072x192", fm.fused_mlp_eval_rays, "fine",
+              cs.seeded_rays(131072, 192, seed=192, device=dev),
+              torch.bfloat16),
+             ("K3 bf16 131072x64", fm.fused_mlp_sigma_rays, "coarse",
+              cs.seeded_rays(131072, 64, seed=64, device=dev),
+              torch.bfloat16),
+             ("K1 f32 4096x192", fm.fused_mlp_eval_rays, "fine",
+              cs.seeded_rays(4096, 192, seed=192, device=dev), torch.float32),
+             ("K1 f32 4096x64", fm.fused_mlp_eval_rays, "fine",
+              cs.seeded_rays(4096, 64, seed=64, device=dev), torch.float32),
+             ("K7 bf16 128^3", fm.fused_mlp_sigma, "coarse", (grid,),
+              torch.bfloat16),
+             ("K8 bf16 131072x164", fm.fused_mlp_eval, "fine", plane_eval,
+              torch.bfloat16),
+             ("K8 f32 4096x192", fm.fused_mlp_eval, "fine", plane_train,
               torch.float32)]
-    inputs = {c[0]: cs.seeded_rays(c[3], c[4], seed=c[4], device=dev)
-              for c in cases}
     ref = {}
     try:
         for label, lib in (("base", base), ("variant", variant),
                            ("variant", variant), ("base", base)):
             fm._cuda_lib.__defaults__ = (lib,)
             row = []
-            for name, fn, which, _, _, dt in cases:
-                od, z = inputs[name]
+            for name, fn, which, inputs, dt in cases:
                 ms, out = cs.cuda_ms(
-                    lambda: fn(od, z, packed[which], out_dtype=dt), reps=5)
+                    lambda: fn(*inputs, packed[which], out_dtype=dt), reps=5)
                 out = out if isinstance(out, tuple) else (out,)
                 same = all(torch.equal(a, b)
                            for a, b in zip(out, ref.setdefault(name, out)))
