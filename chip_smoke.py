@@ -112,6 +112,25 @@
    through the culled renderer's plane branches): launches K7 and K8 only,
    frame times beside the ray route's of this run, one frame of each
    against the plain versions (>= 35 dB) and once more under the profiler.
+10. LLFF phase: a synthetic forward-facing capture in the LLFF layout
+   (``utils/synth.save_as_llff_dataset``: 10 views at 378x504, fern's
+   downsample-8 size, so ``--downsample 0`` is the one cut) through
+   configs/llff/fern.txt at full width: 60 training steps from the global
+   ray pool with NDC rays (every step K1 and K2 twice, nothing else; the
+   pre-cull never engages; losses finite and falling; step times, one
+   profiled step, peak memory); ``--eval_only`` on the held-out views
+   (testskip 8) through the dense renderer, two blocks a frame (131072
+   rays and a ragged 59440), one view against the plain versions (>= 35
+   dB); ``--render_only`` of the whole 120-view spiral through the culled
+   renderer (K3 once a frame, K1 once a cover block, nothing else), one
+   spiral pose at ``perturb 0`` culled against dense (>= 40 dB).  K1
+   (float32) and K2 on one pool step's own NDC rays, depths and
+   cotangents (K2 twice, the same bits), K3 and K1 (bf16) on one dense
+   frame's blocks, the ragged one included, all with the seeded random
+   weights, against their plain versions under ``KERNEL_TOL`` and
+   ``GRAD_TOL``.  Then the same capture as ``data_type custom``
+   (poses_bounds.npy in place, no COLMAP): the loader's near/far, 5
+   steps and one orbit frame.
 
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -171,6 +190,15 @@ PLANE_RENDER_VIEWS = 3
 # the ray and the plane pair on one step from the same state and draws:
 # both bf16, but positions, directions and sums round at other points
 PLANE_AB_LOSS_RTOL = 1e-2
+# the LLFF phase: a synthetic forward-facing capture at fern's downsample-8
+# size; the ground truth is rendered with 128 samples a ray (the JAX
+# package's writer takes 256) to keep the capture's writing short
+LLFF_HW = (378, 504)
+LLFF_VIEWS = 10
+LLFF_GT_SAMPLES = 128
+LLFF_STEPS = 60
+LLFF_SPIRAL = 120                 # load_llff's spiral: every view rendered
+CUSTOM_STEPS = 5
 # the library_ms of the forward kernels' rows (``products_ms``)
 PRODUCTS_ONLY = "its bf16 products alone as chained torch.mm at this row's points"
 
@@ -2106,6 +2134,373 @@ def plane_eval_phase(fm, work: str, data_root: str, device, ray_frame_ms):
     return paths, out
 
 
+def llff_args(work: str, data_root: str, *extra):
+    """configs/llff/fern.txt on the synthetic capture, written at fern's
+    downsample-8 size, so ``--downsample 0`` is the one cut."""
+    return ["--config", os.path.join(HERE, "configs/llff/fern.txt"),
+            "--data_root", data_root, "--log_dir", os.path.join(work, "logs"),
+            "--downsample", "0", "--iter_warmup", "0", "--idx_vis", "0",
+            "--idx_test", "0", "--idx_render", "0", *extra]
+
+
+def only_launched(launches: dict, want: dict, what: str) -> None:
+    """Every kernel launched as often as ``want`` says, every other kernel
+    never."""
+    for name, got in launches.items():
+        need = want.get(name, 0)
+        check(got == need, f"{what}: {name} launched {got} times, not {need}")
+
+
+def ndc_train_kernels(fm, fv, calls, packed) -> dict:
+    """K1 (float32 outputs) and K2 on the NDC rays, depths and cotangents
+    one LLFF pool step gave them (both passes), with the seeded random
+    weights: K1 within ``KERNEL_TOL`` of its plain version, K2 launched
+    twice with the same bits and within ``GRAD_TOL`` of its plain version
+    (floor: the plain version on the CPU)."""
+    check(len(calls) == 2, f"{len(calls)} LLFF passes recorded, not 2")
+    p = packed["fine"]
+    out = {"fused_mlp_eval_rays": [], "fused_mlp_bwd_rays": []}
+    for c in calls:
+        od, z, cots = c["od"], c["z"], c["cots"]
+        check(c["gate"] is None and all(t is not None for t in cots),
+              "the LLFF step ran gated or lost a cotangent")
+        s, n = z.shape
+        got = fm.fused_mlp_eval_rays(od, z, p)
+        want = fm.fused_mlp_eval_rays_plain(od, z, p)
+        max_abs, rel_l2 = errors(got, want)
+        check(max_abs <= KERNEL_TOL["max_abs"]
+              and rel_l2 <= KERNEL_TOL["rel_l2"],
+              f"K1 float32 on the LLFF step's NDC inputs ({n}, {s})")
+        out["fused_mlp_eval_rays"].append(dict(N=n, S=s, out="float32",
+                                               max_abs=max_abs, rel_l2=rel_l2))
+        g1 = fv.fused_mlp_bwd_rays(od, z, *cots, p)
+        g2 = fv.fused_mlp_bwd_rays(od, z, *cots, p)
+        torch.cuda.synchronize()
+        check(torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1]),
+              f"K2 on the LLFF step's inputs ({n}, {s}): two launches differ")
+        plain = fv.fused_mlp_bwd_rays_plain(od, z, *cots, p)
+        other = fv.fused_mlp_bwd_rays_plain(
+            od.cpu(), z.cpu(), *(t.cpu() for t in cots),
+            fm._with_views(p["w"].cpu(), p["b"].cpu()))
+        (rel, limit, at), cos, k2_abs = grad_errors(fm, g1, plain, other)
+        check(rel <= limit and cos >= GRAD_TOL["cos"],
+              f"K2 on the LLFF step's NDC inputs ({n}, {s}): {at} {rel} > "
+              f"{limit} or cos {cos}")
+        out["fused_mlp_bwd_rays"].append(dict(
+            N=n, S=s, rel_l2=rel, limit=limit, worst=at, cos=cos,
+            max_abs=k2_abs))
+        log(f"path kernel on NDC inputs (LLFF step, {n} x {s}): K1 float32 "
+            f"max_abs={max_abs:.3e} rel_l2={rel_l2:.3e}; K2 two launches "
+            f"bit-equal, worst rel_l2={rel:.3e} against {limit:.3e} ({at}), "
+            f"min cos={cos:.6f} (limit {GRAD_TOL['cos']}), "
+            f"max_abs={k2_abs:.3e}; NDC z range "
+            f"[{float(z.min()):.3f}, {float(z.max()):.3f}]")
+    return out
+
+
+def ndc_frame_kernels(fm, calls, packed, cfg, tail: int) -> dict:
+    """K3 and K1 (bf16 outputs) on the NDC rays and depths one dense LLFF
+    frame gave them, block by block (the ragged last block of ``tail``
+    rays among them), with the seeded random weights, against their plain
+    versions under ``KERNEL_TOL``."""
+    out = {"fused_mlp_sigma_rays": [], "fused_mlp_eval_rays": []}
+    for name, od, z, gate in calls:
+        check(gate is None, f"{name} ran gated on the dense LLFF frame")
+        s, n = z.shape
+        if name == "fused_mlp_sigma_rays":
+            kern, plain = fm.fused_mlp_sigma_rays, fm.fused_mlp_sigma_rays_plain
+            p, kw = packed["coarse"], dict(L_x=cfg.L_x)
+        else:
+            kern, plain = fm.fused_mlp_eval_rays, fm.fused_mlp_eval_rays_plain
+            p, kw = packed["fine"], dict(L_x=cfg.L_x, L_d=cfg.L_d)
+        kw["out_dtype"] = torch.bfloat16
+        got, want = (x if isinstance(x, tuple) else (x,)
+                     for x in (kern(od, z, p, **kw), plain(od, z, p, **kw)))
+        max_abs, rel_l2 = errors(got, want)
+        check(max_abs <= KERNEL_TOL["max_abs"]
+              and rel_l2 <= KERNEL_TOL["rel_l2"],
+              f"{name} on the LLFF frame's NDC inputs ({n}, {s})")
+        out[name].append(dict(N=n, S=s, out="bf16", max_abs=max_abs,
+                              rel_l2=rel_l2))
+        log(f"path kernel {name} on NDC inputs (dense LLFF frame): N={n} "
+            f"S={s} max_abs={max_abs:.3e} rel_l2={rel_l2:.3e} (tolerance "
+            f"{KERNEL_TOL})")
+    for name, recs in out.items():
+        check(any(r["N"] == tail for r in recs),
+              f"{name}: the frame's ragged {tail}-ray block was not checked")
+    return out
+
+
+def llff_phase(fm, fv, packed_rand, work: str, device):
+    """configs/llff/fern.txt on a synthetic forward-facing capture at
+    fern's downsample-8 size (378 x 504): training (global ray pool, NDC),
+    ``--eval_only`` through the dense renderer, ``--render_only`` of the
+    120-view spiral through the culled renderer, the kernels on the
+    path's own NDC inputs, and a few steps and one orbit frame of the same
+    capture as ``data_type custom``.  Returns ({path: launches}, stats)."""
+    import dataclasses
+
+    from PIL import Image
+
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.data import load_custom
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
+    from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import pack_nerf
+    from nerf_pytorch_paeng_tpu_torch.train import (RayPool, build_ray_pool,
+                                                    create_train_state)
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_train_step
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import save_as_llff_dataset
+
+    H, W = LLFF_HW
+    root = os.path.join(work, "fern_synth")
+    t0 = time.perf_counter()
+    save_as_llff_dataset(root, n_views=LLFF_VIEWS, H=H, W=W,
+                         n_samples=LLFF_GT_SAMPLES)
+    log(f"llff: synthetic forward-facing capture, {LLFF_VIEWS} views at "
+        f"{H}x{W} (fern's downsample-8 size), written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths, stats = {}, {}
+
+    # training: the global ray pool, NDC in the step, 60 steps
+    cfg = load_config(llff_args(work, root, "--iter_N", str(LLFF_STEPS),
+                                "--idx_print", "20",
+                                "--idx_save", str(LLFF_STEPS)))
+    check(cfg.data_type == "llff" and cfg.global_batch
+          and cfg.N_rays == TRAIN_RAYS
+          and (cfg.N_samples_c, cfg.N_samples_f) == (64, 128)
+          and (cfg.near, cfg.far) == (0.0, 1.0),
+          "fern.txt is not the full-width LLFF pool config")
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = driver.main_worker(cfg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    only_launched(launches, {"fused_mlp_eval_rays": 2 * LLFF_STEPS,
+                             "fused_mlp_bwd_rays": 2 * LLFF_STEPS},
+                  "llff train")
+    losses = res["loss"]
+    check(len(losses) == LLFF_STEPS and all(map(math.isfinite, losses)),
+          "llff train: non-finite losses")
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    check(last < first, f"llff train: loss did not fall ({first} -> {last})")
+    step_ms = [t * 1e3 for t in res["step_s"]]
+    steady = statistics.median(step_ms[5:])
+    log(f"llff train: launches {launches} in {LLFF_STEPS} steps; loss first "
+        f"10 {first:.5f} -> last 10 {last:.5f}; step device ms (CUDA "
+        f"events): first {step_ms[0]:.1f}, median of 6.. {steady:.2f} (min "
+        f"{min(step_ms[5:]):.2f}, max {max(step_ms[5:]):.2f}); "
+        f"{TRAIN_RAYS * 1e3 / steady:.0f} rays/s; wall {wall:.1f} s; peak "
+        f"device memory {peak_gb:.2f} GB")
+    paths["llff_train"] = launches
+
+    # one pool step more under the profiler, then one whose kernel inputs
+    # are recorded (not counted above)
+    images, K, ext, (h, w), i_split, _, _ = driver.load_dataset(cfg)
+    check((h, w) == (H, W), f"llff capture loaded at {h}x{w}")
+    focal = float(K[0][0])
+    state = create_train_state(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    pool = RayPool(build_ray_pool(images, K, ext, i_split[0], gen, device),
+                   gen)
+    step = make_train_step(cfg, schedule_from_cfg(cfg), H, W, focal)
+    batch = pool.next_batch(cfg.N_rays)
+    step(state, *batch)                        # warm-up
+    prof = profile_call(lambda: step(state, *batch), "llff train step",
+                        device)
+    calls = []
+    undo = record_pair(fv, calls)
+    try:
+        step(state, *batch)
+    finally:
+        undo()
+    torch.cuda.synchronize(device)
+    path = {"train": ndc_train_kernels(fm, fv, calls, packed_rand)}
+    del calls
+    stats["train"] = dict(losses=losses, step_ms=step_ms,
+                          median_step_ms=steady, rays_per_s=TRAIN_RAYS * 1e3
+                          / steady, wall_s=wall, peak_gb=peak_gb,
+                          profile=prof)
+
+    # --eval_only: the held-out views (testskip 8) through the dense
+    # renderer, K3 + K1, two blocks a frame (131072 + a ragged 59440)
+    per_frame = -(-H * W // BLOCK)
+    tail = H * W - (per_frame - 1) * BLOCK
+    ecfg = load_config(llff_args(work, root, "--eval_only", "true",
+                                 "--testing_idx", str(LLFF_STEPS)))
+    zero_launches()
+    t0 = time.perf_counter()
+    res = driver.main_worker(ecfg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_views = len(res["psnr"])
+    check(n_views == len(range(0, LLFF_VIEWS, ecfg.testskip)),
+          f"llff eval: {n_views} held-out views")
+    only_launched(launches, {"fused_mlp_sigma_rays": n_views * per_frame,
+                             "fused_mlp_eval_rays": n_views * per_frame},
+                  "llff eval")
+    check(all(math.isfinite(v) for v in res["psnr"] + res["ssim"]),
+          "llff eval: non-finite metrics")
+    frame_ms = [t * 1e3 for t in res["frame_s"]]
+    paths["llff_eval"] = launches
+
+    # one held-out view again, kernels and plain versions, the same draws;
+    # the kernels' own inputs recorded block by block
+    model = driver.load_model(ecfg, ecfg.testing_idx, device)
+    packed = pack_nerf(model, ecfg, device=device)
+    pose = torch.as_tensor(ext[i_split[2][0]][:3, :4])
+    dense = dataclasses.replace(ecfg, render_cull="none")   # as eval/test.py
+    calls = []
+    frames = {}
+    for label, kw in (
+            ("kernels", dict(
+                sigma_fn=recording(fm.fused_mlp_sigma_rays, calls,
+                                   "fused_mlp_sigma_rays"),
+                field_fn=recording(fm.fused_mlp_eval_rays, calls,
+                                   "fused_mlp_eval_rays"))),
+            ("plain", dict(sigma_fn=fm.fused_mlp_sigma_rays_plain,
+                           field_fn=fm.fused_mlp_eval_rays_plain))):
+        render = make_frame_renderer(dense, H, W, K, device, **kw)
+        gen = torch.Generator(device).manual_seed(ecfg.seed +
+                                                  ecfg.testing_idx)
+        frames[label] = render(packed, pose, gen)
+    torch.cuda.synchronize(device)
+    check(render.launches_per_frame == per_frame
+          and frames["kernels"][0].shape == (H, W, 3)
+          and bool(torch.isfinite(frames["kernels"][0]).all()),
+          "llff dense frame")
+    p_plain = psnr(frames["kernels"][0], frames["plain"][0])
+    check(p_plain >= FRAME_PSNR_MIN, f"llff frame kernels vs plain {p_plain}")
+    check(sorted(z.shape[1] for _, _, z, _ in calls) ==
+          sorted([BLOCK, tail] * 2), f"llff frame blocks "
+          f"{[(n, z.shape) for n, _, z, _ in calls]}")
+    path["frame"] = ndc_frame_kernels(fm, calls, packed_rand, ecfg, tail)
+    del calls
+    render = make_frame_renderer(dense, H, W, K, device)
+    gen = torch.Generator(device).manual_seed(0)
+    dense_ms, _ = cuda_ms(lambda: render(packed, pose, gen), reps=5)
+    eprof = profile_call(lambda: render(packed, pose, gen),
+                         "llff dense frame", device)
+    log(f"llff eval: launches {launches}; {n_views} views, frame device ms "
+        f"{['%.1f' % t for t in frame_ms]} (CUDA events; the first includes "
+        f"warm-up), dense frame median of 5 {dense_ms:.1f} ms ({per_frame} "
+        f"blocks: {BLOCK} + {tail} rays); kernels vs plain PSNR "
+        f"{p_plain:.2f} dB (min {FRAME_PSNR_MIN}); test PSNR {res['psnr']} "
+        f"SSIM {res['ssim']}; wall {wall:.2f} s")
+    stats["eval"] = dict(frame_ms=frame_ms, dense_frame_ms=dense_ms,
+                         kernels_vs_plain_psnr=p_plain, psnr=res["psnr"],
+                         ssim=res["ssim"], wall_s=wall, blocks=[BLOCK, tail],
+                         profile=eprof)
+
+    # --render_only: the 120-view spiral through the culled renderer, K3
+    # (phase 1) and K1 (phase 2) only
+    rcfg = load_config(llff_args(work, root, "--render_only", "true",
+                                 "--testing_idx", str(LLFF_STEPS)))
+    check(rcfg.render_cull == "auto", "fern.txt does not render culled")
+    zero_launches()
+    t0 = time.perf_counter()
+    res = driver.main_worker(rcfg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n = len(res["frame_s"])
+    blocks = [st["blocks"] for st in res["stats"]]
+    check(n == LLFF_SPIRAL and res["rgbs"].shape == (n, H, W, 3)
+          and bool(np.isfinite(res["rgbs"]).all())
+          and bool(np.isfinite(res["disps"]).all()), "llff spiral frames")
+    only_launched(launches, {"fused_mlp_sigma_rays": n,
+                             "fused_mlp_eval_rays": sum(blocks)},
+                  "llff render")
+    check(all(st["gate_frac_coarse"] is None and st["gate_frac_fine"] is None
+              for st in res["stats"]), "an LLFF frame ran gated")
+    with Image.open(os.path.join(res["save_dir"], "_rgb.gif")) as im:
+        check(im.n_frames == n and im.size == (W, H), "llff spiral gif")
+    rframe_ms = [t * 1e3 for t in res["frame_s"]]
+    n_act = [st["n_act"] for st in res["stats"]]
+    paths["llff_render"] = launches
+
+    # one spiral pose at perturb 0: culled against dense
+    spiral = driver._llff_render_poses_34(driver.load_dataset(rcfg)[5])
+    pose = torch.as_tensor(spiral[LLFF_SPIRAL // 4])
+    det = dataclasses.replace(rcfg, perturb=0.0)
+    times, out = {}, {}
+    for label, c in (("culled", det),
+                     ("dense", dataclasses.replace(det, render_cull="none"))):
+        render = make_frame_renderer(c, H, W, K, device, stratified=False)
+        times[label], out[label] = cuda_ms(lambda: render(packed, pose),
+                                           reps=5)
+    p_dense = psnr(out["culled"][0], out["dense"][0])
+    check(p_dense >= CULLED_VS_DENSE_PSNR_MIN,
+          f"llff culled vs dense {p_dense} dB")
+    rprof = profile_call(lambda: render(packed, pose), "llff dense spiral "
+                         "frame", device)
+    render = make_frame_renderer(det, H, W, K, device, stratified=False)
+    cprof = profile_call(lambda: render(packed, pose), "llff culled spiral "
+                         "frame", device)
+    log(f"llff render: launches {launches}; {n} spiral views, frame device "
+        f"ms median {statistics.median(rframe_ms):.1f} (min "
+        f"{min(rframe_ms):.1f}, max {max(rframe_ms):.1f}, first "
+        f"{rframe_ms[0]:.1f}); active rays median "
+        f"{statistics.median(n_act):.0f} of {H * W}; phase-2 blocks "
+        f"{sorted(set(blocks))}; wall {wall:.1f} s; one pose at perturb 0: "
+        f"culled vs dense PSNR {p_dense:.2f} dB (min "
+        f"{CULLED_VS_DENSE_PSNR_MIN}), culled {times['culled']:.1f} ms, dense "
+        f"{times['dense']:.1f} ms (median of 5)")
+    stats["render"] = dict(views=n, frame_ms=rframe_ms, n_act=n_act,
+                           blocks=blocks, wall_s=wall,
+                           culled_vs_dense_psnr=p_dense, pose_frame_ms=times,
+                           profile=dict(dense=rprof, culled=cprof))
+
+    # data_type custom on the same capture (poses_bounds.npy in place, no
+    # COLMAP): the loader's near/far, a few steps, one orbit frame
+    ccfg = load_config(llff_args(work, root, "--data_type", "custom",
+                                 "--exp_name", "smoke_custom", "--iter_N",
+                                 str(CUSTOM_STEPS), "--idx_print", "0",
+                                 "--idx_save", str(CUSTOM_STEPS)))
+    *_, nf = load_custom(root, downsample=0, testskip=ccfg.testskip)
+    got = driver.load_dataset(ccfg)[-1]
+    check((got.near, got.far) == tuple(nf) and tuple(nf) != (0.0, 1.0),
+          f"custom near/far {got.near, got.far}, loader {nf}")
+    zero_launches()
+    res = driver.main_worker(ccfg)
+    torch.cuda.synchronize(device)
+    launches = read_launches()
+    only_launched(launches, {"fused_mlp_eval_rays": 2 * CUSTOM_STEPS,
+                             "fused_mlp_bwd_rays": 2 * CUSTOM_STEPS},
+                  "custom train")
+    check(all(map(math.isfinite, res["loss"])), "custom: non-finite losses")
+    paths["custom_train"] = launches
+    zero_launches()
+    rres = driver.main_worker(load_config(llff_args(
+        work, root, "--data_type", "custom", "--exp_name", "smoke_custom",
+        "--render_only", "true", "--testing_idx", str(CUSTOM_STEPS),
+        "--n_angle", "1")))
+    torch.cuda.synchronize(device)
+    launches = read_launches()
+    check(rres["rgbs"].shape == (1, H, W, 3)
+          and bool(np.isfinite(rres["rgbs"]).all()), "custom orbit frame")
+    only_launched(launches, {"fused_mlp_sigma_rays": 1, "fused_mlp_eval_rays":
+                             sum(st["blocks"] for st in rres["stats"])},
+                  "custom render")
+    paths["custom_render"] = launches
+    cstep_ms = [t * 1e3 for t in res["step_s"]]
+    log(f"custom: near/far {nf[0]:.4f}/{nf[1]:.4f} from the loader; "
+        f"{CUSTOM_STEPS} steps, losses {['%.5f' % v for v in res['loss']]}, "
+        f"step device ms {['%.1f' % t for t in cstep_ms]}; one orbit frame "
+        f"{rres['frame_s'][0] * 1e3:.1f} ms; launches train "
+        f"{paths['custom_train']}, render {launches}")
+    stats["custom"] = dict(near=nf[0], far=nf[1], losses=res["loss"],
+                           step_ms=cstep_ms,
+                           frame_ms=rres["frame_s"][0] * 1e3)
+    stats["path_kernels"] = path
+    return paths, stats
+
+
 def ptxas_lines(text: str) -> list:
     """(kernel, line) for every register and spill line of a ``-Xptxas -v``
     log, each under the entry function it reports on: the ``*_kernel``
@@ -2198,18 +2593,21 @@ def main() -> int:
         plane_frame_launches, plane_frame_stats = plane_eval_phase(
             fm, work, data_root, device,
             {"eval": stats["frame_ms"], "render": render_stats["frame_ms"]})
+        llff_launches, llff_stats = llff_phase(fm, fv, packed, work, device)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each path's own run, counters at 0 before it: K3 and K1 on the eval
     # path, K7, K4 and K5 (bf16 outputs) on the render path, K1, K2 and K7
     # on the training path, K5 (float32 outputs), K6 and K7 on the gated
     # training path, K8 (float32 outputs) and K9 on the two plane training
-    # paths, K8 (bf16) and K7 on the plane eval and render paths.  K5's and
-    # K8's two rows share a counter each: each row reads its own paths.
+    # paths, K8 (bf16) and K7 on the plane eval and render paths, K1, K2
+    # and K3 on the LLFF and custom paths.  K5's and K8's two rows share a
+    # counter each: each row reads its own paths.
     paths = {"eval": eval_launches, "render": render_launches,
              "train": train_launches, "gated_train": gated_launches,
              "plane_train": plane_launches, "plane_train_n4000": n4000_launches,
-             **{f"plane_{k}": v for k, v in plane_frame_launches.items()}}
+             **{f"plane_{k}": v for k, v in plane_frame_launches.items()},
+             **llff_launches}
     only = {"fused_mlp_eval_rays_gated": ("render",),
             "fused_mlp_eval_rays_gated_f32": ("gated_train",),
             "fused_mlp_eval": tuple(f"plane_{k}" for k in plane_frame_launches),
@@ -2217,6 +2615,16 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = sum(paths[p][name] for p in only.get(name, paths))
         check(row["launches"] > 0, f"{name} never launched on a main path")
+        row["launches_llff_custom"] = sum(paths[p][name]
+                                          for p in llff_launches)
+    # K1, K2 and K3: the worst of the kernel phase and the LLFF path's own
+    # NDC inputs
+    for where, recs in llff_stats["path_kernels"].items():
+        for name, rs in recs.items():
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            *(r["max_abs"] for r in rs))
+            rows[name].setdefault("llff_path_shapes", []).extend(
+                (where, r["N"], r["S"]) for r in rs)
     # K4 and K5: the worst of the kernel phase and the render path's inputs
     for name, (max_abs, shapes) in path.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], max_abs)
@@ -2242,6 +2650,7 @@ def main() -> int:
                                     "kernel_shapes": plane_shapes}}))
     log(json.dumps({"plane_frames": {
         **plane_frame_stats, "launches": plane_frame_launches}}))
+    log(json.dumps({"llff": {**llff_stats, "launches": llff_launches}}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 save hooks, or the standalone evaluation or rendering of a saved
 checkpoint.
 
-Counterpart of the JAX package's ``driver.main_worker`` on blender data:
-the coarse+fine model, Adam under the warmup-cosine schedule, global ray
+Counterpart of the JAX package's ``driver.main_worker``: the dataset
+dispatch by ``data_type`` (``load_dataset``: blender, LLFF with its spiral
+render path, custom with the near/far its loader derives), the
+coarse+fine model, Adam under the warmup-cosine schedule, global ray
 batching or per-image sampling, resume (``iter_start``, ``-1`` for the
 latest checkpoint) and the loop with the ``idx_print``, ``idx_vis``,
 ``idx_save``, ``idx_test`` and ``idx_render`` hooks, and occupancy-gated
@@ -12,17 +14,14 @@ reference format, ``logs/<exp>/<exp>_<step>.pth.tar``
 (``train/checkpoint.py``).  With ``eval_only`` and/or ``render_only`` it
 restores the weights saved at ``testing_idx``, packs them once for the
 fused kernels and runs the held-out-view evaluation and/or the novel-view
-render.
-
-Not ported yet, and refused by ``main`` with a message: the LLFF and
-custom loaders.
+render.  LLFF rays are projected into NDC inside the train steps and the
+frame renderers, never in the ray pool.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import os
-import sys
 import time
 from typing import List, Optional
 
@@ -30,7 +29,7 @@ import numpy as np
 import torch
 
 from .config import NerfConfig, load_config
-from .data import load_blender
+from .data import load_blender, load_custom, load_llff
 from .eval.render import run_render
 from .eval.test import run_test
 from .kernels.fused_mlp import pack_nerf
@@ -50,6 +49,39 @@ from .utils.logging import MetricLogger
 def checkpoint_path(cfg: NerfConfig, step: int) -> str:
     """logs/<exp>/<exp>_<step>.pth.tar (the reference's naming)."""
     return ckpt.checkpoint_path(cfg.logdir, cfg.exp_name, step)
+
+
+def load_dataset(cfg: NerfConfig):
+    """Dataset dispatch (reference main.py:34-58) -> (images, K,
+    extrinsics, hw, i_split, render_poses, cfg).  ``render_poses`` is the
+    LLFF spiral, else None; for custom data the returned config carries
+    the near/far the loader derives from the scene's bounds."""
+    if cfg.data_type == "blender":
+        images, (K, ext), hw, i_split = load_blender(
+            data_root=cfg.data_root, downsample=cfg.downsample,
+            testskip=cfg.testskip, bkg_white=cfg.bkg_white)
+        render_poses = None
+    elif cfg.data_type == "llff":
+        images, (K, ext), hw, i_split, render_poses = load_llff(
+            data_root=cfg.data_root, downsample=cfg.downsample,
+            testskip=cfg.testskip, colmap_relaunch=cfg.colmap_relaunch)
+    elif cfg.data_type == "custom":
+        images, (K, ext), hw, i_split, nf = load_custom(
+            data_root=cfg.data_root, downsample=cfg.downsample,
+            testskip=cfg.testskip, video_batch=cfg.video_batch,
+            colmap_relaunch=cfg.colmap_relaunch)
+        render_poses = None
+        cfg = dataclasses.replace(cfg, near=nf[0], far=nf[1])
+    else:
+        raise ValueError(cfg.data_type)
+    return images, K, ext, hw, i_split, render_poses, cfg
+
+
+def _llff_render_poses_34(render_poses):
+    """The spiral's [M, 3, 5] poses as [M, 3, 4] c2w, or None."""
+    if render_poses is None:
+        return None
+    return render_poses[:, :3, :4]
 
 
 def load_model(cfg: NerfConfig, step: int, device) -> NeRF:
@@ -148,10 +180,12 @@ class _SupportPolicy:
 
 
 def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
-          device: torch.device) -> dict:
+          device: torch.device, render_poses=None) -> dict:
     """Steps ``iter_start + 1 .. iter_N``; returns the final step, every
     step's loss, time (``step_s``, see ``_StepClock``) and skipped block
     share (``gate_frac``, None where the step ran ungated).
+    ``render_poses`` (the LLFF spiral, [M, 3, 4]) feed the ``idx_render``
+    hook.
 
     Occupancy-gated training (``train_precull``): the support bounds are
     refreshed before step ``iter_start + 1`` and then every
@@ -181,7 +215,7 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
             ray_pool.fast_forward(state.step, cfg.N_rays)
             print(f">> ray pool fast-forwarded to step {state.step} "
                   f"(epoch {ray_pool.epoch}, cursor {ray_pool.i_batch})")
-        step_fn = make_train_step(cfg, schedule)
+        step_fn = make_train_step(cfg, schedule, H, W, float(K[0][0]))
     else:
         print(">> per-image sampling mode")
         slot = {int(v): k for k, v in enumerate(i_train)}
@@ -250,7 +284,7 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
                      images[i_test], extrinsics[i_test], K, hw, cfg, device)
         if render_on and i % cfg.idx_render == 0:
             run_render(i, pack_nerf(state.model, cfg, device=device), K, hw,
-                       cfg, device)
+                       cfg, device, render_poses=render_poses)
     logger.close()
     print(">> training done")
     return dict(step=state.step, loss=losses.tolist(), step_s=clock.seconds(),
@@ -263,9 +297,6 @@ def main_worker(cfg: NerfConfig) -> dict:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f">> device: {device} ({name})")
-    if cfg.data_type != "blender":
-        raise NotImplementedError(
-            f"data_type={cfg.data_type!r}: only the blender loader is ported")
     if cfg.iter_start < 0:   # -1 = resume from the latest checkpoint
         latest = ckpt.latest_checkpoint_step(cfg.logdir, cfg.exp_name)
         cfg = dataclasses.replace(cfg, iter_start=latest or 0)
@@ -273,9 +304,8 @@ def main_worker(cfg: NerfConfig) -> dict:
               f"{latest if latest is not None else 'absent'} "
               f"-> iter_start={cfg.iter_start}")
     print(f">> loading dataset [{cfg.data_type}] from {cfg.data_root!r}")
-    images, (K, extrinsics), hw, i_split = load_blender(
-        data_root=cfg.data_root, downsample=cfg.downsample,
-        testskip=cfg.testskip, bkg_white=cfg.bkg_white)
+    images, K, extrinsics, hw, i_split, render_poses, cfg = load_dataset(cfg)
+    render_poses = _llff_render_poses_34(render_poses)
     print(f">> dataset loaded: images {images.shape}, hw {hw}, "
           f"train/val/test {'/'.join(str(len(i)) for i in i_split)}")
     if cfg.eval_only or cfg.render_only:
@@ -288,18 +318,13 @@ def main_worker(cfg: NerfConfig) -> dict:
                            extrinsics[i_test], K, hw, cfg, device)
         if cfg.render_only:
             rendered = run_render(cfg.testing_idx, packed, K, hw, cfg,
-                                  device)
+                                  device, render_poses=render_poses)
             res = {**res, "render": rendered} if cfg.eval_only else rendered
         return res
-    return train(cfg, images, K, extrinsics, hw, i_split, device)
+    return train(cfg, images, K, extrinsics, hw, i_split, device,
+                 render_poses)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    cfg = load_config(argv)
-    if cfg.data_type != "blender":
-        print(f"nerf_pytorch_paeng_tpu_torch: the {cfg.data_type} loader is "
-              "not ported yet; the JAX package (main.py) runs it",
-              file=sys.stderr)
-        return 2
-    main_worker(cfg)
+    main_worker(load_config(argv))
     return 0

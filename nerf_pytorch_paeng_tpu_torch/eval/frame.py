@@ -16,6 +16,10 @@ to the dense one.  Held-out evaluation forces the dense one
 5. the full-field kernel (``fused_mlp_eval_rays``) over the merged samples;
 6. sample-major compositing -> rgb, disparity.
 
+Each frame's rays are generated on the device and, for LLFF, projected
+into NDC (``ops/render.maybe_ndc``) before anything else, so both
+renderers and both phases of the culled one see NDC rays.
+
 Blocks only bound memory here; the last block is ragged, since the kernels
 mask the edge themselves.  Each frame makes one launch of each kernel per
 block (``renderer.launches_per_frame``).
@@ -34,7 +38,7 @@ block (``renderer.launches_per_frame``).
   keep each ray's window of the block's class
   (``ops/render.truncation_window``), the full field, composite, and
   scatter into the frame in place.
-- Pre-cull (``render_precull``, K4): support bounds of the coarse field
+- Pre-cull (``render_precull``, K4; blender scenes only): support bounds of the coarse field
   from a G^3 grid of K7 (``fused_mlp_sigma``; ``ops/occupancy.py``), once
   per set of packed weights, give every ray a conservative depth interval.
   Rays are sorted by which 8-sample rows it touches
@@ -80,9 +84,10 @@ from ..ops.occupancy import support_bounds_from_sigma
 from ..ops.rays import get_rays
 from ..ops.render import (GATE_ROWS, hierarchical_fine_pass,
                           hierarchical_z_vals, make_field_fns, make_sigma_fn,
-                          pack_od, position_plane, render_rays_from_cfg,
-                          span_sort, tile_row_gate, train_support_intervals,
-                          truncation_bounds, truncation_window)
+                          maybe_ndc, pack_od, position_plane,
+                          render_rays_from_cfg, span_sort, tile_row_gate,
+                          train_support_intervals, truncation_bounds,
+                          truncation_window)
 from ..ops.sampling import stratified_z_vals
 from ..ops.volume import (_disp_from, volume_render_rays_t,
                           weights_from_sigma, weights_from_sigma_t)
@@ -93,17 +98,13 @@ _OFF = ("off", "false", "f", "no", "n", "0")
 
 
 def _check_supported(cfg) -> None:
-    """The fused kernels take the reference architecture; the port renders
-    blender scenes."""
+    """The fused kernels take the reference architecture."""
     if not (cfg.netDepth == 8 and cfg.netWidth == 256
             and 1 <= cfg.L_x <= 10 and 1 <= cfg.L_d <= 4):
         raise NotImplementedError(
             "the port renders the 8x256 reference MLP (1<=L_x<=10, "
             f"1<=L_d<=4) only; got {cfg.netDepth}x{cfg.netWidth}, "
             f"L_x={cfg.L_x}, L_d={cfg.L_d}")
-    if cfg.data_type != "blender":
-        raise NotImplementedError(
-            f"data_type={cfg.data_type!r}: NDC rays are not ported yet")
 
 
 def make_frame_renderer(cfg, H: int, W: int, K, device,
@@ -137,11 +138,20 @@ def make_frame_renderer(cfg, H: int, W: int, K, device,
                                       points_fn, plane_fn)
 
 
-def _frame_rays(H, W, K, c2w, device):
-    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
-    rays_o, rays_d = get_rays(H, W, K, c2w)
-    return (rays_o.reshape(-1, 3).contiguous(),
-            rays_d.reshape(-1, 3).contiguous())
+def _make_ray_gen(cfg, H, W, K, device):
+    """``c2w -> (rays_o, rays_d)``, each [H*W, 3] on ``device``: the
+    frame's rays, in NDC for LLFF.  The focal length of the projection is
+    K's float32 one, as the JAX package's ``_make_ray_gen`` takes it."""
+    focal = float(np.asarray(K, np.float32)[0, 0])
+
+    def gen_rays(c2w):
+        c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)
+        rays_o, rays_d = get_rays(H, W, K, c2w)
+        rays_o, rays_d = maybe_ndc(rays_o.reshape(-1, 3),
+                                   rays_d.reshape(-1, 3), H, W, focal,
+                                   cfg.data_type)
+        return rays_o.contiguous(), rays_d.contiguous()
+    return gen_rays
 
 
 def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
@@ -150,6 +160,7 @@ def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
     n_coarse, n_fine = cfg.N_samples_c, cfg.N_samples_f
     near, far, perturb = float(cfg.near), float(cfg.far), float(cfg.perturb)
     use_rays = _use_rays_kernels(cfg) and n_fine > 0
+    gen_rays = _make_ray_gen(cfg, H, W, K, device)
 
     def render_block_planes(packed, rays_o, rays_d, generator):
         """The JAX package's plane route: K7 as the coarse density (with a
@@ -186,7 +197,7 @@ def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
 
     @torch.no_grad()
     def render(packed, c2w, generator: Optional[torch.Generator] = None):
-        rays_o, rays_d = _frame_rays(H, W, K, c2w, device)
+        rays_o, rays_d = gen_rays(c2w)
         parts = [render_block(packed, rays_o[i:i + block],
                               rays_d[i:i + block], generator)
                  for i in range(0, n_total, block)]
@@ -379,6 +390,7 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
     use_precull = _use_precull(cfg, device)
     use_gate_fine = _use_gate_fine(cfg, device) and use_rays
     half = _precull_half(cfg)
+    gen_rays = _make_ray_gen(cfg, H, W, K, device)
     sizes = [sz for sz in (block, block // 2, block // 4, block // 8)
              if sz >= 8 and sz % 8 == 0] or [block]
 
@@ -444,7 +456,7 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
 
     @torch.no_grad()
     def render(packed, c2w, generator: Optional[torch.Generator] = None):
-        rays_o, rays_d = _frame_rays(H, W, K, c2w, device)
+        rays_o, rays_d = gen_rays(c2w)
         pc = module_bounds(packed, "coarse") if use_precull else None
         fb = module_bounds(packed, "fine") if use_gate_fine else None
 

@@ -1,11 +1,12 @@
 """Novel-view rendering and video export.
 
 Counterpart of the JAX package's ``eval/render.run_render``: the orbit
-poses of ``data/render_pose.get_render_pose`` (blender), each frame
-through the frame renderer the config selects (the culled one by
-default), ``{i}_rgb.png`` and ``{i}_disp.png`` per frame (disparity
-normalised by its max), and ``_rgb`` / ``_disp`` as a gif or an mp4.
-``single_angle != -1`` renders one still, written twice, as the
+poses of ``data/render_pose.get_render_pose`` for blender and custom
+data, the dataset's spiral (``render_poses`` from ``data/llff.py``) for
+LLFF, each frame through the frame renderer the config selects (the
+culled one by default), ``{i}_rgb.png`` and ``{i}_disp.png`` per frame
+(disparity normalised by its max), and ``_rgb`` / ``_disp`` as a gif or
+an mp4.  ``single_angle != -1`` renders one still, written twice, as the
 reference does.
 
 The machine the port targets has no imageio, so a gif goes through

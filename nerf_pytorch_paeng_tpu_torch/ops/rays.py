@@ -2,10 +2,10 @@
 package's ``ops/rays.py``).
 
 Pinhole directions ``[(i-cx)/fx, -(j-cy)/fy, -1]`` rotated by the
-camera-to-world rotation; origins are the camera centre.  Pixel choice
-takes an explicit ``torch.Generator`` or injected flat indices, so tests
-can feed both packages the same draws.  NDC projection (LLFF) is not
-ported yet.
+camera-to-world rotation; origins are the camera centre.  ``ndc_rays``
+projects forward-facing (LLFF) rays into normalised device coordinates.
+Pixel choice takes an explicit ``torch.Generator`` or injected flat
+indices, so tests can feed both packages the same draws.
 """
 from __future__ import annotations
 
@@ -46,6 +46,28 @@ def get_rays_batched(H: int, W: int, K, c2ws: torch.Tensor
         c2ws[:, None, :3, :3].transpose(-1, -2)              # [T, H, W, 3]
     rays_o = c2ws[:, None, None, :3, -1].expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def ndc_rays(H: int, W: int, focal: float, near: float,
+             rays_o: torch.Tensor, rays_d: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shift the origins to the plane z = -near and project the rays into
+    NDC space (reference nerf_process.py:8-28); the LLFF path applies it
+    with near = 1.  rays [..., 3] float32 -> (rays_o, rays_d) [..., 3]."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (W / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2])
+    d1 = -1.0 / (H / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)
 
 
 def sample_pixels(H: int, W: int, n_rays: int, precrop: bool = False,

@@ -5,7 +5,7 @@ JAX package's ``ops/render.py``: ``hierarchical_z_vals``,
 occupancy-gated passes (``train_support_intervals``, ``train_gate_tile``,
 ``train_gate_plan``, ``_gated_train_pass``), ``render_rays``,
 ``render_rays_from_cfg``, ``hierarchical_fine_pass`` and their field
-functions, ``span_sort``, ``tile_row_gate``, ``truncation_bounds`` and
+functions, ``maybe_ndc``, ``span_sort``, ``tile_row_gate``, ``truncation_bounds`` and
 ``truncation_window``).
 
 The plane layout: positions and unit view directions as [3, P] planes,
@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from .occupancy import ray_support_interval, segment_in_cube
+from .rays import ndc_rays
 from .sampling import sample_pdf, stratified_z_vals
 from .volume import (volume_render_planar, volume_render_rays_t,
                      weights_from_sigma)
@@ -379,6 +380,18 @@ def render_rays_from_cfg(coarse_fn: Callable, fine_fn: Callable,
                        perturb=float(cfg.perturb), stratified=stratified,
                        coarse_sigma_fn=coarse_sigma_fn, generator=generator,
                        u_c=u_c, u_f=u_f)
+
+
+def maybe_ndc(rays_o: torch.Tensor, rays_d: torch.Tensor, H: int, W: int,
+              focal: float, data_type: str
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The NDC projection with near = 1 for LLFF (forward-facing) scenes,
+    the rays unchanged for every other data type (reference
+    nerf_process.py:224-226).  The view directions are then taken from the
+    NDC ``rays_d``, as in the JAX package."""
+    if data_type == "llff":
+        return ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+    return rays_o, rays_d
 
 
 GATE_TILE = 128     # rays per gate tile: the kernels' block of rays

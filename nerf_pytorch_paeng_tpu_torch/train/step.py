@@ -11,6 +11,10 @@ otherwise.  Two batch modes, as in the reference:
 - per image: the step receives one image and its pose, draws ``N_rays``
   pixels (from the centre crop while ``precrop``) and gathers their rays.
 
+Both steps project LLFF rays into NDC (``ops/render.maybe_ndc``) before
+rendering; the ray pool and the image's ray fields hold world rays, as in
+the JAX package.
+
 Each step draws from a generator seeded from (seed, completed updates),
 the counterpart of ``fold_in(key, state.step)``: a resumed run replays the
 same draws.  Tests inject the JAX package's draws instead (``coords``,
@@ -26,11 +30,13 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..ops.rays import gather_rays, get_rays, sample_pixels
-from ..ops.render import (make_train_field_fns, render_rays_from_cfg,
-                          render_rays_train, supports_train_rays_kernels)
+from ..ops.render import (make_train_field_fns, maybe_ndc,
+                          render_rays_from_cfg, render_rays_train,
+                          supports_train_rays_kernels)
 from .state import TrainState
 
 _U64 = (1 << 64) - 1
@@ -109,15 +115,20 @@ def _with_half(cfg, support):
     return (*support, _precull_half(cfg))
 
 
-def make_train_step(cfg, schedule: Callable[[int], float]):
+def make_train_step(cfg, schedule: Callable[[int], float], H: int = 0,
+                    W: int = 0, focal: float = 0.0):
     """Global-batch step: ``(state, rays_o, rays_d, target, u_c=None,
-    u_f=None, support=None) -> metrics``; updates ``state`` in place."""
+    u_f=None, support=None) -> metrics``; updates ``state`` in place.
+    ``H``, ``W`` and ``focal`` serve only LLFF's NDC projection, applied
+    to each batch of world rays."""
     seed = cfg.seed + 3
 
     def train_step(state: TrainState, rays_o, rays_d, target,
                    u_c: Optional[torch.Tensor] = None,
                    u_f: Optional[torch.Tensor] = None, support=None):
         gen = step_generator(seed, state.step, rays_o.device)
+        rays_o, rays_d = maybe_ndc(rays_o, rays_d, H, W, focal,
+                                   cfg.data_type)
         sup = _with_half(cfg, support)
         return _update(state, schedule, lambda: _loss_and_metrics(
             state.model, rays_o, rays_d, target, cfg, gen, u_c, u_f, sup))
@@ -130,8 +141,9 @@ def make_image_train_step(cfg, schedule: Callable[[int], float], H: int,
     coords=None, u_c=None, u_f=None, support=None) -> metrics``.  The
     image's rays are generated, ``N_rays`` pixels drawn (the step's
     generator draws the pixels first, then the render's jitter) and
-    gathered."""
+    gathered (and, for LLFF, projected into NDC)."""
     seed = cfg.seed + 3
+    focal = float(np.asarray(K)[0, 0])
 
     def train_step(state: TrainState, image, pose, precrop: bool = False,
                    coords: Optional[torch.Tensor] = None,
@@ -144,6 +156,7 @@ def make_image_train_step(cfg, schedule: Callable[[int], float], H: int,
                                    cfg.precrop_frac, generator=gen,
                                    device=image.device)
         ro, rd, target = gather_rays(rays_o, rays_d, image, coords)
+        ro, rd = maybe_ndc(ro, rd, H, W, focal, cfg.data_type)
         sup = _with_half(cfg, support)
         return _update(state, schedule, lambda: _loss_and_metrics(
             state.model, ro.contiguous(), rd.contiguous(), target, cfg, gen,

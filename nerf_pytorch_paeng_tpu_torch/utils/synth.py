@@ -1,11 +1,14 @@
 """Analytic synthetic scene written in the blender on-disk format.
 
-Own numpy copy of the JAX package's ``utils/synth.make_synth_scene`` and
-``save_as_blender_dataset``: a compactly supported Gaussian density blob
+Own numpy copy of the JAX package's ``utils/synth.make_synth_scene``,
+``save_as_blender_dataset``, ``make_forward_scene`` and
+``save_as_llff_dataset``: a compactly supported Gaussian density blob
 with a position-dependent colour, volume-rendered analytically with the
 renderer's compositing formulas (white background), seen from an orbit of
-cameras.  Used by the port's tests and by ``chip_smoke.py`` in place of
-the real datasets, which are not in the repository.
+cameras (blender layout) or from a forward-facing capture (LLFF layout,
+``images/`` + ``poses_bounds.npy``).  Used by the port's tests and by
+``chip_smoke.py`` in place of the real datasets, which are not in the
+repository.
 
 ``compact_field_params`` / ``compact_field_state_dict`` build a NeRF by
 hand whose density has exactly compact support (an L1 ball), so the
@@ -136,6 +139,70 @@ def save_as_blender_dataset(root: str, n_train: int = 4, n_val: int = 1,
         meta = {"camera_angle_x": camera_angle_x, "frames": frames}
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
             json.dump(meta, f)
+
+
+def make_forward_scene(n_views: int = 20, H: int = 378, W: int = 504,
+                       dist: float = 4.0, spread: float = 0.6,
+                       n_samples: int = 256
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                  np.ndarray]:
+    """Forward-facing capture of the blob (the LLFF geometry): cameras on
+    a jittered plane at ``z ~ dist``, all looking at the origin (a mild
+    toe-in, like a handheld capture).  Returns (images [N,H,W,3], K [3,3],
+    poses [N,4,4] c2w, bounds [N,2]: each view's [near, far] content depth,
+    what COLMAP's depth percentiles give for a real scene).  The camera
+    draws come first, then the views render on threads."""
+    focal = 0.9 * W
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]],
+                 np.float32)
+    rng = np.random.default_rng(11)
+    cutoff = 1.8                                 # the blob's support
+    poses, bounds = [], []
+    for _ in range(n_views):
+        center = np.array([rng.uniform(-spread, spread),
+                           rng.uniform(-spread, spread),
+                           dist + rng.uniform(-0.15, 0.15)])
+        z = center / np.linalg.norm(center)      # back axis (look at 0)
+        x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+        x = x / np.linalg.norm(x)
+        y = np.cross(z, x)
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x, y, z, center
+        d = float(np.linalg.norm(center))
+        poses.append(c2w)
+        bounds.append((max(d - cutoff - 0.2, 0.5), d + cutoff + 0.2))
+    with ThreadPoolExecutor(max_workers=min(n_views, 8)) as pool:
+        imgs = list(pool.map(
+            lambda pb: render_gt(H, W, K, pb[0], pb[1][0], pb[1][1],
+                                 n_samples=n_samples), zip(poses, bounds)))
+    return (np.stack(imgs), K, np.stack(poses),
+            np.asarray(bounds, np.float32))
+
+
+def save_as_llff_dataset(root: str, n_views: int = 20, H: int = 378,
+                         W: int = 504, n_samples: int = 256) -> None:
+    """Write the forward-facing scene in the LLFF layout (``images/`` +
+    ``poses_bounds.npy``), so that the whole LLFF path runs on it: the
+    loader's axis fix, recentring and bound rescale, the NDC projection,
+    the spiral render path.  Row i of poses_bounds is the flattened 3x5
+    [down | right | back | t | hwf] matrix and the view's [near, far], and
+    pairs with the i-th image in sorted file-name order."""
+    imgs, K, poses, bounds = make_forward_scene(
+        n_views=n_views, H=H, W=W, n_samples=n_samples)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    rows = []
+    for i in range(n_views):
+        imwrite(os.path.join(root, "images", f"{i:03d}.png"),
+                (np.clip(imgs[i], 0, 1) * 255).astype(np.uint8))
+        c2w = poses[i]
+        # LLFF's on-disk axes [down, right, back] (data/llff.py inverts it)
+        llff_pose = np.concatenate(
+            [-c2w[:3, 1:2], c2w[:3, 0:1], c2w[:3, 2:4]], 1)
+        hwf = np.array([H, W, float(K[0, 0])]).reshape(3, 1)
+        rows.append(np.concatenate(
+            [np.concatenate([llff_pose, hwf], 1).ravel(), bounds[i]], 0))
+    np.save(os.path.join(root, "poses_bounds.npy"),
+            np.asarray(rows, np.float64))
 
 
 def compact_field_params(r: float = 1.5, k: float = 20.0, seed: int = 0,

@@ -811,3 +811,110 @@ def test_gated_full_width_training_step(dev):
     du, dg = (torch.cat([p.detach().flatten() for p in st.model.parameters()])
               - w0 for st in (st_u, st_g))
     assert float((du - dg).abs().max()) <= 2 * cfg.lr * (1 + 1e-3)
+
+
+# ------------------------------------------------------ the LLFF (NDC) path
+
+
+def _llff_capture(tmp_path, H, W):
+    """A 2-view synthetic forward-facing capture through the LLFF loader:
+    (images, K, extrinsics)."""
+    from nerf_pytorch_paeng_tpu_torch.data import load_llff
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import save_as_llff_dataset
+    save_as_llff_dataset(str(tmp_path), n_views=2, H=H, W=W, n_samples=16)
+    images, (K, ext), _, _, _ = load_llff(str(tmp_path), testskip=2)
+    return images, K, ext
+
+
+def test_llff_training_step_on_ndc_rays(dev, tmp_path):
+    """One global-pool step of fern's configuration (8x256, 4096 rays,
+    64+128 samples, NDC with near 0 and far 1) on the card: K1 and K2
+    twice, finite loss; then K1 (float32) and K2 on that batch's NDC rays
+    against their plain versions."""
+    from nerf_pytorch_paeng_tpu_torch.ops.render import maybe_ndc, pack_od
+    from nerf_pytorch_paeng_tpu_torch.ops.sampling import stratified_z_vals
+    from nerf_pytorch_paeng_tpu_torch.train import (build_ray_pool,
+                                                    create_train_state)
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_train_step
+
+    H, W = 64, 96
+    images, K, ext = _llff_capture(tmp_path, H, W)
+    cfg = NerfConfig(data_type="llff", near=0.0, far=1.0, N_rays=4096,
+                     N_samples_c=64, N_samples_f=128, iter_warmup=0,
+                     iter_N=10)
+    g = torch.Generator(dev).manual_seed(0)
+    pool = build_ray_pool(images, K, ext, np.arange(2), g, dev)[:4096]
+    o, d, rgb = (pool[:, k].contiguous() for k in range(3))
+    state = create_train_state(cfg, dev)
+    step = make_train_step(cfg, schedule_from_cfg(cfg), H, W, float(K[0, 0]))
+    launches = (fm.fused_mlp_eval_rays.launches, fv.fused_mlp_bwd_rays.launches)
+    m = step(state, o, d, rgb)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss"])) and state.step == 1
+    assert (fm.fused_mlp_eval_rays.launches - launches[0],
+            fv.fused_mlp_bwd_rays.launches - launches[1]) == (2, 2)
+
+    no, nd = maybe_ndc(o, d, H, W, float(K[0, 0]), "llff")
+    z = stratified_z_vals(4096, 0.0, 1.0, 192, perturb=True, generator=g,
+                          device=dev).T.contiguous()
+    od = pack_od(no, nd)
+    p = _packed(50, dev)
+    outs = fm.fused_mlp_eval_rays(od, z, p)
+    for a, b in zip(outs, fm.fused_mlp_eval_rays_plain(od, z, p)):
+        _close(a, b)
+    gout = _loss_cotangents(outs, 51, dev)
+    got = fv.fused_mlp_bwd_rays(od, z, *gout, p)
+    again = fv.fused_mlp_bwd_rays(od, z, *gout, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    _grads_close(got, *_plain_both(od, z, gout, p))
+
+
+def test_llff_frame_ragged_tail_kernels_vs_plain(dev, tmp_path):
+    """A 378x504 LLFF frame (fern's downsample-8 size) through the dense
+    renderer: two blocks, 131072 rays and a ragged 59440 (not a multiple
+    of 128).  The frame through the kernels and through the plain versions
+    (same draws) >= 35 dB apart at most, and K3 and K1 on the ragged
+    block's own NDC inputs against their plain versions."""
+    H, W = 378, 504
+    _, K, ext = _llff_capture(tmp_path, H, W)
+    cfg = NerfConfig(data_type="llff", near=0.0, far=1.0, render_cull="none")
+    packed = fm.pack_nerf(init_nerf(cfg, seed=0, device=dev), cfg)
+    calls = []
+
+    def keep(fn):
+        def call(od, z, p, **kw):
+            calls.append((od, z))
+            return fn(od, z, p, **kw)
+        return call
+
+    out = {}
+    for name, kw in (("k", dict(sigma_fn=keep(fm.fused_mlp_sigma_rays),
+                                field_fn=keep(fm.fused_mlp_eval_rays))),
+                     ("p", dict(sigma_fn=fm.fused_mlp_sigma_rays_plain,
+                                field_fn=fm.fused_mlp_eval_rays_plain))):
+        render = make_frame_renderer(cfg, H, W, K, dev, **kw)
+        out[name] = render(packed, torch.from_numpy(ext[0]),
+                           torch.Generator(dev).manual_seed(0))
+    assert render.launches_per_frame == 2
+    mse = float(torch.mean((out["k"][0] - out["p"][0]) ** 2))
+    assert -10 * np.log10(max(mse, 1e-20)) >= 35.0
+    assert bool(torch.isfinite(out["k"][1]).all())
+    assert sorted(z.shape[1] for _, z in calls) == [59440, 59440, 131072,
+                                                    131072]
+    for od, z in calls:
+        if z.shape[1] != 59440:
+            continue
+        if z.shape[0] == cfg.N_samples_c:
+            _close(fm.fused_mlp_sigma_rays(od, z, packed["coarse"],
+                                           out_dtype=torch.bfloat16),
+                   fm.fused_mlp_sigma_rays_plain(od, z, packed["coarse"],
+                                                 out_dtype=torch.bfloat16))
+        else:
+            for a, b in zip(
+                    fm.fused_mlp_eval_rays(od, z, packed["fine"],
+                                           out_dtype=torch.bfloat16),
+                    fm.fused_mlp_eval_rays_plain(od, z, packed["fine"],
+                                                 out_dtype=torch.bfloat16)):
+                _close(a, b)

@@ -198,11 +198,22 @@ def test_eval_only_cli_end_to_end(synth_root, tmp_path):
 
 @pytest.mark.parametrize("flags", [["--data_type", "custom"],
                                    ["--data_type", "llff"]])
-def test_unported_modes_exit_nonzero(flags, capsys):
-    rc = main(["--config", str(ROOT / "configs/blender/lego.txt"),
-               "--device", "cpu", *flags])
-    assert rc != 0
-    assert "not ported yet" in capsys.readouterr().err
+def test_llff_and_custom_modes_run(flags, tmp_path, capsys):
+    """The LLFF and custom data types, once refused, train through
+    ``main`` on a synthetic forward-facing capture (LLFF layout, with
+    poses_bounds.npy: no COLMAP) and save a checkpoint."""
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import save_as_llff_dataset
+    root = str(tmp_path / "capture")
+    save_as_llff_dataset(root, n_views=4, H=16, W=24, n_samples=32)
+    rc = main(["--config", str(ROOT / "configs/llff/fern.txt"),
+               "--device", "cpu", *flags, "--data_root", root,
+               "--log_dir", str(tmp_path / "logs"), "--downsample", "0",
+               "--iter_N", "2", "--iter_warmup", "0", "--N_rays", "128",
+               "--N_samples_c", "8", "--N_samples_f", "8", "--idx_save", "2",
+               "--idx_test", "0", "--idx_render", "0"])
+    assert rc == 0
+    assert f"loading dataset [{flags[1]}]" in capsys.readouterr().out
+    assert (tmp_path / "logs" / "llff_fern" / "llff_fern_2.pth.tar").is_file()
 
 
 def test_run_test_metrics_in_process(synth_root, tmp_path):

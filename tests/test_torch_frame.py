@@ -130,12 +130,39 @@ def test_pack_od_layout():
     assert not od[6:].any()
 
 
-@pytest.mark.parametrize("bad", [dict(netWidth=128), dict(L_d=5),
-                                 dict(data_type="llff")])
+@pytest.mark.parametrize("bad", [dict(netWidth=128), dict(L_d=5)])
 def test_unsupported_configs_raise(bad):
     cfg = NerfConfig(device="cpu", **dict(KW, **bad))
     with pytest.raises(NotImplementedError):
         make_frame_renderer(cfg, H, W, np.eye(3), "cpu")
+
+
+@pytest.mark.parametrize("cull", ["none", "auto"])
+def test_llff_config_renders_ndc_rays(scene, cull):
+    """An LLFF config, once refused, renders through both renderers: the
+    frame is that of the NDC rays (``ndc_rays`` of the camera's rays, near
+    1), which a blender config given those rays as its camera's would not
+    see, so the two frames differ."""
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import _make_ray_gen
+    from nerf_pytorch_paeng_tpu_torch.ops.rays import get_rays, ndc_rays
+    _, model, K, poses = scene
+    kw = dict(KW, near=0.0, far=1.0, render_cull=cull)
+    cfg = NerfConfig(device="cpu", data_type="llff", **kw)
+    c2w = torch.from_numpy(poses[0])
+    o, d = get_rays(H, W, K, c2w[:3, :4])
+    want = ndc_rays(H, W, float(K[0, 0]), 1.0, o.reshape(-1, 3),
+                    d.reshape(-1, 3))
+    got = _make_ray_gen(cfg, H, W, K, torch.device("cpu"))(c2w)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    packed = pack_nerf(model, cfg)
+    rgb, disp = make_frame_renderer(cfg, H, W, K, "cpu",
+                                    stratified=False)(packed, c2w)
+    assert rgb.shape == (H, W, 3) and bool(torch.isfinite(rgb).all())
+    assert bool(torch.isfinite(disp).all())
+    world = make_frame_renderer(NerfConfig(device="cpu", **kw), H, W, K,
+                                "cpu", stratified=False)(packed, c2w)
+    assert not torch.equal(rgb, world[0])
 
 
 def test_coarse_only_frame_renders_through_the_plane_kernel(scene):
