@@ -132,6 +132,18 @@
    (poses_bounds.npy in place, no COLMAP): the loader's near/far, 5
    steps and one orbit frame.
 
+11. Plain-MLP route (``--use_pallas false``, no kernel on it): the lego
+   config at full width, 30 per-image steps (loss falls; median step,
+   idle share, peak memory beside the kernel route's step of this call),
+   ``--eval_only`` of one 800x800 view, the same view at ``perturb 0``
+   through the kernels and the plain route (>= 35 dB) and the plain route
+   with and without TF32 in its forward products (time, PSNR),
+   ``--render_only`` of 3 orbit views of the compact field through the
+   culled renderer's plain branches, and ``--netDepth 4 --netWidth 128
+   --L_x 0 --L_d 0`` (10 steps and a dense frame); every launch counter
+   stays 0 through the phase (the kernels' reference frame is rendered
+   before they are zeroed).
+
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -201,6 +213,16 @@ LLFF_SPIRAL = 120                 # load_llff's spiral: every view rendered
 CUSTOM_STEPS = 5
 # the library_ms of the forward kernels' rows (``products_ms``)
 PRODUCTS_ONLY = "its bf16 products alone as chained torch.mm at this row's points"
+ACTIVE_PRODUCTS_ONLY = ("its bf16 products alone as chained torch.mm at the "
+                        "gate's active points")
+WGRAD_ONLY = ("torch.mm(A.t(), G) per weight-gradient product, the products "
+              "alone, at this row's points")
+# the plain-MLP route (``--use_pallas false``): no kernel runs on it
+PLAIN_STEPS = 30
+PLAIN_RENDER_VIEWS = 3
+PLAIN_SHAPE = ("--netDepth", "4", "--netWidth", "128", "--L_x", "0",
+               "--L_d", "0")              # outside the kernels' domain
+PLAIN_SHAPE_STEPS = 10
 
 
 def log(*a):
@@ -442,6 +464,7 @@ def gated_kernel_phase(fm, packed, cfg, device):
         b_ms, b_by = bound(flop, nbytes)
         b_on_ms, _ = bound(flop_on, nbytes)
         share = float(on.float().mean())
+        lib_ms = products_ms(p, int(on.sum()), full=len(k_out) == 4)
         log(f"kernel {name}: N={BLOCK} S={s} gate on {share:.3f} of the "
             f"blocks: gated blocks 0, active blocks bit-equal to the "
             f"ungated kernel, vs plain max_abs={max_abs:.3e} "
@@ -449,13 +472,16 @@ def gated_kernel_phase(fm, packed, cfg, device):
             f"plain_ms={p_ms:.3f} bound_ms={b_ms:.3f} "
             f"({flop / k_ms / 1e9:.1f} TFLOP/s); all on (bit-equal to the "
             f"ungated kernel): ms={on_ms:.3f} "
-            f"bound_ms={b_on_ms:.3f} ({flop_on / on_ms / 1e9:.1f} TFLOP/s)")
+            f"bound_ms={b_on_ms:.3f} ({flop_on / on_ms / 1e9:.1f} TFLOP/s); "
+            f"its products alone as torch.mm over the {int(on.sum())} "
+            f"active points {lib_ms:.3f} ms")
         rows[name] = {
             "name": name, "route": "cuda",
             "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp.cu",
             "replaces": tpu_at, "launches": None,
             "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library": ACTIVE_PRODUCTS_ONLY,
             "gate_on_share": share, "all_on_ms": on_ms,
             "all_on_bound_ms": b_on_ms}
     return rows
@@ -891,6 +917,9 @@ def gated_train_kernel_phase(fm, fv, packed, cfg, device):
         per = fm.bwd_flop_per_sample(cfg.L_x, cfg.L_d)
         b_half, b_by = bound(per * int(on.sum()), bwd_bytes(fm, od, z,
                                                            gates["half"]))
+        k5_lib = products_ms(p, int(on.sum()), full=True)
+        k6_lib = wgrad_library_ms(device, fv.bwd_plan(n, s)["wgrad_jobs"],
+                                  int(on.sum()))
         b_on, _ = bound(per * s * n, bwd_bytes(fm, od, z, gates["on"]))
         log(f"kernel fused_mlp_eval_rays gated (float32 out): N={n} S={s} "
             f"gate on {share:.3f}: gated blocks 0, active blocks and an "
@@ -906,7 +935,9 @@ def gated_train_kernel_phase(fm, fv, packed, cfg, device):
             f"{zlimit:.3e} ({zat}) cos={zcos:.6f}; ms half {times['half']:.3f}"
             f" (bound {b_half:.3f}, plain {plain_ms:.3f}), all on "
             f"{times['on']:.3f} (bound {b_on:.3f}), all off "
-            f"{times['off']:.3f}")
+            f"{times['off']:.3f}; at the {int(on.sum())} active points K5's "
+            f"products alone as torch.mm {k5_lib:.3f} ms, K6's weight-"
+            f"gradient products as torch.mm {k6_lib:.3f} ms")
         shapes.append(dict(N=n, S=s, gate_on_share=share, k5_ms=k5_ms,
                            k5_all_on_ms=k5_on_ms, k5_plain_ms=k5_plain_ms,
                            k5_bound_ms=k5_b, k5_all_on_bound_ms=k5_b_on,
@@ -922,7 +953,8 @@ def gated_train_kernel_phase(fm, fv, packed, cfg, device):
             "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp.py:453",
             "launches": None, "max_abs_err": k5_abs, "ms": k5_ms,
             "plain_ms": k5_plain_ms, "bound_ms": k5_b, "bound_by": k5_by,
-            "library_ms": None, "gate_on_share": share,
+            "library_ms": k5_lib, "library": ACTIVE_PRODUCTS_ONLY,
+            "gate_on_share": share,
             "all_on_ms": k5_on_ms, "all_on_bound_ms": k5_b_on}
         rows["fused_mlp_bwd_rays_gated"] = {
             "name": "fused_mlp_bwd_rays_gated", "route": "cuda",
@@ -930,7 +962,9 @@ def gated_train_kernel_phase(fm, fv, packed, cfg, device):
             "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp_vjp.py:277",
             "launches": None, "max_abs_err": max_abs, "ms": times["half"],
             "plain_ms": plain_ms, "bound_ms": b_half, "bound_by": b_by,
-            "library_ms": None, "gate_on_share": share,
+            "library_ms": k6_lib, "library": WGRAD_ONLY.replace(
+                "this row's points", "the gate's active points"),
+            "gate_on_share": share,
             "all_on_ms": times["on"], "all_on_bound_ms": b_on,
             "all_off_ms": times["off"]}
     return rows, shapes
@@ -1826,6 +1860,9 @@ def plane_kernel_phase(fm, fv, packed, cfg, device):
         k9_b, k9_by = bound(fm.bwd_flop_per_point(cfg.L_x, cfg.L_d) * n_pts,
                             n_pts * (24 + 16) + wbytes
                             + (fm.W_TOTAL + fm.B_TOTAL) * 4)
+        # the same weight-gradient products as K2's at this shape
+        k9_lib = wgrad_library_ms(
+            device, fv.bwd_plan(TRAIN_RAYS, s)["wgrad_jobs"], n_pts)
         log(f"kernel fused_mlp_eval (float32 out): P={n_pts} ({TRAIN_RAYS} x "
             f"{s}) max_abs={k8_abs:.3e} rel_l2={k8_rel:.3e} ms={k8_ms:.3f} "
             f"plain_ms={k8_plain_ms:.3f} bound_ms={k8_b:.3f} "
@@ -1839,14 +1876,16 @@ def plane_kernel_phase(fm, fv, packed, cfg, device):
             f"launches bit-identical) ms={k9_ms:.3f} plain_ms="
             f"{k9_plain_ms:.3f} bound_ms={k9_b:.3f} "
             f"({fm.bwd_flop_per_point(cfg.L_x, cfg.L_d) * n_pts / k9_ms / 1e9:.1f}"
-            f" TFLOP/s of gradient products)")
+            f" TFLOP/s of gradient products); its weight-gradient products "
+            f"as torch.mm {k9_lib:.3f} ms")
         shapes.append(dict(N=TRAIN_RAYS, S=s, P=n_pts, k8_ms=k8_ms,
                            k8_plain_ms=k8_plain_ms, k8_bound_ms=k8_b,
                            k8_library_ms=k8_lib,
                            k8_max_abs=k8_abs, k9_ms=k9_ms,
                            k9_plain_ms=k9_plain_ms, k9_bound_ms=k9_b,
                            k9_rel_l2=rel, k9_rel_l2_limit=limit, k9_worst=at,
-                           k9_cos=cos, k9_max_abs=k9_abs))
+                           k9_cos=cos, k9_max_abs=k9_abs,
+                           k9_library_ms=k9_lib))
         rows["fused_mlp_eval_f32"] = {
             "name": "fused_mlp_eval_f32", "route": "cuda",
             "source": "nerf_pytorch_paeng_tpu_torch/kernels/csrc/fused_mlp.cu",
@@ -1860,7 +1899,7 @@ def plane_kernel_phase(fm, fv, packed, cfg, device):
             "replaces": "nerf_pytorch_paeng_tpu/kernels/fused_mlp_vjp.py:122",
             "launches": None, "max_abs_err": k9_abs, "ms": k9_ms,
             "plain_ms": k9_plain_ms, "bound_ms": k9_b, "bound_by": k9_by,
-            "library_ms": None, "points": n_pts}
+            "library_ms": k9_lib, "library": WGRAD_ONLY, "points": n_pts}
     return rows, shapes
 
 
@@ -2501,6 +2540,208 @@ def llff_phase(fm, fv, packed_rand, work: str, device):
     return paths, stats
 
 
+def plain_train_run(work, data_root, device, label: str, iters: int,
+                    *extra) -> dict:
+    """``main_worker`` for ``iters`` per-image lego steps with
+    ``--use_pallas false`` (and ``extra``): losses, step times (CUDA
+    events, median of steps 6..) and peak device memory."""
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.train.step import step_route
+    cfg = load_config(train_args(work, data_root, f"smoke_{label}", iters,
+                                 "--use_pallas", "false", "--idx_print",
+                                 "10", *extra))
+    check(step_route(cfg, cfg.N_rays) == "plain",
+          f"plain [{label}]: the config does not take the plain route")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = driver.main_worker(cfg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    losses = res["loss"]
+    check(len(losses) == iters and all(map(math.isfinite, losses)),
+          f"plain [{label}]: non-finite losses")
+    step_ms = [t * 1e3 for t in res["step_s"]]
+    out = dict(cfg=cfg, losses=losses, step_ms=step_ms,
+               median_step_ms=statistics.median(step_ms[5:]), wall_s=wall,
+               peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    log(f"plain [{label}]: {iters} steps; loss first {losses[0]:.5f} last "
+        f"{losses[-1]:.5f}; step device ms median of 6.. "
+        f"{out['median_step_ms']:.2f} (min {min(step_ms[5:]):.2f}, max "
+        f"{max(step_ms[5:]):.2f}); wall {wall:.1f} s; peak device memory "
+        f"{out['peak_gb']:.2f} GB")
+    return out
+
+
+def plain_eval_run(base: list, device, label: str) -> dict:
+    """``main_worker`` with ``--eval_only`` on ``base`` (one held-out view,
+    ``--use_pallas false``): its frame times and metrics."""
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    cfg = load_config(base + ["--eval_only", "true", "--use_pallas", "false",
+                              "--testskip", "3"])
+    t0 = time.perf_counter()
+    res = driver.main_worker(cfg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    check(len(res["psnr"]) == 1 and math.isfinite(res["psnr"][0])
+          and math.isfinite(res["ssim"][0]), f"plain {label}: test metrics")
+    frame_ms = [t * 1e3 for t in res["frame_s"]]
+    log(f"plain {label}: --eval_only, 1 view at 800x800, frame device ms "
+        f"{['%.1f' % t for t in frame_ms]} (CUDA events), wall {wall:.2f} s, "
+        f"PSNR {res['psnr'][0]:.3f} SSIM {res['ssim'][0]:.4f}")
+    return dict(frame_ms=frame_ms, wall_s=wall, psnr=res["psnr"],
+                ssim=res["ssim"])
+
+
+def plain_route_phase(fm, work: str, data_root: str, device, ray: dict):
+    """The plain-MLP route, which runs no kernel: configs/blender/lego.txt
+    at full width with ``--use_pallas false`` on the synthetic scene.
+    ``PLAIN_STEPS`` per-image steps (loss falls; median step, idle share
+    of one profiled step, peak memory, beside the kernel route's step of
+    this call, ``ray``), ``--eval_only`` of one 800x800 view through the
+    dense renderer, the same view at ``perturb 0`` through the kernels and
+    the plain route from the same weights and draws (>= 35 dB) and the
+    plain route with and without TF32 in its forward products (time and
+    PSNR), ``--render_only`` of ``PLAIN_RENDER_VIEWS`` orbit views of the
+    compact field through the culled renderer's plain branches, and the
+    non-reference shape ``PLAIN_SHAPE`` (``PLAIN_SHAPE_STEPS`` steps and one
+    dense frame).  The kernels' reference frame is rendered before the
+    counters are zeroed; from then on no kernel may launch."""
+    import dataclasses
+
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
+    from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import pack_nerf
+    from nerf_pytorch_paeng_tpu_torch.ops import render as ops_render
+    from nerf_pytorch_paeng_tpu_torch.train import create_train_state
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_image_train_step
+
+    base = ["--config", os.path.join(HERE, "configs/blender/lego.txt"),
+            "--testing_idx", "1", "--data_root", data_root,
+            "--log_dir", os.path.join(work, "logs")]
+    cfg = load_config(base + ["--perturb", "0", "--render_cull", "none"])
+    images, (K, ext), (H, W), i_split = load_blender(
+        data_root, cfg.bkg_white, cfg.downsample, cfg.testskip)
+    pose = torch.as_tensor(ext[i_split[2][0]][:3, :4])
+    model = driver.load_model(cfg, cfg.testing_idx, device)
+    seed = cfg.seed + cfg.testing_idx
+
+    def frame(c, what: str):
+        """One dense frame of the eval checkpoint's weights, the draws of
+        ``seed``: (ms by CUDA events, rgb)."""
+        render = make_frame_renderer(c, H, W, K, device)
+        check(render.route == ("plain" if what.startswith("plain")
+                               else "rays"), f"{what}: route {render.route}")
+        fields = pack_nerf(model, c, device=device)
+        gen = torch.Generator(device).manual_seed(seed)
+        ms, (rgb, disp) = cuda_ms(lambda: render(fields, pose, gen), reps=1,
+                                  warmup=0)
+        check(rgb.shape == (H, W, 3) and bool(torch.isfinite(rgb).all())
+              and bool(torch.isfinite(disp).all()), f"{what}: frame")
+        return ms, rgb
+
+    # the kernels' frame first: launches made to compare do not count
+    kern_ms, kern_rgb = frame(cfg, "kernels")
+    zero_launches()
+    out = {}
+
+    train = plain_train_run(work, data_root, device, "plain", PLAIN_STEPS,
+                            "--idx_save", "0")
+    losses = train.pop("losses")
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    check(last < first, f"plain loss did not fall: first 10 {first}, last "
+          f"10 {last}")
+    tcfg = train.pop("cfg")
+    i0 = int(i_split[0][0])
+    img = torch.as_tensor(images[i0], device=device)
+    tpose = torch.as_tensor(ext[i0][:3, :4], device=device)
+    st = create_train_state(tcfg, device)
+    step = make_image_train_step(tcfg, schedule_from_cfg(tcfg), H, W, K)
+    step(st, img, tpose)                         # warm-up
+    train["profile"] = profile_call(lambda: step(st, img, tpose),
+                                    "plain train step", device)
+    train.update(loss_first10=first, loss_last10=last,
+                 kernel_route_median_step_ms=ray["step_ms"],
+                 ratio_to_kernel_route=train["median_step_ms"] / ray["step_ms"])
+    log(f"plain train: median step {train['median_step_ms']:.2f} ms against "
+        f"the kernel route's {ray['step_ms']:.2f} in this call "
+        f"({train['ratio_to_kernel_route']:.2f}x); loss first 10 "
+        f"{first:.5f} -> last 10 {last:.5f}")
+    out["train"] = train
+
+    ev = plain_eval_run(base + ["--perturb", "0"], device, "eval")
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    frames = {}
+    for label, tf32 in (("plain_tf32", True), ("plain_fp32", False)):
+        ops_render.PLAIN_TF32_AT_BF16 = tf32
+        try:
+            frames[label] = frame(plain_cfg, label)
+        finally:
+            ops_render.PLAIN_TF32_AT_BF16 = True
+    p_kern = psnr(kern_rgb, frames["plain_tf32"][1])
+    p_fp32 = psnr(kern_rgb, frames["plain_fp32"][1])
+    p_ab = psnr(frames["plain_tf32"][1], frames["plain_fp32"][1])
+    log(f"plain eval: one 800x800 view at perturb 0, the same weights and "
+        f"draws: kernels {kern_ms:.1f} ms (the eval phase's frames "
+        f"{['%.1f' % t for t in ray['frame_ms']]}), plain with TF32 forward "
+        f"products {frames['plain_tf32'][0]:.1f} ms, plain in float32 "
+        f"{frames['plain_fp32'][0]:.1f} ms; PSNR kernels vs plain "
+        f"{p_kern:.2f} dB (min {FRAME_PSNR_MIN}; float32 products "
+        f"{p_fp32:.2f}), TF32 vs float32 products {p_ab:.2f} dB")
+    check(p_kern >= FRAME_PSNR_MIN, f"kernels vs plain frame {p_kern} dB")
+    out["eval"] = dict(**ev, kernels_frame_ms=kern_ms,
+                       kernel_route_frame_ms=ray["frame_ms"],
+                       plain_tf32_frame_ms=frames["plain_tf32"][0],
+                       plain_fp32_frame_ms=frames["plain_fp32"][0],
+                       kernels_vs_plain_psnr=p_kern,
+                       kernels_vs_plain_fp32_psnr=p_fp32,
+                       tf32_vs_fp32_psnr=p_ab)
+
+    rcfg = load_config(base + [
+        "--render_only", "true", "--use_pallas", "false", "--exp_name",
+        "smoke_render", "--n_angle", str(PLAIN_RENDER_VIEWS)])
+    t0 = time.perf_counter()
+    res = driver.main_worker(rcfg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    check(res["rgbs"].shape == (PLAIN_RENDER_VIEWS, H, W, 3)
+          and bool(np.isfinite(res["rgbs"]).all())
+          and bool(np.isfinite(res["disps"]).all()), "plain render frames")
+    stats = [dict(n_act=st["n_act"], blocks=st["blocks"],
+                  gated=st["gate_frac_coarse"] is not None
+                  or st["gate_frac_fine"] is not None)
+             for st in res["stats"]]
+    check(not any(st["gated"] for st in stats), "a plain frame was gated")
+    render_ms = [t * 1e3 for t in res["frame_s"]]
+    log(f"plain render: {PLAIN_RENDER_VIEWS} orbit views of the compact "
+        f"field, frame device ms {['%.1f' % t for t in render_ms]} (the "
+        f"kernel route's culled frames in this call "
+        f"{['%.1f' % t for t in ray['render_ms']]}); stats {stats}; wall "
+        f"{wall:.2f} s")
+    out["render"] = dict(frame_ms=render_ms, stats=stats, wall_s=wall,
+                         kernel_route_frame_ms=ray["render_ms"])
+
+    shape = plain_train_run(work, data_root, device, "plain_shape",
+                            PLAIN_SHAPE_STEPS, "--idx_save",
+                            str(PLAIN_SHAPE_STEPS), *PLAIN_SHAPE)
+    shape.pop("cfg")
+    shape_ev = plain_eval_run(
+        base[:2] + ["--testing_idx", str(PLAIN_SHAPE_STEPS)] + base[4:]
+        + ["--exp_name", "smoke_plain_shape", *PLAIN_SHAPE], device,
+        "shape eval")
+    out["shape"] = dict(args=list(PLAIN_SHAPE), train=shape, eval=shape_ev)
+
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"a kernel launched on the plain route: {launches}")
+    log(f"plain route: launches {launches} (none)")
+    return launches, out
+
+
 def ptxas_lines(text: str) -> list:
     """(kernel, line) for every register and spill line of a ``-Xptxas -v``
     log, each under the entry function it reports on: the ``*_kernel``
@@ -2594,6 +2835,11 @@ def main() -> int:
             fm, work, data_root, device,
             {"eval": stats["frame_ms"], "render": render_stats["frame_ms"]})
         llff_launches, llff_stats = llff_phase(fm, fv, packed, work, device)
+        plain_launches, plain_stats = plain_route_phase(
+            fm, work, data_root, device,
+            {"step_ms": train_stats["median_step_ms"],
+             "frame_ms": stats["frame_ms"],
+             "render_ms": render_stats["frame_ms"]})
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each path's own run, counters at 0 before it: K3 and K1 on the eval
@@ -2617,6 +2863,7 @@ def main() -> int:
         check(row["launches"] > 0, f"{name} never launched on a main path")
         row["launches_llff_custom"] = sum(paths[p][name]
                                           for p in llff_launches)
+        row["launches_plain_route"] = plain_launches[name]
     # K1, K2 and K3: the worst of the kernel phase and the LLFF path's own
     # NDC inputs
     for where, recs in llff_stats["path_kernels"].items():
@@ -2651,6 +2898,8 @@ def main() -> int:
     log(json.dumps({"plane_frames": {
         **plane_frame_stats, "launches": plane_frame_launches}}))
     log(json.dumps({"llff": {**llff_stats, "launches": llff_launches}}))
+    log(json.dumps({"plain_route": {**plain_stats,
+                                    "launches": plain_launches}}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     print(json.dumps({"ok": True, "device": {

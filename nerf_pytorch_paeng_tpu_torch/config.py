@@ -5,13 +5,16 @@ the same dialect (inline ``#`` comments, bare action flags such as
 ``bkg_white_true``, bracketed lists) and every option under the same name,
 so one config file drives both packages.  Of the JAX package's additions it
 keeps those the ported slices read (``seed``, ``eval_only``, ``render_only``,
-``compute_dtype``, ``log_dir``, ``lpips_weights``, ``use_rays_train``, the
-seven knobs of the culled frame renderer, ``render_cull`` ...
-``render_gate_fine``, and the five of occupancy-gated training,
-``train_precull`` ... ``train_precull_backoff_max``) and adds one knob,
-``device``.  The JAX package's other TPU knobs (``use_pallas``, sharding,
-``scan_chunk``, ...) are not fields here: a config file or command line
-that sets one fails instead of being ignored.
+``compute_dtype``, ``log_dir``, ``lpips_weights``, ``use_pallas``,
+``use_rays_train``, the seven knobs of the culled frame renderer,
+``render_cull`` ... ``render_gate_fine``, and the five of occupancy-gated
+training, ``train_precull`` ... ``train_precull_backoff_max``) and adds one
+knob, ``device``.  ``use_pallas`` keeps the JAX package's name, default and
+parsing; here it means "run the hand-written CUDA kernels where the
+architecture allows" (off: the plain-MLP route, ``ops/render.py``).  The
+JAX package's other TPU knobs (sharding, ``scan_chunk``, ``profile``,
+``check_nans``, ``compile_cache``) are not fields here: a config file or
+command line that sets one fails instead of being ignored.
 """
 from __future__ import annotations
 
@@ -107,6 +110,10 @@ class NerfConfig:
     compute_dtype: str = "bfloat16"
     log_dir: str = ""             # defaults to <repo>/logs
     lpips_weights: str = ""       # VGG16 weights .npz for LPIPS ("" = nan)
+    # the fused CUDA kernels for the reference architecture (8x256,
+    # 1<=L_x<=10, 1<=L_d<=4); off, or for other architectures, the plain
+    # MLP (NeRFMLP.forward under autograd) renders and trains
+    use_pallas: bool = True
     # train on the ray-major kernel pair (K1/K2, positions built in the
     # kernel) where its shapes apply; off, or for other shapes, on the
     # plane pair (K8/K9)

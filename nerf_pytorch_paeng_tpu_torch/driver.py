@@ -13,9 +13,11 @@ training (``train_precull``) with its refresh policy.  Checkpoints are the
 reference format, ``logs/<exp>/<exp>_<step>.pth.tar``
 (``train/checkpoint.py``).  With ``eval_only`` and/or ``render_only`` it
 restores the weights saved at ``testing_idx``, packs them once for the
-fused kernels and runs the held-out-view evaluation and/or the novel-view
-render.  LLFF rays are projected into NDC inside the train steps and the
-frame renderers, never in the ray pool.
+fused kernels (on the plain route hands the renderers the modules) and
+runs the held-out-view evaluation and/or the novel-view render.  It prints
+the field route once: the fused kernels, or the plain MLP and why.  LLFF
+rays are projected into NDC inside the train steps and the frame
+renderers, never in the ray pool.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from .eval.test import run_test
 from .kernels.fused_mlp import pack_nerf
 from .models.nerf import NeRF
 from .ops.rays import get_rays
+from .ops.render import plain_route_reason
 from .train import RayPool, build_ray_pool, create_train_state
 from .train import checkpoint as ckpt
 from .train.precull import (make_gate_frac_estimator,
@@ -233,8 +236,9 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
               f"{cfg.train_precull_every} iters)")
     elif train_precull_mode(cfg) == "on":
         print(">> train_precull requested but inapplicable here (needs "
-              "blender data, the ray-major kernel pair (use_rays_train and "
-              "its shapes) and a usable support grid) — running ungated")
+              "blender data, the ray-major kernel pair (the kernels' domain, "
+              "use_rays_train and its shapes) and a usable support grid) — "
+              "running ungated")
 
     logger = MetricLogger(cfg.logdir, cfg.exp_name,
                           fresh=(cfg.iter_start == 0))
@@ -308,6 +312,9 @@ def main_worker(cfg: NerfConfig) -> dict:
     render_poses = _llff_render_poses_34(render_poses)
     print(f">> dataset loaded: images {images.shape}, hw {hw}, "
           f"train/val/test {'/'.join(str(len(i)) for i in i_split)}")
+    reason = plain_route_reason(cfg)
+    print(f">> field route: {'fused kernels' if reason is None else 'plain'}"
+          + (f" ({reason})" if reason else ""))
     if cfg.eval_only or cfg.render_only:
         i_test = i_split[2]
         model = load_model(cfg, cfg.testing_idx, device)

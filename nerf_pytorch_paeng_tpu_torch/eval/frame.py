@@ -60,6 +60,18 @@ is needed, K8 (``fused_mlp_eval``, or ``plane_fn``) as the field.  The
 pre-cull and gate-fine gate the ray kernels, so they are off there
 (``render_precull auto`` is off there in the JAX package too).
 
+**The plain route.**  Outside the kernels' domain
+(``ops/render.plain_route_reason``: ``use_pallas`` off, or an architecture
+other than 8x256 with 1 <= L_x <= 10 and 1 <= L_d <= 4) both renderers run
+the plain MLP (``ops/render.plain_field_fn``, float32 logits) on the plane
+layout, as the JAX package's XLA route does: the dense renderer the full
+coarse field (no density-only function) and the fine pass; the culled one
+the coarse field's sigma row in phase 1 (all-ones directions, as the
+JAX package feeds: sigma does not read them) and ``hierarchical_fine_pass`` in phase 2, with no
+pre-cull and no gate-fine.  ``pack_nerf`` hands such a renderer the two
+modules in place of packed weights.  ``renderer.route`` is "rays",
+"planes" or "plain".
+
 Each culled frame appends ``{"n_act", "blocks", "gate_frac_coarse",
 "gate_frac_fine"}`` to ``renderer.stats`` (the gate fractions are the
 skipped share of (tile, row) blocks, 0-dim device tensors, or None where
@@ -84,10 +96,10 @@ from ..ops.occupancy import support_bounds_from_sigma
 from ..ops.rays import get_rays
 from ..ops.render import (GATE_ROWS, hierarchical_fine_pass,
                           hierarchical_z_vals, make_field_fns, make_sigma_fn,
-                          maybe_ndc, pack_od, position_plane,
-                          render_rays_from_cfg, span_sort, tile_row_gate,
-                          train_support_intervals, truncation_bounds,
-                          truncation_window)
+                          maybe_ndc, pack_od, plain_field_fn, position_plane,
+                          render_rays_from_cfg, span_sort, supports_kernels,
+                          tile_row_gate, train_support_intervals,
+                          truncation_bounds, truncation_window)
 from ..ops.sampling import stratified_z_vals
 from ..ops.volume import (_disp_from, volume_render_rays_t,
                           weights_from_sigma, weights_from_sigma_t)
@@ -95,16 +107,6 @@ from ..ops.volume import (_disp_from, volume_render_rays_t,
 DEFAULT_BLOCK = 131072
 PRECULL_GRID = 128     # the support grid's cells per axis on the card
 _OFF = ("off", "false", "f", "no", "n", "0")
-
-
-def _check_supported(cfg) -> None:
-    """The fused kernels take the reference architecture."""
-    if not (cfg.netDepth == 8 and cfg.netWidth == 256
-            and 1 <= cfg.L_x <= 10 and 1 <= cfg.L_d <= 4):
-        raise NotImplementedError(
-            "the port renders the 8x256 reference MLP (1<=L_x<=10, "
-            f"1<=L_d<=4) only; got {cfg.netDepth}x{cfg.netWidth}, "
-            f"L_x={cfg.L_x}, L_d={cfg.L_d}")
 
 
 def make_frame_renderer(cfg, H: int, W: int, K, device,
@@ -115,18 +117,19 @@ def make_frame_renderer(cfg, H: int, W: int, K, device,
                         points_fn: Callable = fused_mlp_sigma,
                         plane_fn: Callable = fused_mlp_eval):
     """Returns ``render(packed, c2w, generator=None) -> (rgb [H,W,3],
-    disp [H,W])`` for packed weights from ``kernels.fused_mlp.pack_nerf``:
-    the culled renderer for ``cfg.render_cull == "auto"`` with a fine
-    pass, else the dense one.
+    disp [H,W])`` for the fields from ``kernels.fused_mlp.pack_nerf``
+    (packed weights, or on the plain route the two modules): the culled
+    renderer for ``cfg.render_cull == "auto"`` with a fine pass, else the
+    dense one.
 
     ``sigma_fn`` / ``field_fn`` / ``points_fn`` / ``plane_fn`` default to
     the kernel wrappers; passing the plain versions renders the same frame
     without the kernels.  The kernels emit bf16 logits, as on the JAX
     package's frame path.  The ray block is ``block_rays``, else
-    ``cfg.chunk_rays``, else min(131072, H*W).  ``render.rays_route`` says
-    whether the frame runs the ray kernels (K3/K4, K1/K5) or the plane
-    layout (K7 for the coarse density, K8)."""
-    _check_supported(cfg)
+    ``cfg.chunk_rays``, else min(131072, H*W).  ``render.route`` says
+    whether the frame runs the ray kernels ("rays": K3/K4, K1/K5), the
+    plane layout ("planes": K7 for the coarse density, K8) or the plain
+    MLP ("plain"); ``render.rays_route`` is ``route == "rays"``."""
     device = torch.device(device)
     block = int(block_rays or cfg.chunk_rays or min(DEFAULT_BLOCK, H * W))
     if cfg.render_cull == "auto" and cfg.N_samples_f > 0:
@@ -154,21 +157,55 @@ def _make_ray_gen(cfg, H, W, K, device):
     return gen_rays
 
 
+def _frame_route(cfg, use_rays: bool) -> str:
+    """"plain" outside the kernels' domain, else "rays" or "planes"."""
+    if not supports_kernels(cfg):
+        return "plain"
+    return "rays" if use_rays else "planes"
+
+
+def _check_fields(packed, route: str) -> None:
+    """The fields a renderer was given must be its route's: the plain
+    route's modules or packed weights, never the one for the other (no
+    route hands over to another)."""
+    if (packed.get("route") == "plain") != (route == "plain"):
+        raise ValueError(
+            f"a {route!r} renderer was given "
+            f"{'modules' if packed.get('route') == 'plain' else 'packed weights'}"
+            "; build both from the same config (kernels.fused_mlp.pack_nerf)")
+
+
+def _plane_fields(packed, cfg, route: str, plane_fn, points_fn):
+    """(coarse field, fine field, coarse density ``xplane -> sigma [P]``)
+    of the plane layout: the plane kernel (K8) with K7 as the density, or
+    on the plain route the plain MLP with the coarse field's sigma row
+    (all-ones directions, as the JAX package feeds: sigma does not read
+    them)."""
+    if route == "plain":
+        coarse = plain_field_fn(packed["coarse"], cfg)
+        fine = plain_field_fn(packed["fine"], cfg)
+        return coarse, fine, lambda xp: coarse(xp, torch.ones_like(xp))[3]
+    coarse, fine = make_field_fns(packed["coarse"], packed["fine"], cfg,
+                                  plane_fn)
+    return coarse, fine, make_sigma_fn(packed["coarse"], cfg, points_fn)
+
+
 def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
                                sigma_fn, field_fn, points_fn, plane_fn):
     n_total = H * W
     n_coarse, n_fine = cfg.N_samples_c, cfg.N_samples_f
     near, far, perturb = float(cfg.near), float(cfg.far), float(cfg.perturb)
-    use_rays = _use_rays_kernels(cfg) and n_fine > 0
+    route = _frame_route(cfg, _use_rays_kernels(cfg) and n_fine > 0)
     gen_rays = _make_ray_gen(cfg, H, W, K, device)
 
     def render_block_planes(packed, rays_o, rays_d, generator):
         """The JAX package's plane route: K7 as the coarse density (with a
-        fine pass), K8 as the field."""
-        coarse, fine = make_field_fns(packed["coarse"], packed["fine"], cfg,
-                                      plane_fn)
-        sigma = (make_sigma_fn(packed["coarse"], cfg, points_fn)
-                 if n_fine > 0 else None)
+        fine pass), K8 as the field; on the plain route the plain MLP and
+        the full coarse field, as its XLA route."""
+        coarse, fine, sigma = _plane_fields(packed, cfg, route, plane_fn,
+                                            points_fn)
+        if route == "plain" or n_fine <= 0:
+            sigma = None
         out = render_rays_from_cfg(coarse, fine, rays_o, rays_d, cfg,
                                    stratified=stratified,
                                    coarse_sigma_fn=sigma, generator=generator)
@@ -177,7 +214,7 @@ def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
         return out.rgb_c, out.disp_c
 
     def render_block(packed, rays_o, rays_d, generator):
-        if not use_rays:
+        if route != "rays":
             return render_block_planes(packed, rays_o, rays_d, generator)
         m = rays_o.shape[0]
         z_vals = stratified_z_vals(m, near, far, n_coarse,
@@ -197,6 +234,7 @@ def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
 
     @torch.no_grad()
     def render(packed, c2w, generator: Optional[torch.Generator] = None):
+        _check_fields(packed, route)
         rays_o, rays_d = gen_rays(c2w)
         parts = [render_block(packed, rays_o[i:i + block],
                               rays_d[i:i + block], generator)
@@ -206,8 +244,11 @@ def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
         return rgb, disp
 
     render.block = block
-    render.launches_per_frame = -(-n_total // block)   # per kernel
-    render.rays_route = use_rays
+    # per kernel; the plain route launches none
+    render.launches_per_frame = (0 if route == "plain"
+                                 else -(-n_total // block))
+    render.route = route
+    render.rays_route = route == "rays"
     return render
 
 
@@ -225,9 +266,10 @@ def _trunc_classes(s_full: int, n_fine: int, trunc_eps: float):
 
 
 def _use_rays_kernels(cfg) -> bool:
-    """Sample counts the gated kernels take: whole 8-sample rows in both
-    passes (the JAX package's ``_use_rays_kernels``)."""
-    return (cfg.N_samples_c % GATE_ROWS == 0
+    """The ray kernels: the kernels' domain and sample counts in whole
+    8-sample rows in both passes (the JAX package's
+    ``_use_rays_kernels``)."""
+    return (supports_kernels(cfg) and cfg.N_samples_c % GATE_ROWS == 0
             and (cfg.N_samples_c + cfg.N_samples_f) % GATE_ROWS == 0)
 
 
@@ -240,17 +282,17 @@ def _precull_grid(cfg, device: torch.device) -> int:
 
 def _use_precull(cfg, device: torch.device) -> bool:
     """Coarse pre-cull: blender (origin-centred) scenes with a usable grid,
-    on the gated kernels' shapes."""
+    on the ray kernels."""
     return (str(cfg.render_precull).lower() not in _OFF
             and _use_rays_kernels(cfg) and cfg.data_type == "blender"
             and _precull_grid(cfg, device) > 0)
 
 
 def _use_gate_fine(cfg, device: torch.device) -> bool:
-    """Fine-pass gating by the fine module's own bounds; the caller checks
-    the kernels' shapes."""
+    """Fine-pass gating by the fine module's own bounds: blender scenes
+    with a usable grid, on the ray kernels."""
     return (str(cfg.render_gate_fine).lower() not in _OFF
-            and cfg.data_type == "blender"
+            and _use_rays_kernels(cfg) and cfg.data_type == "blender"
             and _precull_grid(cfg, device) > 0)
 
 
@@ -385,10 +427,12 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
     s_full = n_coarse + n_fine
     s_classes = _trunc_classes(s_full, n_fine, trunc_eps)
     # the plane route (sample counts off the 8-sample rows): K7 on the
-    # coarse positions in phase 1, K8 in phase 2, no gates
-    use_rays = _use_rays_kernels(cfg)
+    # coarse positions in phase 1, K8 in phase 2, no gates; the plain
+    # route the same with the plain MLP
+    route = _frame_route(cfg, _use_rays_kernels(cfg))
+    use_rays = route == "rays"
     use_precull = _use_precull(cfg, device)
-    use_gate_fine = _use_gate_fine(cfg, device) and use_rays
+    use_gate_fine = _use_gate_fine(cfg, device)
     half = _precull_half(cfg)
     gen_rays = _make_ray_gen(cfg, H, W, K, device)
     sizes = [sz for sz in (block, block // 2, block // 4, block // 8)
@@ -415,8 +459,8 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
     def fine_block(packed, rays_o, rays_d, z_vals, weights, s_keep, fb,
                    generator):
         if not use_rays:
-            _, fine = make_field_fns(packed["coarse"], packed["fine"], cfg,
-                                     plane_fn)
+            _, fine, _ = _plane_fields(packed, cfg, route, plane_fn,
+                                       points_fn)
             out = hierarchical_fine_pass(
                 fine, rays_o, rays_d, z_vals, weights, n_fine=n_fine,
                 perturb=perturb, n_keep=s_keep, trunc_eps=trunc_eps,
@@ -456,6 +500,7 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
 
     @torch.no_grad()
     def render(packed, c2w, generator: Optional[torch.Generator] = None):
+        _check_fields(packed, route)
         rays_o, rays_d = gen_rays(c2w)
         pc = module_bounds(packed, "coarse") if use_precull else None
         fb = module_bounds(packed, "fine") if use_gate_fine else None
@@ -466,8 +511,9 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
                                    device=device)
         gate_c = None
         if not use_rays:
-            sigma = make_sigma_fn(packed["coarse"], cfg, points_fn)(
-                position_plane(rays_o, rays_d, z_vals))
+            *_, coarse_sigma = _plane_fields(packed, cfg, route, plane_fn,
+                                             points_fn)
+            sigma = coarse_sigma(position_plane(rays_o, rays_d, z_vals))
             weights = weights_from_sigma(sigma.reshape(n_total, n_coarse),
                                          z_vals, rays_d)
         elif pc is not None:
@@ -509,5 +555,6 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
     render.block = block
     render.sizes = sizes
     render.stats = stats
+    render.route = route
     render.rays_route = use_rays
     return render

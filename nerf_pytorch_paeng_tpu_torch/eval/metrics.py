@@ -4,7 +4,9 @@ SSIM is the counterpart of the JAX package's ``eval/metrics.compute_ssim``:
 11x11 Gaussian window (sigma 1.5), C1=(0.01)^2, C2=(0.03)^2 on [0,1]
 images, valid padding, channel mean, with the IQA_pytorch convention of a
 relu'd contrast-structure term.  It runs in float64 on the images' device,
-so no TF32 convolution path can round it.
+so no TF32 convolution path can round it.  A frame narrower or lower than
+the window has an empty valid map, whose mean is nan, as in the JAX
+package.
 
 LPIPS(VGG16) needs pretrained weights that are not in the repository:
 without ``cfg.lpips_weights`` it is reported as nan, as the JAX package
@@ -40,6 +42,9 @@ def ssim_tensor(pred: torch.Tensor, gt: torch.Tensor, size: int = 11,
     that it can be queued on the card without waiting for it."""
     pred = torch.as_tensor(pred).to(torch.float64)
     gt = torch.as_tensor(gt).to(device=pred.device, dtype=torch.float64)
+    if pred.shape[0] < size or pred.shape[1] < size:
+        # VALID filtering leaves no window: the mean of nothing
+        return torch.tensor(math.nan, dtype=torch.float64, device=pred.device)
     ch = pred.shape[-1]
     kernel = _gaussian_window(size, sigma, torch.float64, pred.device)
     kernel = kernel.expand(ch, 1, size, size)

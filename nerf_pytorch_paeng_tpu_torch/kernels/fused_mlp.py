@@ -49,6 +49,7 @@ launches (K4, K5) apart, in ``<wrapper>.gated_launches``.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import functools
 from typing import Dict, Optional, Tuple
@@ -57,7 +58,7 @@ import numpy as np
 import torch
 
 from ..ops.posenc import build_emb
-from ..ops.render import GATE_ROWS, GATE_TILE
+from ..ops.render import GATE_ROWS, GATE_TILE, supports_kernels
 
 EMBX_ROWS = 64   # kernel embedding rows for positions (63 used at L_x=10)
 EMBD_ROWS = 32   # ... for view directions (27 used at L_d=4)
@@ -264,10 +265,17 @@ def kernel_weight_dtype(compute_dtype: str, device) -> torch.dtype:
 
 
 def pack_nerf(model, cfg, device=None) -> Dict[str, Dict]:
-    """Both MLPs of a ``NeRF`` packed once, for a whole evaluation run, in
-    ``kernel_weight_dtype`` for the device they are packed onto."""
+    """Both MLPs of a ``NeRF`` prepared once, for a whole evaluation run,
+    for the frame renderers: inside the kernels' domain packed in
+    ``kernel_weight_dtype`` for the device they are packed onto; on the
+    plain route (``ops/render.plain_route_reason``) a copy of the two
+    modules on that device, tagged ``"route": "plain"``."""
     if device is None:
         device = next(model.parameters()).device
+    if not supports_kernels(cfg):
+        return {"route": "plain",
+                "coarse": copy.deepcopy(model.model_coarse).to(device),
+                "fine": copy.deepcopy(model.model_fine).to(device)}
     dtype = kernel_weight_dtype(cfg.compute_dtype, device)
     return {
         "coarse": pack_nerf_mlp_params(model.model_coarse, cfg.L_x, cfg.L_d,

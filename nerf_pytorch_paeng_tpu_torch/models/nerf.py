@@ -11,8 +11,10 @@ its order, so ``NeRF.state_dict()`` is the reference ``model_state_dict``.
 
 ``forward`` is the plain MLP; ``compute_dtype`` rounds every matmul operand
 to that type and accumulates in float32, as the JAX package's
-``ShardedDense`` does.  Rendering goes through the fused kernels
-(``kernels/fused_mlp.py``) on weights packed from this module.
+``ShardedDense`` does.  Inside the fused kernels' domain rendering and
+training go through the kernels (``kernels/fused_mlp.py``) on weights
+packed from this module; outside it (``ops/render.plain_route_reason``)
+through ``forward`` itself, any depth and width.
 """
 from __future__ import annotations
 

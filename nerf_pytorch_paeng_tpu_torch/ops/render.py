@@ -6,21 +6,26 @@ occupancy-gated passes (``train_support_intervals``, ``train_gate_tile``,
 ``train_gate_plan``, ``_gated_train_pass``), ``render_rays``,
 ``render_rays_from_cfg``, ``hierarchical_fine_pass`` and their field
 functions, ``maybe_ndc``, ``span_sort``, ``tile_row_gate``, ``truncation_bounds`` and
-``truncation_window``).
+``truncation_window``), and the plain-MLP route (``plain_route_reason``,
+``supports_kernels``, ``chunked_apply``, ``make_plain_field_fns``: the
+JAX package's ``_supports_pallas`` and ``make_xla_field_fns``).
 
 The plane layout: positions and unit view directions as [3, P] planes,
 flattened ray-major (point n * S + s), through field functions
 ``(xplane, dplane) -> raw [4, P]`` (rows r, g, b, sigma) and compositing
 over [4, N, S].  The JAX package takes it where the ray-major kernels'
 shapes do not apply; so does the port (``train/step.py``,
-``eval/frame.py``)."""
+``eval/frame.py``).  The plain route's field functions take the same
+planes, so it renders through the same compositing."""
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from .occupancy import ray_support_interval, segment_in_cube
+from .posenc import positional_encoding
 from .rays import ndc_rays
 from .sampling import sample_pdf, stratified_z_vals
 from .volume import (volume_render_planar, volume_render_rays_t,
@@ -71,11 +76,36 @@ def _train_rays_tile(m: int) -> Optional[int]:
     return next(t for t in (2048, 1024, 512, 256, 128) if m % t == 0)
 
 
+def plain_route_reason(cfg) -> Optional[str]:
+    """Why ``cfg`` takes the plain-MLP route, or None inside the fused
+    kernels' domain: ``use_pallas`` on, the 8x256 MLP, 1 <= L_x <= 10 and
+    1 <= L_d <= 4 (the kernels always embed one sin/cos band, so L = 0
+    takes the plain route).  The JAX package's ``_supports_pallas``; it
+    reads the config alone, never whether a kernel built or launched."""
+    if not cfg.use_pallas:
+        return "use_pallas false"
+    if cfg.netDepth != 8:
+        return f"netDepth {cfg.netDepth} != 8"
+    if cfg.netWidth != 256:
+        return f"netWidth {cfg.netWidth} != 256"
+    if not 1 <= cfg.L_x <= 10:
+        return f"L_x {cfg.L_x} outside 1..10"
+    if not 1 <= cfg.L_d <= 4:
+        return f"L_d {cfg.L_d} outside 1..4"
+    return None
+
+
+def supports_kernels(cfg) -> bool:
+    """The fused kernels' domain (``plain_route_reason`` is None)."""
+    return plain_route_reason(cfg) is None
+
+
 def supports_train_rays_kernels(cfg, n_rays: int) -> bool:
-    """Shapes the ray-major training pair takes: a multiple of 128 rays and
-    sample counts (coarse, merged) that are multiples of 8."""
+    """Where the ray-major training pair runs: inside the kernels' domain,
+    a multiple of 128 rays and sample counts (coarse, merged) that are
+    multiples of 8."""
     s_merged = cfg.N_samples_c + cfg.N_samples_f
-    return (cfg.N_samples_c % 8 == 0
+    return (supports_kernels(cfg) and cfg.N_samples_c % 8 == 0
             and (cfg.N_samples_f == 0 or s_merged % 8 == 0)
             and _train_rays_tile(n_rays) is not None)
 
@@ -184,10 +214,12 @@ def render_rays_train(model, rays_o: torch.Tensor, rays_d: torch.Tensor,
     n = rays_o.shape[0]
     assert supports_train_rays_kernels(cfg, n), (
         f"N_rays={n}, N_samples_c={cfg.N_samples_c}, "
-        f"N_samples_f={cfg.N_samples_f}: the ray-major training kernels take "
-        "a multiple of 128 rays and sample counts that are multiples of 8; "
-        "other shapes train on the plane layout (render_rays_from_cfg with "
-        "make_train_field_fns)")
+        f"N_samples_f={cfg.N_samples_f}, route "
+        f"{plain_route_reason(cfg) or 'kernels'}: the ray-major training "
+        "kernels take the kernels' domain, a multiple of 128 rays and sample "
+        "counts that are multiples of 8; other shapes train on the plane "
+        "layout (render_rays_from_cfg with make_train_field_fns), other "
+        "architectures on the plain route (make_plain_field_fns)")
     wdt = kernel_weight_dtype(cfg.compute_dtype, rays_o.device)
     near, far = float(cfg.near), float(cfg.far)
     od = pack_od(rays_o, rays_d)
@@ -280,6 +312,79 @@ def make_sigma_fn(packed_coarse, cfg, points_fn: Optional[Callable] = None
     points_fn = points_fn or fused_mlp_sigma
     return lambda xplane: points_fn(xplane, packed_coarse, L_x=cfg.L_x,
                                     out_dtype=torch.bfloat16)
+
+
+# ------------------------------------------------------- the plain route
+
+# At bf16 compute ``models/nerf._linear`` multiplies bf16-rounded operands
+# held in float32: each is exact in TF32's 10-bit mantissa, so TF32 tensor
+# cores give the float32 products (float32 sums, in another order).  The
+# plain route allows TF32 around its forward products on the card at bf16
+# only; float32 compute stays true float32, and the backward's products
+# (float32 cotangents, which TF32 would round) run outside the scope.  A
+# switch for the A/B reading of chip_smoke.py, read at each call.
+PLAIN_TF32_AT_BF16 = True
+
+
+@contextlib.contextmanager
+def _tf32_products(on: bool):
+    """Allow TF32 in CUDA float32 matmuls inside the block, then restore
+    the flag as it was."""
+    if not on:
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def chunked_apply(fn: Callable[[torch.Tensor], torch.Tensor],
+                  x: torch.Tensor, chunk_pts: int) -> torch.Tensor:
+    """``fn`` over row chunks of ``x`` of at most ``chunk_pts`` rows, the
+    results concatenated (``chunk_pts <= 0``: one call).  Bounds the
+    activations' memory; the JAX package's ``chunked_apply`` without its
+    equal-size padding (a TPU layout)."""
+    n = x.shape[0]
+    if chunk_pts <= 0 or n <= chunk_pts:
+        return fn(x)
+    return torch.cat([fn(x[i:i + chunk_pts]) for i in range(0, n, chunk_pts)])
+
+
+def plain_field_fn(mlp, cfg) -> Callable:
+    """One ``NeRFMLP`` as a field function ``(xplane [3, P], dplane [3, P])
+    -> raw [4, P]`` float32 on the plain route: the reference positional
+    encoding (L = 0 gives the coordinates), then ``mlp.forward`` at
+    ``cfg.compute_dtype``, over ``cfg.chunk_pts``-point chunks.  The
+    encoding runs inside each chunk (elementwise, so the same values as the
+    JAX package's encoding of the whole plane).  Differentiable: under
+    autograd ``loss.backward()`` reaches the module."""
+    cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    L_x, L_d, chunk = int(cfg.L_x), int(cfg.L_d), int(cfg.chunk_pts)
+
+    def apply(xd):                                      # [p, 6] -> [p, 4]
+        emb = torch.cat([positional_encoding(xd[:, :3], L_x),
+                         positional_encoding(xd[:, 3:], L_d)], -1)
+        return mlp(emb, cdt)
+
+    def fn(xplane, dplane):
+        tf32 = (cdt == torch.bfloat16 and xplane.is_cuda
+                and PLAIN_TF32_AT_BF16)
+        with _tf32_products(tf32):
+            return chunked_apply(apply, torch.cat([xplane, dplane]).T,
+                                 chunk).T
+    return fn
+
+
+def make_plain_field_fns(model, cfg) -> Tuple[Callable, Callable]:
+    """The plain route's field functions of a ``NeRF``'s two modules
+    (``plain_field_fn``); the counterpart of the JAX package's
+    ``make_xla_field_fns``.  No kernel runs on this route, as none runs on
+    the JAX package's XLA route."""
+    return (plain_field_fn(model.model_coarse, cfg),
+            plain_field_fn(model.model_fine, cfg))
 
 
 def position_plane(rays_o: torch.Tensor, rays_d: torch.Tensor,

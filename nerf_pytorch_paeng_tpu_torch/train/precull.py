@@ -45,19 +45,18 @@ def train_precull_mode(cfg) -> str:
 
 def train_precull_enabled(cfg, n_rays: int = 0) -> bool:
     """Gating applies where the gated kernels run: blender (origin-centred)
-    scenes, the reference MLP on the ray-major kernel pair (``use_rays_train``
-    and its shapes; the plane route trains ungated), and a usable support
-    grid (on the CPU only with an explicit ``render_precull_grid``: there
-    the grid runs the plain MLP).  There is no device mesh here: the JAX
-    package's data-only-mesh condition is the single device."""
+    scenes, the ray-major kernel pair (the kernels' domain, ``use_pallas``
+    included, ``use_rays_train`` and its shapes; the plane and plain routes
+    train ungated), and a usable support grid (on the CPU only with an
+    explicit ``render_precull_grid``: there the grid runs the plain
+    versions).  There is no device mesh here: the JAX package's
+    data-only-mesh condition is the single device."""
     from ..eval.frame import _precull_grid
     from ..ops.render import supports_train_rays_kernels
 
     n = n_rays or cfg.N_rays
     return bool(train_precull_mode(cfg) != "off"
                 and cfg.data_type == "blender"
-                and cfg.netDepth == 8 and cfg.netWidth == 256
-                and 1 <= cfg.L_x <= 10 and 1 <= cfg.L_d <= 4
                 and cfg.use_rays_train
                 and supports_train_rays_kernels(cfg, n)
                 and _precull_grid(cfg, torch.device(cfg.device)) > 0)

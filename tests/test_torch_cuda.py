@@ -918,3 +918,113 @@ def test_llff_frame_ragged_tail_kernels_vs_plain(dev, tmp_path):
                     fm.fused_mlp_eval_rays_plain(od, z, packed["fine"],
                                                  out_dtype=torch.bfloat16)):
                 _close(a, b)
+
+
+# ---------------------------------------------------- the plain-MLP route
+
+PLAIN_SHAPES = {"a": dict(netDepth=4, netWidth=64, L_x=0, L_d=0),
+                "c": dict(netDepth=8, netWidth=256, L_x=10, L_d=4)}
+
+
+def _all_launches():
+    """Every kernel wrapper's launch counters, in one tuple."""
+    return tuple(getattr(fn, attr) for fn in (
+        fm.fused_mlp_sigma_rays, fm.fused_mlp_eval_rays, fm.fused_mlp_sigma,
+        fm.fused_mlp_eval, fv.fused_mlp_bwd_rays, fv.fused_mlp_bwd)
+        for attr in ("launches", "gated_launches") if hasattr(fn, attr))
+
+
+def _plain_cfg(shape, **kw):
+    return NerfConfig(**{**dict(use_pallas=False, N_rays=1024,
+                                N_samples_c=16, N_samples_f=16,
+                                iter_warmup=0, iter_N=10, perturb=0.0),
+                         **PLAIN_SHAPES[shape], **kw})
+
+
+@pytest.mark.parametrize("shape", sorted(PLAIN_SHAPES))
+def test_plain_route_step_on_the_card_matches_the_cpu(dev, shape):
+    """One per-image step on the plain route (bf16 compute, TF32 forward
+    products) from the same weights with the same pixels and draws on the
+    card and on the CPU: the losses within 1e-3 relative, every update
+    within two learning rates (Adam's first step moves a weight by about
+    lr times its gradient's sign, and a bf16 rounding can flip a tiny
+    gradient's sign); no kernel launched."""
+    from nerf_pytorch_paeng_tpu_torch.train import TrainState, make_optimizer
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_image_train_step
+
+    cfg = _plain_cfg(shape)
+    images, K, poses = make_synth_scene(n_views=1, H=64, W=64)
+    g = torch.Generator().manual_seed(60)
+    coords = torch.randint(0, 64, (cfg.N_rays, 2), generator=g)
+    u_c = torch.rand(cfg.N_rays, cfg.N_samples_c, generator=g)
+    u_f = torch.rand(cfg.N_rays, cfg.N_samples_f, generator=g)
+    out = []
+    before = _all_launches()
+    for where in (dev, torch.device("cpu")):
+        model = init_nerf(cfg, seed=61, device=where)
+        state = TrainState(model, make_optimizer(model, cfg), 0)
+        w0 = torch.cat([p.detach().flatten().cpu().clone()
+                        for p in model.parameters()])
+        step = make_image_train_step(cfg, schedule_from_cfg(cfg), 64, 64, K)
+        m = step(state, torch.from_numpy(images[0]).to(where),
+                 torch.from_numpy(poses[0][:3, :4]).to(where),
+                 coords=coords.to(where), u_c=u_c.to(where),
+                 u_f=u_f.to(where))
+        out.append((float(m["loss"]), torch.cat(
+            [p.detach().flatten().cpu() for p in model.parameters()]) - w0))
+    assert _all_launches() == before
+    (loss_d, du_d), (loss_c, du_c) = out
+    assert np.isfinite(loss_d) and loss_d == pytest.approx(loss_c, rel=1e-3)
+    assert float((du_d - du_c).abs().max()) <= 2 * cfg.lr * (1 + 1e-3)
+
+
+@pytest.mark.parametrize("shape", sorted(PLAIN_SHAPES))
+@pytest.mark.parametrize("cull", ["none", "auto"])
+def test_plain_route_frame_on_the_card_matches_the_cpu(dev, shape, cull):
+    """A 32x32 frame of random weights through both renderers' plain
+    branches on the card and on the CPU, deterministic sampling: at least
+    35 dB apart (the kernels-vs-plain limit: bf16 activations rounded
+    after sums in another order); no kernel launched."""
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
+
+    cfg = _plain_cfg(shape, render_cull=cull)
+    _, K, poses = make_synth_scene(n_views=1, H=32, W=32)
+    model = init_nerf(cfg, seed=62, device="cpu")
+    before = _all_launches()
+    frames = []
+    for where in (dev, torch.device("cpu")):
+        r = make_frame_renderer(cfg, 32, 32, K, where, stratified=False)
+        assert r.route == "plain"
+        rgb, disp = r(fm.pack_nerf(model, cfg, device=where),
+                      torch.from_numpy(poses[0]))
+        frames.append(rgb.float().cpu())
+        assert bool(torch.isfinite(rgb).all() and torch.isfinite(disp).all())
+    torch.cuda.synchronize()
+    assert _all_launches() == before
+    mse = float(torch.mean((frames[0] - frames[1]) ** 2))
+    assert mse == 0.0 or -10 * np.log10(mse) >= 35.0
+
+
+def test_reference_shape_with_use_pallas_still_launches_kernels(dev):
+    """The same reference-shape step and dense frame with ``use_pallas``
+    on: K1/K2 twice a step, K3/K1 once a frame block."""
+    from nerf_pytorch_paeng_tpu_torch.train import create_train_state
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_image_train_step
+
+    cfg = _plain_cfg("c", use_pallas=True, render_cull="none")
+    images, K, poses = make_synth_scene(n_views=1, H=64, W=64)
+    state = create_train_state(cfg, dev)
+    step = make_image_train_step(cfg, schedule_from_cfg(cfg), 64, 64, K)
+    before = (fm.fused_mlp_eval_rays.launches, fv.fused_mlp_bwd_rays.launches,
+              fm.fused_mlp_sigma_rays.launches)
+    step(state, torch.from_numpy(images[0]).to(dev),
+         torch.from_numpy(poses[0][:3, :4]).to(dev))
+    r = make_frame_renderer(cfg, 32, 32, K, dev, stratified=False)
+    assert r.route == "rays"
+    r(fm.pack_nerf(state.model, cfg), torch.from_numpy(poses[0]))
+    torch.cuda.synchronize()
+    assert (fm.fused_mlp_eval_rays.launches - before[0],
+            fv.fused_mlp_bwd_rays.launches - before[1],
+            fm.fused_mlp_sigma_rays.launches - before[2]) == (3, 2, 1)

@@ -21,10 +21,12 @@ from nerf_pytorch_paeng_tpu_torch.data.blender import load_blender
 from nerf_pytorch_paeng_tpu_torch.driver import checkpoint_path, main
 from nerf_pytorch_paeng_tpu_torch.eval.metrics import (compute_lpips,
                                                        compute_ssim,
-                                                       load_lpips_params)
+                                                       load_lpips_params,
+                                                       ssim_tensor)
 from nerf_pytorch_paeng_tpu_torch.models.nerf import init_nerf
 from nerf_pytorch_paeng_tpu_torch.utils.device import resolve_device
-from nerf_pytorch_paeng_tpu_torch.utils.synth import save_as_blender_dataset
+from nerf_pytorch_paeng_tpu_torch.utils.synth import (save_as_blender_dataset,
+                                                      save_as_llff_dataset)
 
 from torch_port_util import subprocess_env
 
@@ -49,6 +51,46 @@ def test_ssim_matches_jax(kind):
     assert got == pytest.approx(want, abs=1e-5)
     assert compute_ssim(torch.from_numpy(gt), torch.from_numpy(gt)) == \
         pytest.approx(1.0, abs=1e-9)
+
+
+@pytest.mark.parametrize("hwc", [(3, 4, 3), (10, 24, 3)])
+def test_ssim_is_nan_below_the_window(hwc):
+    """A frame lower or narrower than the 11-pixel window: JAX's VALID
+    filter leaves an empty map whose mean is nan; the port returns nan
+    (float64, on the images' device) where it used to raise."""
+    rng = np.random.default_rng(1)
+    gt = rng.uniform(0, 1, hwc).astype(np.float32)
+    pred = np.clip(gt + rng.normal(0, 0.1, hwc), 0, 1).astype(np.float32)
+    assert np.isnan(float(jax_ssim(jnp.asarray(pred), jnp.asarray(gt))))
+    t = ssim_tensor(torch.from_numpy(pred), torch.from_numpy(gt))
+    assert t.dtype == torch.float64 and t.shape == () and bool(t.isnan())
+    assert np.isnan(compute_ssim(torch.from_numpy(pred),
+                                 torch.from_numpy(gt)))
+
+
+def test_eval_only_below_the_ssim_window_logs_nan(tmp_path):
+    """``--eval_only`` of a custom capture at ``--downsample 8``: 24x32
+    views become 3x4 frames, below SSIM's window; the run exits 0 and
+    logs nan SSIM beside finite PSNR."""
+    root = str(tmp_path / "capture")
+    save_as_llff_dataset(root, n_views=6, H=24, W=32, n_samples=64)
+    args = ["--config", str(ROOT / "configs/llff/fern.txt"), "--data_type",
+            "custom", "--exp_name", "tiny", "--data_root", root,
+            "--log_dir", str(tmp_path / "logs"), "--device", "cpu",
+            "--downsample", "8", "--N_samples_c", "8", "--N_samples_f", "8",
+            "--eval_only", "true", "--testing_idx", "1"]
+    cfg = port_config.load_config(args)
+    ckpt = checkpoint_path(cfg, 1)
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    torch.save({"idx": 1, "model_state_dict":
+                init_nerf(cfg, device="cpu").state_dict()}, ckpt)
+    assert main(args) == 0
+    result = os.path.join(str(tmp_path / "logs"), "tiny", "tiny_1",
+                          "test_result", "_result.txt")
+    line = open(result).read().splitlines()[0]
+    fields = dict(f.split(":", 1) for f in line.split("\t"))
+    assert np.isnan(float(fields["ssim"]))
+    assert np.isfinite(float(fields["psnr"]))
 
 
 def test_lpips_is_gated_not_faked():
@@ -82,7 +124,7 @@ def test_cli_overrides_and_device_knob():
         port_config.load_config(["--data_type", "nope"])
 
 
-@pytest.mark.parametrize("knob", [("use_pallas", "false"),
+@pytest.mark.parametrize("knob", [("n_data_shards", "2"),
                                   ("scan_chunk", "4")])
 def test_unported_tpu_knobs_are_refused(knob, tmp_path):
     """A TPU knob of the JAX package fails loudly instead of being
@@ -202,7 +244,6 @@ def test_llff_and_custom_modes_run(flags, tmp_path, capsys):
     """The LLFF and custom data types, once refused, train through
     ``main`` on a synthetic forward-facing capture (LLFF layout, with
     poses_bounds.npy: no COLMAP) and save a checkpoint."""
-    from nerf_pytorch_paeng_tpu_torch.utils.synth import save_as_llff_dataset
     root = str(tmp_path / "capture")
     save_as_llff_dataset(root, n_views=4, H=16, W=24, n_samples=32)
     rc = main(["--config", str(ROOT / "configs/llff/fern.txt"),
