@@ -144,6 +144,20 @@
    stays 0 through the phase (the kernels' reference frame is rendered
    before they are zeroed).
 
+12. LPIPS (``eval/metrics.lpips_tensor``) on seeded random VGG16 weights
+   at the ``_LPIPS_KEYS`` shapes: one 800x800 pair on the card against
+   the CPU (1e-4 relative, TF32 off), the TF32-on reading beside it, one
+   pair's time; ``--eval_only`` with ``lpips_weights`` set logs a finite
+   LPIPS for every view.
+13. Data parallelism (``parallel/``) at world size 1 over NCCL (the
+   machine has one card): ``driver.main_worker`` under the launch
+   contract's variables, 10 lego steps in each batch mode and one
+   ``--eval_only`` frame, bit-equal to the same runs without them (K1 and
+   K2, K3 and K1 launched), step times beside the plain launch's (plain,
+   launched, launched, plain); then
+   ``torch.distributed.run --standalone --nproc_per_node 1`` on the CLI
+   with ``--n_data_shards 1``: exit 0 and rank 0's checkpoint.
+
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -152,6 +166,7 @@ without the port.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -2742,6 +2757,235 @@ def plain_route_phase(fm, work: str, data_root: str, device, ray: dict):
     return launches, out
 
 
+@contextlib.contextmanager
+def world_one_launch(make_group: bool = False):
+    """The launch contract's variables for a world of one rank (rank 0, a
+    free port on this host) inside the block, with the process group made
+    (NCCL) where ``make_group``; then the environment as it was."""
+    from nerf_pytorch_paeng_tpu_torch import parallel
+    saved = {v: os.environ.get(v) for v in parallel.LAUNCH_ENV}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(parallel.free_port()))
+    try:
+        if make_group:
+            parallel.maybe_initialize_distributed("cuda")
+        yield
+    finally:
+        if make_group:
+            parallel.destroy()
+        for v, old in saved.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
+
+
+def lpips_phase(work: str, data_root: str, device) -> tuple:
+    """LPIPS(VGG16) on seeded random weights at the ``_LPIPS_KEYS`` shapes
+    (the pretrained ones are not in the repository): the graph on the card
+    against the CPU for one 800x800 pair (1e-4 relative, TF32 off), the
+    TF32-on reading beside it (information, not a gate), one pair's time
+    (CUDA events), then ``--eval_only`` with ``lpips_weights`` set: a
+    finite LPIPS for every view.  Returns the eval path's launches and the
+    phase's record."""
+    from unittest import mock
+
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.eval import metrics
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import (
+        random_lpips_params, save_lpips_params)
+
+    path = save_lpips_params(os.path.join(work, "lpips_random.npz"),
+                             random_lpips_params(0))
+    on_card = metrics.load_lpips_params(path, device)
+    on_cpu = metrics.load_lpips_params(path, "cpu")
+    images, _, _, i_split = load_blender(data_root, True, 0, 1)
+    gt = torch.from_numpy(images[i_split[2][0]])
+    rng = np.random.default_rng(0)
+    pred = torch.clamp(gt + torch.from_numpy(
+        rng.normal(0, 0.05, gt.shape).astype(np.float32)), 0, 1)
+    t0 = time.perf_counter()
+    want = float(metrics.lpips_tensor(pred, gt, on_cpu))
+    cpu_s = time.perf_counter() - t0
+    gt_d, pred_d = gt.to(device), pred.to(device)
+    ms, got = cuda_ms(lambda: metrics.lpips_tensor(pred_d, gt_d, on_card), 5)
+    got = float(got)
+    rel = abs(got - want) / abs(want)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        # the graph holds cuDNN's TF32 off through ``cudnn.flags``; made a
+        # no-op here, the flag set above rules the convolutions
+        with mock.patch.object(torch.backends.cudnn, "flags",
+                               lambda **_: contextlib.nullcontext()):
+            tf32_ms, tf32 = cuda_ms(
+                lambda: metrics.lpips_tensor(pred_d, gt_d, on_card), 5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    tf32 = float(tf32)
+    log(f"lpips: 800x800 pair, seeded random VGG16 weights: card {got:.8f} "
+        f"vs CPU {want:.8f} (rel {rel:.2e}, limit 1e-4); {ms:.3f} ms a pair "
+        f"on the card (CUDA events, median of 5), {cpu_s:.2f} s on the CPU; "
+        f"TF32 on (information): {tf32:.8f} (rel {abs(tf32 - want) / want:.2e}"
+        f"), {tf32_ms:.3f} ms")
+    check(rel <= 1e-4, f"LPIPS card vs CPU: {got} vs {want}")
+
+    cfg = load_config(["--config", os.path.join(HERE,
+                                                 "configs/blender/lego.txt"),
+                       "--eval_only", "true", "--testing_idx", "1",
+                       "--data_root", data_root, "--log_dir",
+                       os.path.join(work, "logs"), "--lpips_weights", path])
+    zero_launches()
+    res = driver.main_worker(cfg)
+    launches = read_launches()
+    log(f"lpips: --eval_only with lpips_weights: LPIPS {res['lpips']}, "
+        f"launches {launches}")
+    check(len(res["lpips"]) == 3 and all(map(math.isfinite, res["lpips"])),
+          f"eval LPIPS {res['lpips']}")
+    return launches, dict(card=got, cpu=want, rel=rel, ms=ms, cpu_s=cpu_s,
+                          tf32=tf32, tf32_ms=tf32_ms, eval_lpips=res["lpips"])
+
+
+def dp_phase(work: str, data_root: str, device) -> tuple:
+    """Data parallelism at world size 1 over NCCL (the card machine has one
+    GPU): with the launch contract's variables set in this process,
+    ``driver.main_worker`` makes the group, runs and destroys it.  Ten lego
+    steps in each batch mode and one ``--eval_only`` frame must be
+    bit-equal to the same runs without the variables (losses, the final
+    checkpoint with its Adam moments, the view's metrics), and the frame
+    through the renderer under the group bit-equal to the frame without;
+    the launched runs must go through K1 and K2 (training) and K3 and K1
+    (the frame).  Then ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1`` on the CLI with ``--n_data_shards 1`` must exit 0
+    with rank 0's checkpoint written.  Returns each launched path's
+    launches and the phase's record."""
+    import dataclasses
+
+    from nerf_pytorch_paeng_tpu_torch import driver, parallel
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
+    from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import pack_nerf
+
+    launches, record = {}, {}
+    steps = 10
+    for mode in ("image", "global"):
+        # plain, launched, launched, plain: the step time moves with the
+        # host between runs, so each side runs first once
+        runs = {"plain": [], "nccl": []}
+        for j, label in enumerate(("plain", "nccl", "nccl", "plain")):
+            cfg = load_config(train_args(
+                work, data_root, f"dp_{mode}_{label}_{j}", steps,
+                "--idx_print", "0", "--idx_save", str(steps),
+                "--global_batch", "true" if mode == "global" else "false"))
+            zero_launches()
+            with (world_one_launch() if label == "nccl"
+                  else contextlib.nullcontext()):
+                res = driver.main_worker(cfg)
+            check(not parallel.is_distributed(), "a group outlived "
+                  "main_worker")
+            torch.cuda.synchronize(device)
+            runs[label].append((res, torch.load(
+                driver.checkpoint_path(cfg, steps), map_location=device,
+                weights_only=True), read_launches()))
+        pres, pck, _ = runs["plain"][0]
+        differ = []
+        for res, ck, _ in runs["plain"][1:] + runs["nccl"]:
+            differ += [k for k, v in pck["model_state_dict"].items()
+                       if not torch.equal(v, ck["model_state_dict"][k])]
+            sa, sb = (c["optimizer_state_dict"]["state"] for c in (pck, ck))
+            differ += [f"adam {k}.{m}" for k in sa for m in sa[k]
+                       if not torch.equal(sa[k][m], sb[k][m])]
+            differ += ["loss"] if res["loss"] != pres["loss"] else []
+        step_ms = {label: [statistics.median(t * 1e3
+                                             for t in r[0]["step_s"][2:])
+                           for r in rs] for label, rs in runs.items()}
+        nl = runs["nccl"][0][2]
+        log(f"dp {mode}: {steps} steps, plain / world 1 over NCCL / NCCL / "
+            f"plain: losses and checkpoints bit-equal ({len(differ)} "
+            f"differ); median step ms (CUDA events, steps 3-{steps}) plain "
+            f"{['%.2f' % t for t in step_ms['plain']]}, launched "
+            f"{['%.2f' % t for t in step_ms['nccl']]}; launches {nl}")
+        check(not differ, f"dp {mode}: world-1 NCCL runs differ: {differ[:5]}")
+        for _, _, la in runs["nccl"]:
+            check(la["fused_mlp_eval_rays"] == 2 * steps
+                  and la["fused_mlp_bwd_rays"] == 2 * steps,
+                  f"dp {mode}: K1/K2 launches {la}")
+        launches[f"dp_train_{mode}"] = nl
+        record[f"train_{mode}"] = dict(
+            steps=steps, bit_equal=True, step_ms_nccl=step_ms["nccl"],
+            step_ms_plain=step_ms["plain"], launches=nl)
+
+    # one --eval_only frame of the image run's checkpoint
+    evals = {}
+    for label in ("plain", "nccl"):
+        cfg = load_config(["--config", os.path.join(
+            HERE, "configs/blender/lego.txt"), "--eval_only", "true",
+            "--testing_idx", str(steps), "--testskip", "3", "--exp_name",
+            "dp_image_plain_0", "--data_root", data_root, "--log_dir",
+            os.path.join(work, "logs")])
+        zero_launches()
+        with (world_one_launch() if label == "nccl"
+              else contextlib.nullcontext()):
+            evals[label] = (driver.main_worker(cfg), read_launches())
+    (pe, _), (ne, nl) = evals["plain"], evals["nccl"]
+    same = all(pe[k] == ne[k] for k in ("mse", "psnr", "ssim"))
+    check(same and len(ne["psnr"]) == 1,
+          f"dp eval: {ne['psnr']} vs {pe['psnr']}")
+    check(nl["fused_mlp_sigma_rays"] > 0 and nl["fused_mlp_eval_rays"] > 0,
+          f"dp eval launches {nl}")
+    launches["dp_eval"] = nl
+    # the frame itself, through the eval entry's dense renderer, with and
+    # without a world-1 group
+    model = driver.load_model(cfg, steps, device)
+    packed = pack_nerf(model, cfg, device=device)
+    _, (K, ext), (H, W), i_split = load_blender(data_root, cfg.bkg_white,
+                                                cfg.downsample, cfg.testskip)
+    pose = torch.as_tensor(ext[i_split[2][0]][:3, :4])
+    dense = dataclasses.replace(cfg, render_cull="none")
+    frames = {}
+    for label in ("plain", "nccl"):
+        with (world_one_launch(make_group=True) if label == "nccl"
+              else contextlib.nullcontext()):
+            check(parallel.is_distributed() == (label == "nccl"), label)
+            render = make_frame_renderer(dense, H, W, K, device)
+            frames[label] = render(packed, pose, torch.Generator(
+                device).manual_seed(cfg.seed + steps))
+            torch.cuda.synchronize(device)
+    frame_equal = all(torch.equal(a, b) for a, b in zip(frames["plain"],
+                                                        frames["nccl"]))
+    log(f"dp eval: --eval_only at world 1 over NCCL: PSNR {ne['psnr']} vs "
+        f"{pe['psnr']} plain, metrics equal {same}; the {H}x{W} frame "
+        f"bit-equal under the group: {frame_equal}; launches {nl}")
+    check(frame_equal, "dp eval: the world-1 frame differs")
+    record["eval"] = dict(views=1, bit_equal=True, launches=nl)
+
+    # through the launcher: torchrun, one process, the CLI
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "nerf_pytorch_paeng_tpu_torch",
+           *train_args(work, data_root, "dp_torchrun", 5, "--idx_print", "5",
+                       "--idx_save", "5"), "--n_data_shards", "1"]
+    env = {**os.environ, "PYTHONPATH": HERE}
+    for v in parallel.LAUNCH_ENV:
+        env.pop(v, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    ckpt = os.path.join(work, "logs", "dp_torchrun", "dp_torchrun_5.pth.tar")
+    log(f"dp torchrun --nproc_per_node 1: exit {proc.returncode} in "
+        f"{wall:.1f} s; rank 0's checkpoint {os.path.isfile(ckpt)}; "
+        f"{[l for l in proc.stdout.splitlines() if 'rank(s)' in l]}")
+    check(proc.returncode == 0 and os.path.isfile(ckpt),
+          f"torchrun launch: {proc.returncode}\n{proc.stdout[-2000:]}\n"
+          f"{proc.stderr[-2000:]}")
+    record["torchrun"] = dict(exit=proc.returncode, wall_s=wall)
+    return launches, record
+
+
 def ptxas_lines(text: str) -> list:
     """(kernel, line) for every register and spill line of a ``-Xptxas -v``
     log, each under the entry function it reports on: the ``*_kernel``
@@ -2781,6 +3025,16 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
 
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Seconds since the previous lap, by phase."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"phase {name}: {laps[name]:.1f} s")
+
     t0 = time.perf_counter()
     sources = ("fused_mlp", "fused_mlp_vjp")
     libs = build.build_all(sources)
@@ -2790,6 +3044,7 @@ def main() -> int:
         for kernel, line in ptxas_lines(lib.with_suffix(".log").read_text()):
             log(f"  ptxas {src} {kernel}: {line}")
 
+    lap("build")
     cfg = NerfConfig()
     packed = fm.pack_nerf(init_nerf(cfg, seed=1, device=device), cfg,
                           device=device)
@@ -2811,6 +3066,7 @@ def main() -> int:
     rows["fused_mlp_sigma"] = points_kernel_phase(fm, packed, cfg, device)
     plane_rows, plane_shapes = plane_kernel_phase(fm, fv, packed, cfg, device)
     rows.update(plane_rows)
+    lap("kernels")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -2821,25 +3077,37 @@ def main() -> int:
                                 camera_angle_x=LEGO_CAMERA_ANGLE_X)
         log(f"synthetic 800x800 blender scene at lego's field of view written "
             f"({time.perf_counter() - t0:.1f} s)")
+        lap("scene")
         eval_launches, stats = slice_phase(fm, work, data_root, device)
+        lap("eval")
         render_launches, render_stats, path = render_phase(
             fm, packed, work, data_root, device)
+        lap("render")
         train_launches, train_stats = train_phase(work, data_root, device)
         resume = resume_phase(work, data_root, device)
         dtype_check = compute_dtype_phase(work, data_root, device)
+        lap("train")
         gated_launches, gated_stats = gated_train_phase(
             fm, fv, packed, work, data_root, device)
+        lap("gated_train")
         plane_launches, n4000_launches, plane_stats = plane_train_phase(
             fm, fv, packed, work, data_root, device)
         plane_frame_launches, plane_frame_stats = plane_eval_phase(
             fm, work, data_root, device,
             {"eval": stats["frame_ms"], "render": render_stats["frame_ms"]})
+        lap("plane")
         llff_launches, llff_stats = llff_phase(fm, fv, packed, work, device)
+        lap("llff")
         plain_launches, plain_stats = plain_route_phase(
             fm, work, data_root, device,
             {"step_ms": train_stats["median_step_ms"],
              "frame_ms": stats["frame_ms"],
              "render_ms": render_stats["frame_ms"]})
+        lap("plain_route")
+        lpips_launches, lpips_stats = lpips_phase(work, data_root, device)
+        lap("lpips")
+        dp_launches, dp_stats = dp_phase(work, data_root, device)
+        lap("data_parallel")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each path's own run, counters at 0 before it: K3 and K1 on the eval
@@ -2853,7 +3121,7 @@ def main() -> int:
              "train": train_launches, "gated_train": gated_launches,
              "plane_train": plane_launches, "plane_train_n4000": n4000_launches,
              **{f"plane_{k}": v for k, v in plane_frame_launches.items()},
-             **llff_launches}
+             **llff_launches, "eval_lpips": lpips_launches, **dp_launches}
     only = {"fused_mlp_eval_rays_gated": ("render",),
             "fused_mlp_eval_rays_gated_f32": ("gated_train",),
             "fused_mlp_eval": tuple(f"plane_{k}" for k in plane_frame_launches),
@@ -2864,6 +3132,7 @@ def main() -> int:
         row["launches_llff_custom"] = sum(paths[p][name]
                                           for p in llff_launches)
         row["launches_plain_route"] = plain_launches[name]
+        row["launches_dp"] = sum(v[name] for v in dp_launches.values())
     # K1, K2 and K3: the worst of the kernel phase and the LLFF path's own
     # NDC inputs
     for where, recs in llff_stats["path_kernels"].items():
@@ -2900,6 +3169,9 @@ def main() -> int:
     log(json.dumps({"llff": {**llff_stats, "launches": llff_launches}}))
     log(json.dumps({"plain_route": {**plain_stats,
                                     "launches": plain_launches}}))
+    log(json.dumps({"lpips": {**lpips_stats, "launches": lpips_launches}}))
+    log(json.dumps({"data_parallel": dp_stats}))
+    log(json.dumps({"phase_s": laps}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     print(json.dumps({"ok": True, "device": {

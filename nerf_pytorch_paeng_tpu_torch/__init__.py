@@ -8,8 +8,9 @@ custom loaders with the COLMAP bridge; training in both batch modes,
 ungated or occupancy-gated, whose two MLP passes per step run the fused
 forward and backward kernels (``kernels/csrc/fused_mlp.cu``,
 ``fused_mlp_vjp.cu``); held-out-view evaluation through the exact dense
-renderer (``--eval_only``) and novel views through the culled one
-(``--render_only``).
+renderer (``--eval_only``, with LPIPS given VGG16 weights) and novel
+views through the culled one (``--render_only``); data parallelism over
+the ranks of a torchrun launch (``parallel/``).
 """
 from .config import NerfConfig, config_from_file, load_config
 

@@ -7,14 +7,19 @@ so one config file drives both packages.  Of the JAX package's additions it
 keeps those the ported slices read (``seed``, ``eval_only``, ``render_only``,
 ``compute_dtype``, ``log_dir``, ``lpips_weights``, ``use_pallas``,
 ``use_rays_train``, the seven knobs of the culled frame renderer,
-``render_cull`` ... ``render_gate_fine``, and the five of occupancy-gated
-training, ``train_precull`` ... ``train_precull_backoff_max``) and adds one
-knob, ``device``.  ``use_pallas`` keeps the JAX package's name, default and
-parsing; here it means "run the hand-written CUDA kernels where the
-architecture allows" (off: the plain-MLP route, ``ops/render.py``).  The
-JAX package's other TPU knobs (sharding, ``scan_chunk``, ``profile``,
-``check_nans``, ``compile_cache``) are not fields here: a config file or
-command line that sets one fails instead of being ignored.
+``render_cull`` ... ``render_gate_fine``, the five of occupancy-gated
+training, ``train_precull`` ... ``train_precull_backoff_max``, and the
+three of the device mesh, ``n_data_shards``, ``n_model_shards`` and
+``sp_shards``) and adds one knob, ``device``.  ``use_pallas`` keeps the
+JAX package's name, default and parsing; here it means "run the
+hand-written CUDA kernels where the architecture allows" (off: the
+plain-MLP route, ``ops/render.py``).  Of the mesh knobs only data
+parallelism is ported (``parallel/``): ``n_model_shards > 1`` and
+``sp_shards > 1`` raise, and a set ``n_data_shards`` must equal the
+launch's world size (``parallel.check_data_shards``).  The JAX package's
+other TPU knobs (``scan_chunk``, ``profile``, ``check_nans``,
+``compile_cache``) are not fields here: a config file or command line
+that sets one fails instead of being ignored.
 """
 from __future__ import annotations
 
@@ -146,6 +151,15 @@ class NerfConfig:
     train_precull_min_gate: float = 0.15
     train_precull_backoff_max: int = 8
 
+    # ====== The device mesh (the JAX package's names and defaults): data
+    # parallelism over the ranks of a torchrun launch (parallel/); 0 = every
+    # rank of the launch, else it must equal the launch's world size.  The
+    # width-sharded and sample-sharded paths are not ported (ROADMAP §1):
+    # n_model_shards > 1 and sp_shards > 1 raise.
+    n_data_shards: int = 0
+    n_model_shards: int = 1
+    sp_shards: int = 0
+
     # ====== Port only: where tensors live ("cuda", "cuda:N" or "cpu")
     device: str = "cuda"
 
@@ -165,6 +179,7 @@ class NerfConfig:
             ("N_samples_c", self.N_samples_c > 0),
             ("iter_warmup", self.iter_warmup < self.iter_N + 1),
             ("device", self.device == "cpu" or self.device.startswith("cuda")),
+            ("n_data_shards", self.n_data_shards >= 0),
             ("render_cull", self.render_cull in ("auto", "none")),
             ("render_precull", str(self.render_precull).lower() in tri_state),
             ("render_gate_fine",
@@ -176,6 +191,13 @@ class NerfConfig:
         for name, ok in checks:
             if not ok:
                 raise ValueError(f"invalid {name}={getattr(self, name)!r}")
+        for name in ("n_model_shards", "sp_shards"):
+            if getattr(self, name) > 1:
+                raise ValueError(
+                    f"{name}={getattr(self, name)}: the width-sharded and "
+                    "sample-sharded paths are not ported to PyTorch yet "
+                    "(ROADMAP §1, item 4); data parallelism runs over the "
+                    "ranks of a torchrun launch (n_data_shards)")
         return self
 
 

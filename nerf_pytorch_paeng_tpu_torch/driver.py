@@ -18,6 +18,16 @@ runs the held-out-view evaluation and/or the novel-view render.  It prints
 the field route once: the fused kernels, or the plain MLP and why.  LLFF
 rays are projected into NDC inside the train steps and the frame
 renderers, never in the ray pool.
+
+Under a torchrun launch (``parallel/mesh.py``: ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) ``main_worker`` makes
+the process group first, on the rank's own card, and destroys it at the
+end.  Every rank trains on its slice of each batch (``train/step.py``),
+renders its part of every frame (``eval/frame.py``) and holds the same
+weights, which are checked bit for bit across the ranks at every
+checkpoint and at the end; rank 0 alone writes the checkpoints,
+``metrics.csv``, ``precull_policy.csv``, the images and the printed logs.
+Every rank restores on a resume.
 """
 from __future__ import annotations
 
@@ -29,7 +39,9 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
+from . import parallel
 from .config import NerfConfig, load_config
 from .data import load_blender, load_custom, load_llff
 from .eval.render import run_render
@@ -40,12 +52,12 @@ from .ops.rays import get_rays
 from .ops.render import plain_route_reason
 from .train import RayPool, build_ray_pool, create_train_state
 from .train import checkpoint as ckpt
+from .parallel import print0
 from .train.precull import (make_gate_frac_estimator,
-                            make_train_support_program, train_precull_enabled,
+                            make_train_support_program, train_precull_active,
                             train_precull_mode)
 from .train.schedule import schedule_from_cfg
 from .train.step import make_image_train_step, make_train_step
-from .utils.device import resolve_device
 from .utils.logging import MetricLogger
 
 
@@ -128,20 +140,23 @@ class _SupportPolicy:
 
     The probe batch is drawn once with ``np.random.default_rng(seed + 7)``
     exactly as the JAX package's driver draws it (up to 4 training views,
-    then pixels of each), so both predict the same ``gate_frac``.  Each
-    refresh makes one host read (both validity flags and the prediction),
-    appends ``iter,bounds_valid,gate_frac_pred,gated`` to
+    then pixels of each), at the ray count one rank trains on, so both
+    predict the same ``gate_frac``.  Each refresh makes one host read
+    (both validity flags and the prediction), appends
+    ``iter,bounds_valid,gate_frac_pred,gated`` to
     ``logs/<exp>/precull_policy.csv`` (truncated on a fresh run, appended
-    on a resume) and prints the decision when it changes."""
+    on a resume) and prints the decision when it changes.  Under a
+    process group the bounds and the prediction are rank 0's, broadcast,
+    so every rank decides alike and gates with the same bounds; rank 0
+    alone writes and prints."""
 
-    def __init__(self, cfg, K, extrinsics, hw, i_train, device):
+    def __init__(self, cfg, K, extrinsics, hw, i_train, device, n_est: int):
         H, W = hw
         self.cfg = cfg
         self.prog, _ = make_train_support_program(
             cfg, poses=np.asarray(extrinsics)[i_train, :3, :4],
             K=np.asarray(K), hw=(H, W), device=device)
         self.est = make_gate_frac_estimator(cfg)
-        n_est = cfg.N_rays
         rng = np.random.default_rng(cfg.seed + 7)
         sel = rng.choice(i_train, size=min(4, len(i_train)), replace=False)
         eo, ed = [], []
@@ -156,8 +171,9 @@ class _SupportPolicy:
         self.gated = None           # the first refresh always prints
         self.path = os.path.join(cfg.logdir, cfg.exp_name,
                                  "precull_policy.csv")
-        os.makedirs(os.path.dirname(self.path), exist_ok=True)
-        if cfg.iter_start == 0 or not os.path.isfile(self.path):
+        if parallel.is_main() and (cfg.iter_start == 0
+                                   or not os.path.isfile(self.path)):
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
             with open(self.path, "w") as f:
                 f.write("iter,bounds_valid,gate_frac_pred,gated\n")
 
@@ -167,18 +183,22 @@ class _SupportPolicy:
         cannot repay the sort and the smaller tiles."""
         bc, bf = self.prog(model)
         gf = self.est(bc, bf, self.rays_o, self.rays_d)
+        if parallel.world_size() > 1:
+            for t in (*bc, *bf, gf):
+                parallel.broadcast0(t)
         vc, vf, gfh = torch.stack([bc[3][0].float(), bf[3][0].float(),
                                    gf.float()]).tolist()   # one host read
         valid = bool(vc) and bool(vf)
         on = valid and gfh >= self.cfg.train_precull_min_gate
-        with open(self.path, "a") as f:
-            f.write(f"{it},{int(valid)},{gfh:.4f},{int(on)}\n")
+        if parallel.is_main():
+            with open(self.path, "a") as f:
+                f.write(f"{it},{int(valid)},{gfh:.4f},{int(on)}\n")
         if on != self.gated:
             self.gated = on
             why = f"predicted gate_frac {gfh:.3f}" if valid \
                 else "bounds invalid"
-            print(f">> train_precull -> {'GATED' if on else 'ungated'} "
-                  f"({why}) @ iter {it}")
+            print0(f">> train_precull -> {'GATED' if on else 'ungated'} "
+                   f"({why}) @ iter {it}")
         return (bc, bf) if on else None
 
 
@@ -203,24 +223,24 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
     if cfg.iter_start != 0:
         ckpt.restore_checkpoint(cfg.logdir, cfg.exp_name, cfg.iter_start,
                                 state)
-        print(f">> resumed from iter {state.step}")
+        print0(f">> resumed from iter {state.step}")
     else:
-        print(">> training from scratch")
+        print0(">> training from scratch")
     schedule = schedule_from_cfg(cfg)
 
     if cfg.global_batch:
-        print(">> [global batch] building the all-image ray pool")
+        print0(">> [global batch] building the all-image ray pool")
         gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         ray_pool = RayPool(build_ray_pool(images, K, extrinsics, i_train,
                                           gen, device), gen)
         if state.step:
             # exact resume: replay the cursor and the epoch reshuffles
             ray_pool.fast_forward(state.step, cfg.N_rays)
-            print(f">> ray pool fast-forwarded to step {state.step} "
-                  f"(epoch {ray_pool.epoch}, cursor {ray_pool.i_batch})")
+            print0(f">> ray pool fast-forwarded to step {state.step} "
+                   f"(epoch {ray_pool.epoch}, cursor {ray_pool.i_batch})")
         step_fn = make_train_step(cfg, schedule, H, W, float(K[0][0]))
     else:
-        print(">> per-image sampling mode")
+        print0(">> per-image sampling mode")
         slot = {int(v): k for k, v in enumerate(i_train)}
         train_imgs = torch.as_tensor(np.asarray(images[i_train], np.float32),
                                      device=device)
@@ -230,15 +250,18 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
         step_fn = make_image_train_step(cfg, schedule, H, W, K)
 
     policy = None
-    if train_precull_enabled(cfg):
-        policy = _SupportPolicy(cfg, K, extrinsics, hw, i_train, device)
-        print(f">> train_precull on (refresh every "
-              f"{cfg.train_precull_every} iters)")
+    world = parallel.world_size()
+    if train_precull_active(cfg, world):
+        policy = _SupportPolicy(cfg, K, extrinsics, hw, i_train, device,
+                                n_est=cfg.N_rays // world)
+        print0(f">> train_precull on (refresh every "
+               f"{cfg.train_precull_every} iters)")
     elif train_precull_mode(cfg) == "on":
-        print(">> train_precull requested but inapplicable here (needs "
-              "blender data, the ray-major kernel pair (the kernels' domain, "
-              "use_rays_train and its shapes) and a usable support grid) — "
-              "running ungated")
+        print0(">> train_precull requested but inapplicable here (needs "
+               "blender data, the ray-major kernel pair (the kernels' domain, "
+               "use_rays_train and its shapes at the per-rank ray count, "
+               "which the ranks must split evenly) and a usable support "
+               "grid) — running ungated")
 
     logger = MetricLogger(cfg.logdir, cfg.exp_name,
                           fresh=(cfg.iter_start == 0))
@@ -281,8 +304,10 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
             logger.log(i, {**metrics, "lr": schedule(i - 1)},
                        to_stdout=show, n_rays=cfg.N_rays)
         if cfg.idx_save and i % cfg.idx_save == 0:
+            parallel.check_replicas(state.model.parameters(),
+                                    f"weights at iter {i}")
             path = ckpt.save_checkpoint(cfg.logdir, cfg.exp_name, state)
-            print(f">> checkpoint saved: {path}")
+            print0(f">> checkpoint saved: {path}")
         if test_on and i % cfg.idx_test == 0:
             run_test(i, pack_nerf(state.model, cfg, device=device),
                      images[i_test], extrinsics[i_test], K, hw, cfg, device)
@@ -290,31 +315,60 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
             run_render(i, pack_nerf(state.model, cfg, device=device), K, hw,
                        cfg, device, render_poses=render_poses)
     logger.close()
-    print(">> training done")
+    parallel.check_replicas(state.model.parameters(), "final weights")
+    if world > 1:
+        print0(f">> final weights bit-equal on all {world} ranks")
+    print0(">> training done")
     return dict(step=state.step, loss=losses.tolist(), step_s=clock.seconds(),
                 gate_frac=[None if math.isnan(g) else g
                            for g in gate_fracs.tolist()])
 
 
 def main_worker(cfg: NerfConfig) -> dict:
-    device = resolve_device(cfg.device)
+    """One run (training, or ``eval_only``/``render_only``) on this
+    process's device; under a launch, the process group is made first and
+    destroyed at the end.  The returned dict is rank 0's record (see
+    ``train``, ``eval/test.run_test`` and ``eval/render.run_render``)."""
+    device, made_group = parallel.maybe_initialize_distributed(cfg.device)
+    try:
+        return _run(cfg, device)
+    finally:
+        if made_group:
+            parallel.destroy()
+
+
+def _run(cfg: NerfConfig, device: torch.device) -> dict:
+    parallel.check_data_shards(cfg)
+    world = parallel.world_size()
+    if not (cfg.eval_only or cfg.render_only) and cfg.N_rays < world:
+        raise ValueError(f"N_rays={cfg.N_rays} is fewer rays than the "
+                         f"launch's {world} ranks")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f">> device: {device} ({name})")
+    print0(f">> device: {device} ({name})"
+           + (f"; {world} rank(s) over "
+              f"{torch.distributed.get_backend()}"
+              if parallel.is_distributed() else ""))
     if cfg.iter_start < 0:   # -1 = resume from the latest checkpoint
         latest = ckpt.latest_checkpoint_step(cfg.logdir, cfg.exp_name)
         cfg = dataclasses.replace(cfg, iter_start=latest or 0)
-        print(f">> auto-resume: latest checkpoint is "
-              f"{latest if latest is not None else 'absent'} "
-              f"-> iter_start={cfg.iter_start}")
-    print(f">> loading dataset [{cfg.data_type}] from {cfg.data_root!r}")
-    images, K, extrinsics, hw, i_split, render_poses, cfg = load_dataset(cfg)
+        print0(f">> auto-resume: latest checkpoint is "
+               f"{latest if latest is not None else 'absent'} "
+               f"-> iter_start={cfg.iter_start}")
+    print0(f">> loading dataset [{cfg.data_type}] from {cfg.data_root!r}")
+    # LLFF and custom loading may write into the data root (minify's
+    # images_{factor}/, COLMAP's poses_bounds.npy, a video's frames): rank 0
+    # prepares it, then the other ranks read it without running COLMAP again
+    images, K, extrinsics, hw, i_split, render_poses, cfg = \
+        parallel.rank0_first(lambda first: load_dataset(
+            cfg if first else dataclasses.replace(cfg, colmap_relaunch=False)),
+            device)
     render_poses = _llff_render_poses_34(render_poses)
-    print(f">> dataset loaded: images {images.shape}, hw {hw}, "
-          f"train/val/test {'/'.join(str(len(i)) for i in i_split)}")
+    print0(f">> dataset loaded: images {images.shape}, hw {hw}, "
+           f"train/val/test {'/'.join(str(len(i)) for i in i_split)}")
     reason = plain_route_reason(cfg)
-    print(f">> field route: {'fused kernels' if reason is None else 'plain'}"
-          + (f" ({reason})" if reason else ""))
+    print0(f">> field route: {'fused kernels' if reason is None else 'plain'}"
+           + (f" ({reason})" if reason else ""))
     if cfg.eval_only or cfg.render_only:
         i_test = i_split[2]
         model = load_model(cfg, cfg.testing_idx, device)

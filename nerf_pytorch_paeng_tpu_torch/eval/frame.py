@@ -1,7 +1,8 @@
 """Frame renderers on the fused kernels: the exact dense renderer and the
 occupancy-culled two-phase renderer.
 
-Counterpart of the JAX package's ``eval/frame.py`` on a single device.
+Counterpart of the JAX package's ``eval/frame.py``, on one device or
+split over the ranks of a process group (below).
 ``make_frame_renderer`` routes as it does: ``cfg.render_cull == "auto"``
 (the default) with a fine pass goes to the culled renderer, anything else
 to the dense one.  Held-out evaluation forces the dense one
@@ -77,10 +78,25 @@ Each culled frame appends ``{"n_act", "blocks", "gate_frac_coarse",
 skipped share of (tile, row) blocks, 0-dim device tensors, or None where
 the pass ran ungated).
 
+**Data parallelism** (the JAX package's mesh-sharded frames, over the
+ranks of a process group, ``parallel/``): every rank generates the whole
+frame's rays and draws every uniform of a block alike (the ``generator``
+must be seeded alike on every rank), renders its contiguous part of the
+block's rays (``parallel.rank_bounds``) through the same kernels and
+gathers the parts into the block on every rank (``_split_render``).  Each
+block's uniforms are drawn whole before it is split, with or without a
+group (the samplers' own draws, in their order), so one path renders every
+frame; without a group the split is the whole block.  The dense
+renderer splits each ray block; the culled one splits phase 1 (the weights
+are gathered, so that the cull, the sort, the class histogram and the
+greedy cover, all host decisions, are the same on every rank) and each
+phase-2 cover block.  The support bounds are rank 0's, broadcast.  A
+block of fewer rays than ranks is rendered whole on every rank.
+
 Not carried from the JAX renderer: the block-structured phase 0 (JAX runs
 it only off the gated-kernel path; here the ungated culled path renders
 the same frame), ray padding to the tile (the kernels mask their edges),
-the packing and renderer caches, and the mesh and sample-sharded paths.
+the packing and renderer caches, and the width- and sample-sharded paths.
 """
 from __future__ import annotations
 
@@ -90,6 +106,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..kernels.fused_mlp import (fused_mlp_eval, fused_mlp_eval_rays,
                                  fused_mlp_sigma, fused_mlp_sigma_rays)
 from ..ops.occupancy import support_bounds_from_sigma
@@ -157,6 +174,32 @@ def _make_ray_gen(cfg, H, W, K, device):
     return gen_rays
 
 
+def _split_render(fn: Callable, m: int, *rows):
+    """``fn(*rows)`` (each row input [m, ...], or None) -> a tuple of
+    [m, ...] outputs, computed on this rank's contiguous part of the m
+    rows and gathered on every rank.  Without a process group, and for
+    fewer rows than ranks, ``fn`` takes every row."""
+    world = parallel.world_size()
+    if not parallel.is_distributed() or m < world:
+        return fn(*rows)
+    lo, hi = parallel.rank_bounds(m, parallel.rank(), world)
+    out = fn(*(None if t is None else t[lo:hi] for t in rows))
+    return parallel.gather_rows(out, m)
+
+
+def _uniforms(m: int, n: int, generator, device) -> torch.Tensor:
+    """[m, n] uniforms as the samplers draw them from ``generator``."""
+    return torch.rand((m, n), generator=generator, dtype=torch.float32,
+                      device=device)
+
+
+def _need_generator(generator) -> None:
+    if parallel.world_size() > 1 and generator is None:
+        raise ValueError("a frame split over ranks needs a generator seeded "
+                         "alike on every rank: the ranks draw every uniform "
+                         "of a block alike")
+
+
 def _frame_route(cfg, use_rays: bool) -> str:
     """"plain" outside the kernels' domain, else "rays" or "planes"."""
     if not supports_kernels(cfg):
@@ -198,7 +241,7 @@ def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
     route = _frame_route(cfg, _use_rays_kernels(cfg) and n_fine > 0)
     gen_rays = _make_ray_gen(cfg, H, W, K, device)
 
-    def render_block_planes(packed, rays_o, rays_d, generator):
+    def render_block_planes(packed, rays_o, rays_d, u_c, u_f):
         """The JAX package's plane route: K7 as the coarse density (with a
         fine pass), K8 as the field; on the plain route the plain MLP and
         the full coarse field, as its XLA route."""
@@ -208,36 +251,51 @@ def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
             sigma = None
         out = render_rays_from_cfg(coarse, fine, rays_o, rays_d, cfg,
                                    stratified=stratified,
-                                   coarse_sigma_fn=sigma, generator=generator)
+                                   coarse_sigma_fn=sigma, u_c=u_c, u_f=u_f)
         if n_fine > 0:
             return out.rgb_f, out.disp_f
         return out.rgb_c, out.disp_c
 
-    def render_block(packed, rays_o, rays_d, generator):
+    def render_block(packed, rays_o, rays_d, u_c, u_f):
+        """One block's (rgb, disp) at the coarse jitter ``u_c`` and the
+        fine uniforms ``u_f`` (None where the sampler draws none)."""
         if route != "rays":
-            return render_block_planes(packed, rays_o, rays_d, generator)
+            return render_block_planes(packed, rays_o, rays_d, u_c, u_f)
         m = rays_o.shape[0]
         z_vals = stratified_z_vals(m, near, far, n_coarse,
-                                   perturb=stratified, generator=generator,
-                                   device=device)
+                                   perturb=stratified, u=u_c, device=device)
         od = pack_od(rays_o, rays_d)
         sigma_t = sigma_fn(od, z_vals.T.contiguous(), packed["coarse"],
                            L_x=cfg.L_x, out_dtype=torch.bfloat16)
         weights = weights_from_sigma_t(sigma_t, z_vals.T, rays_d).T
         z_all = hierarchical_z_vals(z_vals, weights, n_fine=n_fine,
-                                    perturb=perturb, generator=generator)
+                                    perturb=perturb, u=u_f)
         z_t = z_all.T.contiguous()
         r, g, b, sg = field_fn(od, z_t, packed["fine"], L_x=cfg.L_x,
                                L_d=cfg.L_d, out_dtype=torch.bfloat16)
         out = volume_render_rays_t(r, g, b, sg, z_t, rays_d)
         return out.rgb, out.disp
 
+    def split_block(packed, rays_o, rays_d, generator):
+        """A block: its uniforms drawn whole (the coarse jitter, then the
+        fine ones, the order in which the samplers draw them), each rank's
+        part rendered, the parts gathered (one part without a group)."""
+        m = rays_o.shape[0]
+        u_c = (_uniforms(m, n_coarse, generator, device) if stratified
+               else None)
+        u_f = (_uniforms(m, n_fine, generator, device)
+               if n_fine > 0 and perturb != 0.0 else None)
+        return _split_render(
+            lambda ro, rd, uc, uf: render_block(packed, ro, rd, uc, uf),
+            m, rays_o, rays_d, u_c, u_f)
+
     @torch.no_grad()
     def render(packed, c2w, generator: Optional[torch.Generator] = None):
         _check_fields(packed, route)
+        _need_generator(generator)
         rays_o, rays_d = gen_rays(c2w)
-        parts = [render_block(packed, rays_o[i:i + block],
-                              rays_d[i:i + block], generator)
+        parts = [split_block(packed, rays_o[i:i + block], rays_d[i:i + block],
+                             generator)
                  for i in range(0, n_total, block)]
         rgb = torch.cat([p[0] for p in parts], 0).reshape(H, W, 3)
         disp = torch.cat([p[1] for p in parts], 0).reshape(H, W)
@@ -456,18 +514,18 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
         disp0 = _disp_from(torch.sum(weights * z_vals, -1), acc)
         return order, class_cum, rgb0, disp0
 
-    def fine_block(packed, rays_o, rays_d, z_vals, weights, s_keep, fb,
-                   generator):
+    def fine_block(packed, rays_o, rays_d, z_vals, weights, s_keep, fb, u):
+        """(rgb, disp, gate) of a phase-2 block at the fine uniforms ``u``
+        (None at ``perturb`` 0)."""
         if not use_rays:
             _, fine, _ = _plane_fields(packed, cfg, route, plane_fn,
                                        points_fn)
             out = hierarchical_fine_pass(
                 fine, rays_o, rays_d, z_vals, weights, n_fine=n_fine,
-                perturb=perturb, n_keep=s_keep, trunc_eps=trunc_eps,
-                generator=generator)
+                perturb=perturb, n_keep=s_keep, trunc_eps=trunc_eps, u=u)
             return out.rgb, out.disp, None
         z_all = hierarchical_z_vals(z_vals, weights, n_fine=n_fine,
-                                    perturb=perturb, generator=generator)
+                                    perturb=perturb, u=u)
         if s_keep < s_full:
             z_all = truncation_window(z_all, z_vals, weights, s_keep,
                                       trunc_eps)
@@ -495,12 +553,68 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
         if seen is None or seen[0] is not w:
             bounds, valid = _support_for_eval(packed[module], cfg, device,
                                               points_fn)
+            if parallel.world_size() > 1:     # rank 0's, on every rank
+                for t in bounds:
+                    parallel.broadcast0(t)
+                valid = bool(bounds[3][0])
             support[module] = seen = (w, bounds if valid else None)
         return seen[1]
+
+    def coarse_weights(packed, pc, rays_o, rays_d, z_vals):
+        """(compositing weights [M, Sc] of the coarse pass, the pre-cull's
+        gate or None)."""
+        m = rays_o.shape[0]
+        if not use_rays:
+            *_, coarse_sigma = _plane_fields(packed, cfg, route, plane_fn,
+                                             points_fn)
+            sigma = coarse_sigma(position_plane(rays_o, rays_d, z_vals))
+            return weights_from_sigma(sigma.reshape(m, n_coarse), z_vals,
+                                      rays_d), None
+        if pc is not None:
+            sigma_t, gate = _gated_sigma_t(packed["coarse"], rays_o, rays_d,
+                                           z_vals, pc, half, near, far,
+                                           cfg.L_x, sigma_fn)
+        else:
+            gate = None
+            sigma_t = sigma_fn(pack_od(rays_o, rays_d),
+                               z_vals.T.contiguous(), packed["coarse"],
+                               L_x=cfg.L_x, out_dtype=torch.bfloat16)
+        return weights_from_sigma_t(sigma_t, z_vals.T, rays_d).T, gate
+
+    def split(fn, m: int, *rows):
+        """``fn`` over this rank's rows, its row outputs gathered, and the
+        rank's gate (None where ungated, and on ranks other than 0 where
+        every rank took every row, so that no gate is counted twice)."""
+        gates = []
+
+        def rank_part(*part):
+            *out, gate = fn(*part)
+            gates.append(gate)
+            return tuple(out)
+        out = _split_render(rank_part, m, *rows)
+        whole = parallel.is_distributed() and m < parallel.world_size()
+        return out, (None if whole and parallel.rank() else gates[0])
+
+    def gate_share(gates, gated: bool):
+        """Skipped share of the (tile, row) blocks under ``gates`` (one entry
+        a block; None where this rank counts none), over every rank's gates;
+        None where the pass ran ungated or had no block (both alike on every
+        rank)."""
+        if not gated or not gates:
+            return None
+        off, total = torch.zeros((), device=device), 0
+        for g in gates:
+            if g is not None:
+                off, total = off + torch.sum(g == 0), total + g.numel()
+        # a fill, not a host-to-device copy, which would wait for the frame
+        counts = parallel.all_reduce_sum(torch.stack(
+            [off, torch.full((), float(total), device=device)]))
+        return counts[0] / counts[1]
 
     @torch.no_grad()
     def render(packed, c2w, generator: Optional[torch.Generator] = None):
         _check_fields(packed, route)
+        _need_generator(generator)
         rays_o, rays_d = gen_rays(c2w)
         pc = module_bounds(packed, "coarse") if use_precull else None
         fb = module_bounds(packed, "fine") if use_gate_fine else None
@@ -509,47 +623,34 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
         z_vals = stratified_z_vals(n_total, near, far, n_coarse,
                                    perturb=stratified, generator=generator,
                                    device=device)
-        gate_c = None
-        if not use_rays:
-            *_, coarse_sigma = _plane_fields(packed, cfg, route, plane_fn,
-                                             points_fn)
-            sigma = coarse_sigma(position_plane(rays_o, rays_d, z_vals))
-            weights = weights_from_sigma(sigma.reshape(n_total, n_coarse),
-                                         z_vals, rays_d)
-        elif pc is not None:
-            sigma_t, gate_c = _gated_sigma_t(packed["coarse"], rays_o,
-                                             rays_d, z_vals, pc, half, near,
-                                             far, cfg.L_x, sigma_fn)
-            weights = weights_from_sigma_t(sigma_t, z_vals.T, rays_d).T
-        else:
-            sigma_t = sigma_fn(pack_od(rays_o, rays_d),
-                               z_vals.T.contiguous(), packed["coarse"],
-                               L_x=cfg.L_x, out_dtype=torch.bfloat16)
-            weights = weights_from_sigma_t(sigma_t, z_vals.T, rays_d).T
+        (weights,), gate_c = split(
+            lambda ro, rd, z: coarse_weights(packed, pc, ro, rd, z),
+            n_total, rays_o, rays_d, z_vals)
         order, class_cum, rgb_frame, disp_frame = stats_tail(z_vals, weights)
         cum = class_cum.tolist()              # the frame's one host read
         n_act = cum[-1]
 
-        # phase 2: the surviving rays, block by block, scattered in place
+        # phase 2: the surviving rays, block by block, scattered in place;
+        # each block's fine uniforms are drawn whole first
         blocks = _cover(n_act, cum, sizes, s_classes)
-        gated_off = gated_all = None
+        gates = []
         for pos, sz, s_keep in blocks:
             idx = order[pos:min(pos + sz, n_total)]
-            rgb, disp, gate = fine_block(packed, rays_o[idx], rays_d[idx],
-                                         z_vals[idx], weights[idx], s_keep,
-                                         fb, generator)
+            m = idx.shape[0]
+            u = (_uniforms(m, n_fine, generator, device)
+                 if perturb != 0.0 else None)
+            (rgb, disp), gate = split(
+                lambda i, uf: fine_block(packed, rays_o[i], rays_d[i],
+                                         z_vals[i], weights[i], s_keep, fb,
+                                         uf),
+                m, idx, u)
             rgb_frame.index_copy_(0, idx, rgb)
             disp_frame.index_copy_(0, idx, disp)
-            if gate is not None:
-                off = torch.sum(gate == 0)
-                gated_off = off if gated_off is None else gated_off + off
-                gated_all = (gated_all or 0) + gate.numel()
+            gates.append(gate)
         stats.append(dict(
             n_act=n_act, blocks=len(blocks),
-            gate_frac_coarse=(None if gate_c is None
-                              else 1.0 - gate_c.float().mean()),
-            gate_frac_fine=(None if gated_off is None
-                            else gated_off / gated_all)))
+            gate_frac_coarse=gate_share([gate_c], use_rays and pc is not None),
+            gate_frac_fine=gate_share(gates, use_rays and fb is not None)))
         return rgb_frame.reshape(H, W, 3), disp_frame.reshape(H, W)
 
     render.block = block

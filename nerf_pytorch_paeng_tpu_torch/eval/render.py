@@ -13,6 +13,10 @@ The machine the port targets has no imageio, so a gif goes through
 Pillow (40 ms a frame, looping) and an mp4 through OpenCV's
 ``VideoWriter`` (``mp4v``, 30 fps).  imageio's ``quality=8`` has no
 counterpart there: OpenCV's mp4v writer takes no quality setting.
+
+Under a process group every rank renders its part of each frame
+(``eval/frame.py``) and holds the whole frames; rank 0 alone writes the
+images and videos and prints.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data.render_pose import get_render_pose
 from ..utils.image import imwrite
 from ..utils.metrics import to8b
@@ -78,7 +83,9 @@ def run_render(idx: int, packed, K, hw, cfg, device,
     if save_dir is None:
         save_dir = os.path.join(cfg.logdir, cfg.exp_name,
                                 f"{cfg.exp_name}_{idx}", "render_result")
-    os.makedirs(save_dir, exist_ok=True)
+    main = parallel.is_main()
+    if main:
+        os.makedirs(save_dir, exist_ok=True)
 
     renderer = make_frame_renderer(cfg, H, W, K, device)
     generator = torch.Generator(device).manual_seed(cfg.seed + idx + 1)
@@ -117,6 +124,8 @@ def run_render(idx: int, packed, K, hw, cfg, device,
         dmax = np.nanmax(disp_np)
         disp_np = disp_np / dmax if dmax > 0 else disp_np
         rgbs[i], disps[i] = rgb_np, disp_np
+        if not main:
+            return
         if verbose:
             print(f"render view {i}/{n}: frame {frame_s[i] * 1e3:.1f} ms")
         # a still is written twice, named and numbered, as the reference
@@ -131,7 +140,7 @@ def run_render(idx: int, packed, K, hw, cfg, device,
 
     pipelined_frames(poses, _render, _drain)
     rgbs, disps = np.stack(rgbs, 0), np.stack(disps, 0)
-    if cfg.single_angle == -1:
+    if cfg.single_angle == -1 and main:
         write = write_mp4 if cfg.render_type == "mp4" else write_gif
         for name, frames in (("_rgb", rgbs), ("_disp", disps)):
             write(os.path.join(save_dir, f"{name}.{cfg.render_type}"),

@@ -4,13 +4,28 @@ on the device, reshuffled each epoch.
 Counterpart of the JAX package's ``train/batching.py`` (reference
 main.py:93-106 and utils.py:41-58): the pool is one [M, 3, 3] tensor,
 batches are slices of it, and only the integer cursor lives on the host.
+
+Under a process group every rank holds the whole pool in the same order
+and takes the same global batch (the train step keeps its slice): each
+shuffle's permutation is rank 0's, broadcast (``_permutation``), so that
+no rank trains on other rays than the others think it does.  Without a
+group, or at world size 1, the permutation is the generator's own.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import parallel
 from ..ops.rays import get_rays_batched
+
+
+def _permutation(n: int, generator: torch.Generator, device) -> torch.Tensor:
+    """``randperm(n)`` from ``generator``, rank 0's on every rank."""
+    perm = torch.randperm(n, generator=generator, device=device)
+    if parallel.world_size() > 1:
+        parallel.broadcast0(perm)
+    return perm
 
 
 def build_ray_pool(images: np.ndarray, K, poses: np.ndarray,
@@ -26,8 +41,7 @@ def build_ray_pool(images: np.ndarray, K, poses: np.ndarray,
     rays_o, rays_d = get_rays_batched(H, W, K, poses_train)   # [T, H, W, 3]
     rgb = torch.as_tensor(np.asarray(images, np.float32)[idx], device=device)
     pool = torch.stack([rays_o, rays_d, rgb], 3).reshape(-1, 3, 3)
-    return pool[torch.randperm(len(pool), generator=generator,
-                               device=device)]
+    return pool[_permutation(len(pool), generator, device)]
 
 
 class RayPool:
@@ -41,9 +55,8 @@ class RayPool:
         self.epoch = 0
 
     def _reshuffle(self) -> None:
-        self.pool = self.pool[torch.randperm(
-            len(self.pool), generator=self.generator,
-            device=self.pool.device)]
+        self.pool = self.pool[_permutation(len(self.pool), self.generator,
+                                           self.pool.device)]
         self.epoch += 1
 
     def next_start(self, n: int) -> int:

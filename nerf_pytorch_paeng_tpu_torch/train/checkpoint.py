@@ -4,7 +4,9 @@
 ``idx`` (completed updates), ``model_state_dict`` (the reference layer
 names, ``NeRF.state_dict()``) and ``optimizer_state_dict``.  The
 ``--eval_only`` entry and the reference read the same files.  The step is
-in the file, so the schedule resumes where it stopped.
+in the file, so the schedule resumes where it stopped.  Under a process
+group only rank 0 writes (every rank holds the same state); every rank
+restores.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from .. import parallel
 from .state import TrainState
 
 
@@ -33,7 +36,10 @@ def latest_checkpoint_step(logdir: str, exp_name: str) -> Optional[int]:
 
 
 def save_checkpoint(logdir: str, exp_name: str, state: TrainState) -> str:
+    """Write ``state`` (rank 0 only); returns the checkpoint's path."""
     path = checkpoint_path(logdir, exp_name, state.step)
+    if not parallel.is_main():
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     torch.save({"idx": state.step,

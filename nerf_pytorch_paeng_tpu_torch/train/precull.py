@@ -49,8 +49,8 @@ def train_precull_enabled(cfg, n_rays: int = 0) -> bool:
     included, ``use_rays_train`` and its shapes; the plane and plain routes
     train ungated), and a usable support grid (on the CPU only with an
     explicit ``render_precull_grid``: there the grid runs the plain
-    versions).  There is no device mesh here: the JAX package's
-    data-only-mesh condition is the single device."""
+    versions).  ``n_rays`` is the count one rank trains on
+    (``train_precull_active``)."""
     from ..eval.frame import _precull_grid
     from ..ops.render import supports_train_rays_kernels
 
@@ -60,6 +60,16 @@ def train_precull_enabled(cfg, n_rays: int = 0) -> bool:
                 and cfg.use_rays_train
                 and supports_train_rays_kernels(cfg, n)
                 and _precull_grid(cfg, torch.device(cfg.device)) > 0)
+
+
+def train_precull_active(cfg, world: int) -> bool:
+    """``train_precull_enabled`` at the per-rank ray count of a launch of
+    ``world`` ranks, where the ranks split the batch evenly (the JAX
+    package's ``train_precull_active``: its shard_map path needs a
+    dividing batch, and each shard gates its ``N_rays / world`` rays)."""
+    if cfg.N_rays % world != 0:
+        return False
+    return train_precull_enabled(cfg, cfg.N_rays // world)
 
 
 def make_train_support_program(cfg, poses=None, K=None, hw=None,

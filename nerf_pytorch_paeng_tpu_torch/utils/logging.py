@@ -5,7 +5,9 @@ TensorBoard (the card's machine has none).  The CSV schema is declared up
 front, so a metric that first appears mid-run does not rewrite the file,
 and logging a metric outside it raises.  A fresh run truncates the file;
 a resumed run appends to it, after one merge-rewrite under the union
-header if the file on disk has another schema.
+header if the file on disk has another schema.  Under a process group
+only rank 0 writes and prints (the metrics it logs are the ranks'
+reduced ones); the other ranks' loggers do nothing.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import csv
 import os
 import time
 from typing import Dict, Optional
+
+from .. import parallel
 
 # every metric the training loop emits (train/step._loss_and_metrics with
 # the gated steps' gate_frac, the driver's lr and the derived throughput
@@ -23,6 +27,9 @@ FIELDS = ("loss", "loss_c", "loss_f", "psnr", "psnr_c", "psnr_f", "lr",
 
 class MetricLogger:
     def __init__(self, logdir: str, exp_name: str, fresh: bool = False):
+        self._csv_file = None
+        if not parallel.is_main():
+            return
         self.dir = os.path.join(logdir, exp_name)
         os.makedirs(self.dir, exist_ok=True)
         self.csv_path = os.path.join(self.dir, "metrics.csv")
@@ -35,6 +42,8 @@ class MetricLogger:
 
     def log(self, step: int, metrics: Dict[str, object],
             to_stdout: bool = False, n_rays: Optional[int] = None) -> None:
+        if self._csv_file is None:
+            return
         vals = {k: float(v) for k, v in metrics.items()}
         now = time.time()
         dstep = step - self._last_step

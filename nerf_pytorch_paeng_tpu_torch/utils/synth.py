@@ -263,3 +263,38 @@ def compact_field_state_dict(r: float = 1.5, k: float = 20.0, seed: int = 0,
     reference ``model_state_dict``)."""
     return state_dict_from_jax_params(
         compact_field_params(r, k, seed, L_x, L_d))
+
+
+def random_lpips_params(seed: int = 0) -> Dict[str, np.ndarray]:
+    """Seeded random VGG16 + LPIPS-linear weights in the layout of
+    ``tools/export_lpips_weights.py`` (``conv{i}_w`` [3, 3, in, out] HWIO,
+    ``conv{i}_b`` [out], ``lin{i}_w`` [C_i]), He-scaled so activations
+    stay finite through the 13 convolutions: the LPIPS graph's inputs
+    where the pretrained weights are not in the repository."""
+    from ..eval.metrics import _VGG_BLOCKS
+    rng = np.random.default_rng(seed)
+    params, li, in_ch = {}, 0, 3
+    for ch, n_convs in _VGG_BLOCKS:
+        for _ in range(n_convs):
+            scale = (2.0 / (9 * in_ch)) ** 0.5
+            params[f"conv{li}_w"] = (rng.normal(size=(3, 3, in_ch, ch))
+                                     * scale).astype(np.float32)
+            params[f"conv{li}_b"] = (rng.normal(size=(ch,))
+                                     * 0.01).astype(np.float32)
+            in_ch, li = ch, li + 1
+    for i, (ch, _) in enumerate(_VGG_BLOCKS):
+        params[f"lin{i}_w"] = rng.uniform(0, 0.1, (ch,)).astype(np.float32)
+    return params
+
+
+def save_lpips_params(path: str, params: Dict[str, np.ndarray]) -> str:
+    """Write ``params`` as the .npz ``eval/metrics.load_lpips_params``
+    reads, with its ``<path>.sha256`` sidecar; returns ``path``."""
+    import hashlib
+    with open(path, "wb") as f:
+        np.savez(f, **params)
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    with open(path + ".sha256", "w") as f:
+        f.write(f"{digest}  {os.path.basename(path)}\n")
+    return path

@@ -1028,3 +1028,76 @@ def test_reference_shape_with_use_pallas_still_launches_kernels(dev):
     assert (fm.fused_mlp_eval_rays.launches - before[0],
             fv.fused_mlp_bwd_rays.launches - before[1],
             fm.fused_mlp_sigma_rays.launches - before[2]) == (3, 2, 1)
+
+
+def test_lpips_on_the_card_matches_the_cpu(dev):
+    """The LPIPS graph on the card (float32, TF32 off) against the CPU on
+    seeded random weights: 1e-4 relative."""
+    from nerf_pytorch_paeng_tpu_torch.eval.metrics import (load_lpips_params,
+                                                           lpips_tensor)
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import (
+        random_lpips_params, save_lpips_params)
+
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = save_lpips_params(f"{d}/vgg.npz", random_lpips_params(0))
+        on_card, on_cpu = (load_lpips_params(path, x) for x in (dev, "cpu"))
+    rng = np.random.default_rng(0)
+    gt = rng.uniform(0, 1, (123, 157, 3)).astype(np.float32)
+    pred = np.clip(gt + rng.normal(0, 0.1, gt.shape), 0, 1).astype(np.float32)
+    flag = torch.backends.cudnn.allow_tf32
+    got = lpips_tensor(torch.from_numpy(pred), torch.from_numpy(gt), on_card)
+    want = lpips_tensor(torch.from_numpy(pred), torch.from_numpy(gt), on_cpu)
+    assert got.device.type == "cuda"
+    assert float(got) == pytest.approx(float(want), rel=1e-4)
+    assert torch.backends.cudnn.allow_tf32 == flag    # given back
+
+
+@pytest.mark.parametrize("mode", ["global", "image"])
+def test_nccl_world_one_step_is_the_plain_step(dev, mode, monkeypatch):
+    """A launch of one rank over NCCL runs every collective of the step:
+    two full-width lego steps, their metrics and weights bit-equal to the
+    same steps without a process group."""
+    from nerf_pytorch_paeng_tpu_torch import parallel
+    from nerf_pytorch_paeng_tpu_torch.train import create_train_state
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import (
+        make_image_train_step, make_train_step)
+
+    cfg = NerfConfig(N_rays=4096, N_samples_c=64, N_samples_f=128,
+                     iter_warmup=0, iter_N=10)
+    images, K, poses = make_synth_scene(n_views=1, H=64, W=64)
+    img = torch.from_numpy(images[0]).to(dev)
+    pose = torch.from_numpy(poses[0][:3, :4]).to(dev)
+    rng = np.random.default_rng(0)
+    batch = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        np.array([0.0, 0.0, 4.0]) + rng.normal(0, 0.1, (4096, 3)),
+        rng.normal(0, 0.3, (4096, 3)) - np.array([0.0, 0.0, 1.0]),
+        rng.uniform(0, 1, (4096, 3)))]
+
+    def run():
+        state = create_train_state(cfg, dev)
+        if mode == "global":
+            step = make_train_step(cfg, schedule_from_cfg(cfg))
+            ms = [step(state, *batch) for _ in range(2)]
+        else:
+            step = make_image_train_step(cfg, schedule_from_cfg(cfg), 64, 64,
+                                         K)
+            ms = [step(state, img, pose) for _ in range(2)]
+        return ([{k: float(v) for k, v in m.items()} for m in ms],
+                state.model.state_dict())
+
+    plain = run()
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(parallel.free_port())).items():
+        monkeypatch.setenv(k, v)
+    _, made = parallel.maybe_initialize_distributed("cuda")
+    try:
+        assert made and torch.distributed.get_backend() == "nccl"
+        launched = run()
+    finally:
+        parallel.destroy()
+    assert launched[0] == plain[0]
+    for k, v in plain[1].items():
+        assert torch.equal(launched[1][k], v), k

@@ -97,7 +97,7 @@ def test_lpips_is_gated_not_faked():
     assert load_lpips_params("") is None
     assert np.isnan(compute_lpips(np.zeros((4, 4, 3)), np.zeros((4, 4, 3)),
                                   None))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         load_lpips_params("/nonexistent/vgg.npz")
 
 
@@ -124,7 +124,7 @@ def test_cli_overrides_and_device_knob():
         port_config.load_config(["--data_type", "nope"])
 
 
-@pytest.mark.parametrize("knob", [("n_data_shards", "2"),
+@pytest.mark.parametrize("knob", [("compile_cache", "off"),
                                   ("scan_chunk", "4")])
 def test_unported_tpu_knobs_are_refused(knob, tmp_path):
     """A TPU knob of the JAX package fails loudly instead of being

@@ -206,5 +206,5 @@ def test_config_knobs_are_the_jax_packages():
     assert set(ours) - set(theirs) == {"device"}
     for k, v in ours.items():
         assert k == "device" or theirs[k] == v, k
-    for name in ("scan_chunk", "sp_shards"):
+    for name in ("scan_chunk", "compile_cache"):
         assert name in theirs and name not in ours, name
