@@ -157,6 +157,19 @@
    launched, launched, plain); then
    ``torch.distributed.run --standalone --nproc_per_node 1`` on the CLI
    with ``--n_data_shards 1``: exit 0 and rank 0's checkpoint.
+14. The mesh's model axis (``mesh_phase``): two ranks share the one card
+   over gloo (NCCL takes one rank a GPU; this shows the semantics and the
+   kernels on the card, not a 2-GPU speed), each a ``chip_smoke.py
+   --mesh-worker`` process that makes its group and calls
+   ``driver.main_worker``: ``--n_model_shards 2`` training of lego at full
+   width (3 steps a batch mode at 512 rays, float32: step 1's loss within
+   1e-5 of the one-process plain-route step, no kernel, the replicated
+   weights bit-equal), ``--eval_only`` of one 800x800 view of its gathered
+   checkpoint (K3 and K1; the frame within 1e-5 of one process's), and
+   with ``--sp_shards 2`` (K8 alone; at ``perturb 0`` >= 35 dB against
+   the dense kernel frame; K8 on one rank's coarse and fine planes of a
+   block within ``KERNEL_TOL`` of its plain version, timed one rank at a
+   time).
 
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -238,6 +251,13 @@ PLAIN_RENDER_VIEWS = 3
 PLAIN_SHAPE = ("--netDepth", "4", "--netWidth", "128", "--L_x", "0",
                "--L_d", "0")              # outside the kernels' domain
 PLAIN_SHAPE_STEPS = 10
+# the mesh phase: two ranks on the one card over gloo, which stages every
+# collective through the host; the width-sharded steps' batch is cut from
+# 4096 rays (one row-parallel activation all-reduce at 4096 x 192 points
+# is 805 MB)
+MESH_RAYS = 512
+MESH_STEPS = 3
+MESH_TIMEOUT_S = 600
 
 
 def log(*a):
@@ -2986,6 +3006,319 @@ def dp_phase(work: str, data_root: str, device) -> tuple:
     return launches, record
 
 
+def mesh_worker(spec_path: str) -> int:
+    """One rank of the mesh phase: ``chip_smoke.py --mesh-worker <spec>``.
+
+    The card machine has one GPU, and NCCL takes one rank a GPU, so the
+    two ranks share ``cuda:0`` over a gloo group that this process makes
+    itself (``parallel.maybe_initialize_distributed`` keeps a group its
+    caller made).  Each job of the spec is one ``driver.main_worker`` run
+    with every launch counter at 0 before it and read after.  Then, on
+    the TP evaluation's weights: the dense frame of the ``--eval_only``
+    entry's renderer (the rays split over both ranks), and the
+    sample-sharded frame at ``perturb 0`` with K8's inputs recorded,
+    timed (CUDA events) once more unrecorded, and K8 on one rank's
+    coarse and fine planes of the first block against its plain version
+    (these launches are not a path's).  Rank 0 writes its results, the
+    frames included, to ``<out>/rank0.pt``; every rank writes its own."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    r, world = spec["rank"], spec["world"]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # a rank that fails leaves the other in a collective: 5 minutes, not
+    # gloo's default 30
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{spec['port']}", rank=r, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    from nerf_pytorch_paeng_tpu_torch import driver, parallel
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
+    from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp as fm
+
+    device = torch.device("cuda", 0)
+    out = {}
+    try:
+        for name, argv in spec["jobs"]:
+            cfg = load_config(argv)
+            zero_launches()
+            res = driver.main_worker(cfg)
+            torch.cuda.synchronize(device)
+            out[name] = dict(res=res, launches=read_launches())
+            log(f"mesh rank {r}: {name} done, launches "
+                f"{out[name]['launches']}")
+
+        # the frames, on the weights of the TP evaluation (its checkpoint)
+        cfg = load_config(spec["jobs"][-2][1])
+        parallel.init_layout(cfg)
+        model = driver.load_model(cfg, cfg.testing_idx, device)
+        packed = fm.pack_nerf(model, cfg, device=device)
+        _, (K, ext), (H, W), i_split = load_blender(
+            cfg.data_root, cfg.bkg_white, cfg.downsample, cfg.testskip)
+        pose = torch.as_tensor(ext[i_split[2][0]][:3, :4])
+        dense = make_frame_renderer(dataclasses.replace(
+            cfg, render_cull="none"), H, W, K, device)
+        out["tp_frame"] = dense(packed, pose, torch.Generator(
+            device).manual_seed(cfg.seed + cfg.testing_idx))
+        calls = []
+
+        def rec(x, d, p, **kw):
+            if len(calls) < 2:              # block 0: coarse, then fine
+                calls.append((x, d, p, kw))
+            return fm.fused_mlp_eval(x, d, p, **kw)
+        sp_cfg = dataclasses.replace(load_config(spec["jobs"][-1][1]),
+                                     perturb=0.0, render_cull="none")
+        frames = []
+        for plane_fn in (rec, fm.fused_mlp_eval):
+            sp = make_frame_renderer(sp_cfg, H, W, K, device,
+                                     plane_fn=plane_fn)
+            zero_launches()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            frames.append(sp(packed, pose, torch.Generator(
+                device).manual_seed(cfg.seed)))
+            end.record()
+            torch.cuda.synchronize(device)
+            frames[-1] = (*frames[-1], start.elapsed_time(end),
+                          read_launches()["fused_mlp_eval"])
+        check(all(torch.equal(a, b) for a, b in zip(frames[0][:2],
+                                                    frames[1][:2])),
+              "the sample-sharded frame differs between two renders")
+        out["sp_frame"] = frames[1][:2]
+        out["sp_frame_ms"] = [f[2] for f in frames]
+        out["sp_frame_k8"] = frames[1][3]
+        k8 = []
+        for turn in range(world):           # one rank at a time on the card
+            if turn == r:
+                k8 = sp_k8_check(fm, cfg, calls, r)
+            dist.barrier()
+        check(len(k8) == 2, f"K8 recorded {len(calls)} calls of block 0")
+        out["k8_sp"] = k8
+        out["layout"] = tuple(parallel.layout()[:2])
+    finally:
+        parallel.destroy()
+    torch.save(out, os.path.join(spec["out"], f"rank{r}.pt"))
+    return 0
+
+
+def sp_k8_check(fm, cfg, calls, r: int) -> list:
+    """K8 on one rank's recorded coarse and fine planes of a frame block
+    (timed while the other rank waits) against its plain version."""
+    k8 = []
+    for (x, d, p, kw), what in zip(calls, ("coarse", "fine")):
+        k_ms, got = cuda_ms(lambda: fm.fused_mlp_eval(x, d, p, **kw), 3)
+        p_ms, want = cuda_ms(lambda: fm.fused_mlp_eval_plain(
+            x, d, p, **kw), reps=1, warmup=0)
+        max_abs, rel_l2 = errors([got], [want])
+        n_pts = x.shape[1]
+        wbytes = p["w"].numel() * 2 + p["b"].numel() * 4
+        b_ms, b_by = bound(fm.eval_flop_per_point(cfg.L_x, cfg.L_d)
+                           * n_pts, n_pts * (24 + 8) + wbytes)
+        k8.append(dict(pass_=what, points=n_pts, max_abs=max_abs,
+                       rel_l2=rel_l2, ms=k_ms, plain_ms=p_ms,
+                       bound_ms=b_ms, bound_by=b_by))
+        log(f"mesh rank {r}: K8 at the sample-sharded {what} planes of "
+            f"block 0 ({n_pts} points): max_abs={max_abs:.3e} "
+            f"rel_l2={rel_l2:.3e} (tolerance {KERNEL_TOL}) ms={k_ms:.3f}"
+            f" plain_ms={p_ms:.3f} bound_ms={b_ms:.3f}")
+        check(max_abs <= KERNEL_TOL["max_abs"]
+              and rel_l2 <= KERNEL_TOL["rel_l2"],
+              f"K8 at the sample-sharded {what} planes disagrees with "
+              f"its plain version ({max_abs}, {rel_l2})")
+    return k8
+
+
+def mesh_phase(work: str, data_root: str, device) -> tuple:
+    """The mesh's model axis on two ranks that share the one card over
+    gloo (``mesh_worker``; NCCL takes one rank a GPU): it shows the
+    semantics and the kernels on the card, not a 2-GPU speed.
+
+    (a) ``--n_model_shards 2`` training, lego at full width and
+    ``MESH_STEPS`` steps in each batch mode at ``MESH_RAYS`` rays (cut from
+    4096: gloo stages every activation all-reduce through the host) and
+    ``--compute_dtype float32`` (at bf16 the sharded sums' order flips
+    bf16 roundings, ~1e-5 on the loss):
+    step 1's loss within 1e-5 relative of the one-process plain-route
+    step's (the width-sharded step takes the plain route, as the JAX
+    package forces its XLA route there), no kernel launched, and the
+    driver's check that the replicated weights are bit-equal over the
+    model group; (b) ``--eval_only`` of one 800x800 view of the TP run's
+    gathered checkpoint with ``--n_model_shards 2``: K3 and K1 launched,
+    the frame within 1e-5 of the one-process frame; (c) the same with
+    ``--sp_shards 2``: K8 launched and no other kernel, the frame at
+    ``perturb 0`` at least ``FRAME_PSNR_MIN`` against the dense kernel
+    frame of the same weights, K8 within ``KERNEL_TOL`` of its plain
+    version on one rank's planes of one block.  Returns each path's
+    launches (both ranks summed) and the phase's record."""
+    import dataclasses
+
+    from nerf_pytorch_paeng_tpu_torch import driver, parallel
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
+    from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import pack_nerf
+
+    def steps_args(exp: str, mode: str, *extra):
+        # float32 compute: at bf16 the sharded sums' other float32 order
+        # flips some bf16 roundings of the next layer's operands (1.06e-5
+        # relative on step 1's loss at 128 rays on the CPU)
+        return train_args(work, data_root, exp, MESH_STEPS, "--N_rays",
+                          str(MESH_RAYS), "--idx_print", "0", "--global_batch",
+                          "true" if mode == "global" else "false",
+                          "--compute_dtype", "float32", *extra)
+
+    plain = {}
+    for mode in ("image", "global"):
+        cfg = load_config(steps_args(f"mesh_plain_{mode}", mode,
+                                     "--idx_save", "0", "--use_pallas",
+                                     "false"))
+        plain[mode] = driver.main_worker(cfg)
+    logs = os.path.join(work, "logs")
+    eval_args = ["--config", os.path.join(HERE, "configs/blender/lego.txt"),
+                 "--eval_only", "true", "--testing_idx", str(MESH_STEPS),
+                 "--testskip", "3", "--exp_name", "mesh_tp_image",
+                 "--data_root", data_root, "--log_dir", logs,
+                 "--n_model_shards", "2"]
+    jobs = [(f"tp_train_{mode}", steps_args(
+        f"mesh_tp_{mode}", mode, "--idx_save", str(MESH_STEPS),
+        "--n_model_shards", "2")) for mode in ("image", "global")]
+    jobs += [("tp_eval", eval_args),
+             ("sp_eval", eval_args + ["--sp_shards", "2"])]
+    out_dir = os.path.join(work, "mesh")
+    os.makedirs(out_dir)
+    port = parallel.free_port()
+    env = {**os.environ, "PYTHONPATH": HERE}
+    for v in parallel.LAUNCH_ENV:
+        env.pop(v, None)
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(2):
+        spec = os.path.join(out_dir, f"spec{r}.json")
+        with open(spec, "w") as f:
+            json.dump(dict(rank=r, world=2, port=port, out=out_dir,
+                           jobs=jobs), f)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--mesh-worker", spec], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            if line.startswith("mesh rank") or line.startswith(">> device"):
+                log(line)
+        check(p.returncode == 0, f"mesh rank {r} exited {p.returncode}:\n"
+              f"{text[-4000:]}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        map_location=device, weights_only=False)
+             for r in range(2)]
+    r0 = ranks[0]
+    check(tuple(r0["layout"]) == (1, 2), f"layout {r0['layout']}")
+    launches, record = {}, dict(ranks=2, backend="gloo", card="one, shared",
+                                wall_s=wall, n_rays=MESH_RAYS,
+                                steps=MESH_STEPS)
+
+    def summed(job):
+        return {k: sum(rk[job]["launches"][k] for rk in ranks)
+                for k in r0[job]["launches"]}
+
+    # (a) the width-sharded steps against the one-process plain steps
+    for mode in ("image", "global"):
+        res, want = r0[f"tp_train_{mode}"]["res"], plain[mode]
+        rel = abs(res["loss"][0] - want["loss"][0]) / abs(want["loss"][0])
+        tp_ms = [t * 1e3 for t in res["step_s"]]
+        pl_ms = [t * 1e3 for t in want["step_s"]]
+        la = summed(f"tp_train_{mode}")
+        log(f"mesh tp {mode}: {MESH_STEPS} steps at {MESH_RAYS} rays on 2 "
+            f"ranks (1 data x 2 model, gloo, one card): losses {res['loss']}"
+            f" vs one process (plain route) {want['loss']}: step 1 rel "
+            f"{rel:.2e} (limit 1e-5); step ms (CUDA events) "
+            f"{['%.1f' % t for t in tp_ms]} vs one process "
+            f"{['%.1f' % t for t in pl_ms]}; launches {la}")
+        check(rel <= 1e-5, f"TP {mode} step 1 loss {res['loss'][0]} vs "
+              f"{want['loss'][0]}")
+        only_launched(la, {}, f"TP training ({mode})")
+        launches[f"mesh_tp_train_{mode}"] = la
+        record[f"tp_train_{mode}"] = dict(
+            loss=res["loss"], plain_loss=want["loss"], step1_rel=rel,
+            step_ms=tp_ms, plain_step_ms=pl_ms, launches=la)
+
+    # (b) TP rendering: K3 and K1 on the gathered weights
+    cfg = load_config(eval_args)
+    la = summed("tp_eval")
+    only_launched({k: v for k, v in la.items() if k not in (
+        "fused_mlp_sigma_rays", "fused_mlp_eval_rays")}, {},
+        "TP --eval_only")
+    check(la["fused_mlp_sigma_rays"] > 0 and la["fused_mlp_eval_rays"] > 0,
+          f"TP --eval_only launches {la}")
+    model = driver.load_model(cfg, MESH_STEPS, device)
+    packed = pack_nerf(model, cfg, device=device)
+    _, (K, ext), (H, W), i_split = load_blender(data_root, cfg.bkg_white,
+                                                cfg.downsample, cfg.testskip)
+    pose = torch.as_tensor(ext[i_split[2][0]][:3, :4])
+    one = make_frame_renderer(dataclasses.replace(cfg, render_cull="none"),
+                              H, W, K, device)(packed, pose, torch.Generator(
+                                  device).manual_seed(cfg.seed + MESH_STEPS))
+    tp_err = max(float((a - b).abs().max()) for a, b in zip(r0["tp_frame"],
+                                                            one))
+    tp_res = r0["tp_eval"]["res"]
+    log(f"mesh tp eval: --eval_only --n_model_shards 2, one {H}x{W} view: "
+        f"PSNR {tp_res['psnr']}, frame ms (CUDA events, rank 0) "
+        f"{['%.1f' % (t * 1e3) for t in tp_res['frame_s']]}; the frame vs "
+        f"one process max abs {tp_err:.3e} (limit 1e-5); launches {la}")
+    check(tp_err <= 1e-5, f"TP frame vs one process: {tp_err}")
+    launches["mesh_tp_eval"] = la
+    record["tp_eval"] = dict(psnr=tp_res["psnr"], frame_ms=[
+        t * 1e3 for t in tp_res["frame_s"]], max_abs_vs_one=tp_err,
+        launches=la)
+
+    # (c) the sample-sharded frame: K8 alone, against the dense frame
+    la = summed("sp_eval")
+    only_launched({k: v for k, v in la.items() if k not in (
+        "fused_mlp_eval", "fused_mlp_eval_f32")}, {}, "SP --eval_only")
+    check(la["fused_mlp_eval"] > 0, f"SP --eval_only launches {la}")
+    sp_cfg = dataclasses.replace(load_config(eval_args + ["--sp_shards",
+                                                          "2"]),
+                                 perturb=0.0, render_cull="none")
+    dense = make_frame_renderer(dataclasses.replace(sp_cfg, sp_shards=0,
+                                                    n_model_shards=1),
+                                H, W, K, device)(packed, pose, torch.Generator(
+                                    device).manual_seed(cfg.seed))
+    sp_psnr = psnr(r0["sp_frame"][0], dense[0])
+    sp_res = r0["sp_eval"]["res"]
+    k8 = r0["k8_sp"]
+    log(f"mesh sp eval: --eval_only --sp_shards 2 --n_model_shards 2, one "
+        f"{H}x{W} view: PSNR {sp_res['psnr']}, frame ms (CUDA events, rank "
+        f"0) {['%.1f' % (t * 1e3) for t in sp_res['frame_s']]}; launches "
+        f"{la}; at perturb 0 vs the dense kernel frame {sp_psnr:.2f} dB "
+        f"(min {FRAME_PSNR_MIN}), frame ms {r0['sp_frame_ms']} (rank 0, "
+        f"recorded then not), K8 {r0['sp_frame_k8']} launches a rank a "
+        f"frame")
+    check(sp_psnr >= FRAME_PSNR_MIN, f"SP frame vs dense {sp_psnr} dB")
+    launches["mesh_sp_eval"] = la
+    record["sp_eval"] = dict(
+        psnr=sp_res["psnr"], frame_ms=[t * 1e3 for t in sp_res["frame_s"]],
+        perturb0_psnr_vs_dense=sp_psnr, perturb0_frame_ms=r0["sp_frame_ms"],
+        k8_launches_a_rank_a_frame=r0["sp_frame_k8"], k8=k8, launches=la)
+    return launches, record
+
+
 def ptxas_lines(text: str) -> list:
     """(kernel, line) for every register and spill line of a ``-Xptxas -v``
     log, each under the entry function it reports on: the ``*_kernel``
@@ -3010,6 +3343,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(sys.argv[2])
     sys.path.insert(0, HERE)
     from nerf_pytorch_paeng_tpu_torch.config import NerfConfig
     from nerf_pytorch_paeng_tpu_torch.kernels import build
@@ -3108,6 +3443,8 @@ def main() -> int:
         lap("lpips")
         dp_launches, dp_stats = dp_phase(work, data_root, device)
         lap("data_parallel")
+        mesh_launches, mesh_stats = mesh_phase(work, data_root, device)
+        lap("mesh")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each path's own run, counters at 0 before it: K3 and K1 on the eval
@@ -3121,10 +3458,12 @@ def main() -> int:
              "train": train_launches, "gated_train": gated_launches,
              "plane_train": plane_launches, "plane_train_n4000": n4000_launches,
              **{f"plane_{k}": v for k, v in plane_frame_launches.items()},
-             **llff_launches, "eval_lpips": lpips_launches, **dp_launches}
+             **llff_launches, "eval_lpips": lpips_launches, **dp_launches,
+             **mesh_launches}
     only = {"fused_mlp_eval_rays_gated": ("render",),
             "fused_mlp_eval_rays_gated_f32": ("gated_train",),
-            "fused_mlp_eval": tuple(f"plane_{k}" for k in plane_frame_launches),
+            "fused_mlp_eval": tuple(f"plane_{k}" for k in plane_frame_launches)
+            + ("mesh_sp_eval",),
             "fused_mlp_eval_f32": ("plane_train", "plane_train_n4000")}
     for name, row in rows.items():
         row["launches"] = sum(paths[p][name] for p in only.get(name, paths))
@@ -3133,6 +3472,14 @@ def main() -> int:
                                           for p in llff_launches)
         row["launches_plain_route"] = plain_launches[name]
         row["launches_dp"] = sum(v[name] for v in dp_launches.values())
+        row["launches_mesh"] = sum(mesh_launches[p][name]
+                                   for p in only.get(name, mesh_launches)
+                                   if p in mesh_launches)
+    # K8: its runs on one rank's sample-sharded planes of one frame block
+    rows["fused_mlp_eval"]["sp_path"] = mesh_stats["sp_eval"]["k8"]
+    rows["fused_mlp_eval"]["max_abs_err"] = max(
+        rows["fused_mlp_eval"]["max_abs_err"],
+        *(k["max_abs"] for k in mesh_stats["sp_eval"]["k8"]))
     # K1, K2 and K3: the worst of the kernel phase and the LLFF path's own
     # NDC inputs
     for where, recs in llff_stats["path_kernels"].items():
@@ -3171,6 +3518,7 @@ def main() -> int:
                                     "launches": plain_launches}}))
     log(json.dumps({"lpips": {**lpips_stats, "launches": lpips_launches}}))
     log(json.dumps({"data_parallel": dp_stats}))
+    log(json.dumps({"mesh": mesh_stats}))
     log(json.dumps({"phase_s": laps}))
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)

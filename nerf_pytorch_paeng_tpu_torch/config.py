@@ -13,10 +13,11 @@ three of the device mesh, ``n_data_shards``, ``n_model_shards`` and
 ``sp_shards``) and adds one knob, ``device``.  ``use_pallas`` keeps the
 JAX package's name, default and parsing; here it means "run the
 hand-written CUDA kernels where the architecture allows" (off: the
-plain-MLP route, ``ops/render.py``).  Of the mesh knobs only data
-parallelism is ported (``parallel/``): ``n_model_shards > 1`` and
-``sp_shards > 1`` raise, and a set ``n_data_shards`` must equal the
-launch's world size (``parallel.check_data_shards``).  The JAX package's
+plain-MLP route, ``ops/render.py``).  The mesh knobs lay the launch's
+ranks out as ``n_data`` x ``n_model`` (``parallel.check_data_shards``:
+the product must be the world size); ``sp_shards > 1`` needs
+``n_model_shards == sp_shards`` and sample counts it divides, checked
+here before any rank starts.  The JAX package's
 other TPU knobs (``scan_chunk``, ``profile``, ``check_nans``,
 ``compile_cache``) are not fields here: a config file or command line
 that sets one fails instead of being ignored.
@@ -151,11 +152,13 @@ class NerfConfig:
     train_precull_min_gate: float = 0.15
     train_precull_backoff_max: int = 8
 
-    # ====== The device mesh (the JAX package's names and defaults): data
-    # parallelism over the ranks of a torchrun launch (parallel/); 0 = every
-    # rank of the launch, else it must equal the launch's world size.  The
-    # width-sharded and sample-sharded paths are not ported (ROADMAP §1):
-    # n_model_shards > 1 and sp_shards > 1 raise.
+    # ====== The device mesh (the JAX package's names and defaults) over the
+    # ranks of a torchrun launch (parallel/): n_data_shards x n_model_shards
+    # ranks (n_data_shards 0 = world // n_model_shards).  n_model_shards > 1
+    # shards the MLP's width over the model group in training (the plain
+    # route, as the JAX package forces its XLA route there); sp_shards > 1
+    # shards each ray's samples over the model group in the frame renderer
+    # (K8 on each rank's slice) and needs n_model_shards == sp_shards.
     n_data_shards: int = 0
     n_model_shards: int = 1
     sp_shards: int = 0
@@ -180,6 +183,7 @@ class NerfConfig:
             ("iter_warmup", self.iter_warmup < self.iter_N + 1),
             ("device", self.device == "cpu" or self.device.startswith("cuda")),
             ("n_data_shards", self.n_data_shards >= 0),
+            ("n_model_shards", self.n_model_shards >= 1),
             ("render_cull", self.render_cull in ("auto", "none")),
             ("render_precull", str(self.render_precull).lower() in tri_state),
             ("render_gate_fine",
@@ -191,13 +195,23 @@ class NerfConfig:
         for name, ok in checks:
             if not ok:
                 raise ValueError(f"invalid {name}={getattr(self, name)!r}")
-        for name in ("n_model_shards", "sp_shards"):
-            if getattr(self, name) > 1:
+        n_sp = int(self.sp_shards)
+        if n_sp > 1:
+            # the JAX package's sample-sharded frame renderer's asserts
+            # (eval/frame.py:698-703), here before any rank starts
+            if self.n_model_shards != n_sp:
                 raise ValueError(
-                    f"{name}={getattr(self, name)}: the width-sharded and "
-                    "sample-sharded paths are not ported to PyTorch yet "
-                    "(ROADMAP §1, item 4); data parallelism runs over the "
-                    "ranks of a torchrun launch (n_data_shards)")
+                    f"sp_shards={n_sp} needs n_model_shards == sp_shards "
+                    f"(got n_model_shards={self.n_model_shards}): the "
+                    "samples split over the model group")
+            if self.N_samples_c % n_sp:
+                raise ValueError(
+                    f"sp_shards={n_sp} must divide N_samples_c="
+                    f"{self.N_samples_c}")
+            if (self.N_samples_c + self.N_samples_f) % n_sp:
+                raise ValueError(
+                    f"sp_shards={n_sp} must divide N_samples_c + N_samples_f"
+                    f" = {self.N_samples_c + self.N_samples_f}")
         return self
 
 

@@ -21,13 +21,21 @@ renderers, never in the ray pool.
 
 Under a torchrun launch (``parallel/mesh.py``: ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) ``main_worker`` makes
-the process group first, on the rank's own card, and destroys it at the
-end.  Every rank trains on its slice of each batch (``train/step.py``),
-renders its part of every frame (``eval/frame.py``) and holds the same
-weights, which are checked bit for bit across the ranks at every
-checkpoint and at the end; rank 0 alone writes the checkpoints,
-``metrics.csv``, ``precull_policy.csv``, the images and the printed logs.
-Every rank restores on a resume.
+the process group first, on the rank's own card, then the rank layout
+(``parallel.init_layout``: ``n_data_shards`` x ``n_model_shards``, its
+data and model groups), and destroys both at the end.  Every data rank
+trains on its slice of each batch (``train/step.py``); under
+``n_model_shards > 1`` the ranks of a model group hold their parts of
+the MLP's width (``parallel/tensor.py``) and train on the plain route.
+Every rank renders its part of every frame (``eval/frame.py``; the hooks
+render the gathered full weights through the kernels, and with
+``sp_shards > 1`` each model rank renders its slice of every ray's
+samples).  The weights that must be alike are checked bit for bit at
+every checkpoint and at the end (every parameter over the data group, a
+sharded model's replicated ones over the model group); rank 0 alone
+writes the checkpoints (gathered to full width), ``metrics.csv``,
+``precull_policy.csv``, the images and the printed logs.  Every rank
+restores on a resume.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from .ops.render import plain_route_reason
 from .train import RayPool, build_ray_pool, create_train_state
 from .train import checkpoint as ckpt
 from .parallel import print0
+from .parallel.tensor import check_model_replicas, full_model
 from .train.precull import (make_gate_frac_estimator,
                             make_train_support_program, train_precull_active,
                             train_precull_mode)
@@ -304,19 +313,25 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
             logger.log(i, {**metrics, "lr": schedule(i - 1)},
                        to_stdout=show, n_rays=cfg.N_rays)
         if cfg.idx_save and i % cfg.idx_save == 0:
-            parallel.check_replicas(state.model.parameters(),
-                                    f"weights at iter {i}")
+            check_model_replicas(state.model, f"weights at iter {i}")
             path = ckpt.save_checkpoint(cfg.logdir, cfg.exp_name, state)
             print0(f">> checkpoint saved: {path}")
         if test_on and i % cfg.idx_test == 0:
-            run_test(i, pack_nerf(state.model, cfg, device=device),
+            run_test(i, pack_nerf(full_model(state.model), cfg,
+                                  device=device),
                      images[i_test], extrinsics[i_test], K, hw, cfg, device)
         if render_on and i % cfg.idx_render == 0:
-            run_render(i, pack_nerf(state.model, cfg, device=device), K, hw,
-                       cfg, device, render_poses=render_poses)
+            run_render(i, pack_nerf(full_model(state.model), cfg,
+                                    device=device), K, hw, cfg, device,
+                       render_poses=render_poses)
     logger.close()
-    parallel.check_replicas(state.model.parameters(), "final weights")
-    if world > 1:
+    check_model_replicas(state.model, "final weights")
+    lay = parallel.layout()
+    if lay.n_model > 1:
+        print0(f">> final weights bit-equal over the {lay.n_data} data "
+               f"rank(s), the replicated ones over the {lay.n_model} model "
+               "ranks")
+    elif world > 1:
         print0(f">> final weights bit-equal on all {world} ranks")
     print0(">> training done")
     return dict(step=state.step, loss=losses.tolist(), step_s=clock.seconds(),
@@ -338,16 +353,18 @@ def main_worker(cfg: NerfConfig) -> dict:
 
 
 def _run(cfg: NerfConfig, device: torch.device) -> dict:
-    parallel.check_data_shards(cfg)
+    lay = parallel.init_layout(cfg)
     world = parallel.world_size()
-    if not (cfg.eval_only or cfg.render_only) and cfg.N_rays < world:
+    if not (cfg.eval_only or cfg.render_only) and cfg.N_rays < lay.n_data:
         raise ValueError(f"N_rays={cfg.N_rays} is fewer rays than the "
-                         f"launch's {world} ranks")
+                         f"launch's {lay.n_data} data ranks")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print0(f">> device: {device} ({name})"
            + (f"; {world} rank(s) over "
               f"{torch.distributed.get_backend()}"
+              + (f" ({lay.n_data} data x {lay.n_model} model)"
+                 if lay.n_model > 1 else "")
               if parallel.is_distributed() else ""))
     if cfg.iter_start < 0:   # -1 = resume from the latest checkpoint
         latest = ckpt.latest_checkpoint_step(cfg.logdir, cfg.exp_name)
@@ -366,7 +383,8 @@ def _run(cfg: NerfConfig, device: torch.device) -> dict:
     render_poses = _llff_render_poses_34(render_poses)
     print0(f">> dataset loaded: images {images.shape}, hw {hw}, "
            f"train/val/test {'/'.join(str(len(i)) for i in i_split)}")
-    reason = plain_route_reason(cfg)
+    reason = plain_route_reason(
+        cfg, train=not (cfg.eval_only or cfg.render_only))
     print0(f">> field route: {'fused kernels' if reason is None else 'plain'}"
            + (f" ({reason})" if reason else ""))
     if cfg.eval_only or cfg.render_only:

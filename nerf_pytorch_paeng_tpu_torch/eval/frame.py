@@ -93,10 +93,20 @@ greedy cover, all host decisions, are the same on every rank) and each
 phase-2 cover block.  The support bounds are rank 0's, broadcast.  A
 block of fewer rays than ranks is rendered whole on every rank.
 
+The split is over every rank of the world, as the JAX package's
+``_shard_over_rays`` splits over every mesh axis: under
+``n_model_shards > 1`` the frames render the gathered full weights
+(``parallel/tensor.full_model``) through these renderers and kernels.
+
+**Sample-sharded** (``sp_shards > 1``, ``_make_sp_frame_renderer``; the
+JAX package's ``_make_sp_frame_renderer``): the rays split over the data
+group and each ray's samples over the model group, K8 on each rank's
+slice of the samples in both passes (``parallel/sp.py``).
+
 Not carried from the JAX renderer: the block-structured phase 0 (JAX runs
 it only off the gated-kernel path; here the ungated culled path renders
 the same frame), ray padding to the tile (the kernels mask their edges),
-the packing and renderer caches, and the width- and sample-sharded paths.
+and the packing and renderer caches.
 """
 from __future__ import annotations
 
@@ -135,9 +145,10 @@ def make_frame_renderer(cfg, H: int, W: int, K, device,
                         plane_fn: Callable = fused_mlp_eval):
     """Returns ``render(packed, c2w, generator=None) -> (rgb [H,W,3],
     disp [H,W])`` for the fields from ``kernels.fused_mlp.pack_nerf``
-    (packed weights, or on the plain route the two modules): the culled
-    renderer for ``cfg.render_cull == "auto"`` with a fine pass, else the
-    dense one.
+    (packed weights, or on the plain route the two modules): with
+    ``cfg.sp_shards > 1`` the sample-sharded one (``plane_fn``, K8, on
+    each rank's slice of the samples), else the culled renderer for
+    ``cfg.render_cull == "auto"`` with a fine pass, else the dense one.
 
     ``sigma_fn`` / ``field_fn`` / ``points_fn`` / ``plane_fn`` default to
     the kernel wrappers; passing the plain versions renders the same frame
@@ -149,6 +160,9 @@ def make_frame_renderer(cfg, H: int, W: int, K, device,
     MLP ("plain"); ``render.rays_route`` is ``route == "rays"``."""
     device = torch.device(device)
     block = int(block_rays or cfg.chunk_rays or min(DEFAULT_BLOCK, H * W))
+    if int(cfg.sp_shards) > 1:
+        return _make_sp_frame_renderer(cfg, H, W, K, device, block,
+                                       stratified, plane_fn)
     if cfg.render_cull == "auto" and cfg.N_samples_f > 0:
         return _make_culled_frame_renderer(cfg, H, W, K, device, block,
                                            stratified, sigma_fn, field_fn,
@@ -174,17 +188,19 @@ def _make_ray_gen(cfg, H, W, K, device):
     return gen_rays
 
 
-def _split_render(fn: Callable, m: int, *rows):
+def _split_render(fn: Callable, m: int, *rows, group=None):
     """``fn(*rows)`` (each row input [m, ...], or None) -> a tuple of
     [m, ...] outputs, computed on this rank's contiguous part of the m
-    rows and gathered on every rank.  Without a process group, and for
-    fewer rows than ranks, ``fn`` takes every row."""
-    world = parallel.world_size()
-    if not parallel.is_distributed() or m < world:
+    rows and gathered on every rank of ``group`` (default: the world,
+    every mesh axis, as the JAX package's ``_shard_over_rays``).  Without
+    a process group, and for fewer rows than ranks, ``fn`` takes every
+    row."""
+    g = group or parallel.world_group()
+    if not parallel.is_distributed() or m < g.size:
         return fn(*rows)
-    lo, hi = parallel.rank_bounds(m, parallel.rank(), world)
+    lo, hi = parallel.rank_bounds(m, g.index, g.size)
     out = fn(*(None if t is None else t[lo:hi] for t in rows))
-    return parallel.gather_rows(out, m)
+    return parallel.gather_rows(out, m, g)
 
 
 def _uniforms(m: int, n: int, generator, device) -> torch.Tensor:
@@ -307,6 +323,76 @@ def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
                                  else -(-n_total // block))
     render.route = route
     render.rays_route = route == "rays"
+    return render
+
+
+# ------------------------------------------------ the sample-sharded renderer
+
+
+def _make_sp_frame_renderer(cfg, H, W, K, device, block, stratified,
+                            plane_fn):
+    """The frame with each ray's samples split over the model group
+    (``cfg.sp_shards``; the JAX package's ``_make_sp_frame_renderer``).
+
+    Per block: the uniforms are drawn whole, as the dense renderer draws
+    them; the rays split over the data group; each rank builds its rays'
+    coarse depths whole (alike on every model rank) and runs the coarse
+    field on its contiguous ``S_c / n`` columns; the distributed composite
+    (``parallel/sp.py``) gives the coarse weights, gathered to [N, S_c]
+    for the inverse-CDF resample, which runs alike on every model rank;
+    each rank takes its ``(S_c + S_f) / n`` columns of the merged depths
+    for the fine field.  Both fields are K8 (``plane_fn``, bf16 logits)
+    inside the kernels' domain and the plain MLP outside it; no cull, as
+    in the JAX package.  ``render.route`` is "planes" or "plain"."""
+    from ..parallel.sp import sp_coarse_fine
+
+    n_total = H * W
+    n_coarse, n_fine = cfg.N_samples_c, cfg.N_samples_f
+    near, far, perturb = float(cfg.near), float(cfg.far), float(cfg.perturb)
+    route = _frame_route(cfg, False)
+    gen_rays = _make_ray_gen(cfg, H, W, K, device)
+    model_g, data_g = parallel.model_group(), parallel.data_group()
+    if model_g.size != int(cfg.sp_shards):
+        raise ValueError(
+            f"sp_shards={cfg.sp_shards} needs a model group of as many "
+            f"ranks; this launch's has {model_g.size} (n_model_shards="
+            f"{cfg.n_model_shards}, parallel.init_layout)")
+    cols = slice(model_g.index * (n_coarse // model_g.size),
+                 (model_g.index + 1) * (n_coarse // model_g.size))
+
+    def rank_part(packed, rays_o, rays_d, u_c, u_f):
+        coarse, fine, _ = _plane_fields(packed, cfg, route, plane_fn, None)
+        z_vals = stratified_z_vals(rays_o.shape[0], near, far, n_coarse,
+                                   perturb=stratified, u=u_c, device=device)
+        out_c, out_f = sp_coarse_fine(
+            coarse, fine, rays_o, rays_d, z_vals[:, cols].contiguous(),
+            n_fine=n_fine, perturb=perturb, u=u_f, group=model_g)
+        out = out_c if out_f is None else out_f
+        return out.rgb, out.disp
+
+    @torch.no_grad()
+    def render(packed, c2w, generator: Optional[torch.Generator] = None):
+        _check_fields(packed, route)
+        _need_generator(generator)
+        rays_o, rays_d = gen_rays(c2w)
+        parts = []
+        for i in range(0, n_total, block):
+            ro, rd = rays_o[i:i + block], rays_d[i:i + block]
+            m = ro.shape[0]
+            u_c = (_uniforms(m, n_coarse, generator, device) if stratified
+                   else None)
+            u_f = (_uniforms(m, n_fine, generator, device)
+                   if n_fine > 0 and perturb != 0.0 else None)
+            parts.append(_split_render(
+                lambda *rows: rank_part(packed, *rows), m, ro, rd, u_c, u_f,
+                group=data_g))
+        rgb = torch.cat([p[0] for p in parts], 0).reshape(H, W, 3)
+        disp = torch.cat([p[1] for p in parts], 0).reshape(H, W)
+        return rgb, disp
+
+    render.block = block
+    render.route = route
+    render.rays_route = False
     return render
 
 

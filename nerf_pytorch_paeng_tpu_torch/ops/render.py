@@ -76,12 +76,19 @@ def _train_rays_tile(m: int) -> Optional[int]:
     return next(t for t in (2048, 1024, 512, 256, 128) if m % t == 0)
 
 
-def plain_route_reason(cfg) -> Optional[str]:
+def plain_route_reason(cfg, train: bool = False) -> Optional[str]:
     """Why ``cfg`` takes the plain-MLP route, or None inside the fused
     kernels' domain: ``use_pallas`` on, the 8x256 MLP, 1 <= L_x <= 10 and
     1 <= L_d <= 4 (the kernels always embed one sin/cos band, so L = 0
     takes the plain route).  The JAX package's ``_supports_pallas``; it
-    reads the config alone, never whether a kernel built or launched."""
+    reads the config alone, never whether a kernel built or launched.
+    With ``train`` (the train step) ``n_model_shards > 1`` takes it too:
+    the width-sharded step runs the sharded plain MLP, as the JAX package
+    forces its XLA route under GSPMD (``parallel/sharding.py``
+    ``force_xla``); the frame renderers keep the kernels there."""
+    if train and int(getattr(cfg, "n_model_shards", 1)) > 1:
+        return (f"n_model_shards {cfg.n_model_shards}: the width-sharded "
+                "step runs no kernel")
     if not cfg.use_pallas:
         return "use_pallas false"
     if cfg.netDepth != 8:
@@ -101,11 +108,13 @@ def supports_kernels(cfg) -> bool:
 
 
 def supports_train_rays_kernels(cfg, n_rays: int) -> bool:
-    """Where the ray-major training pair runs: inside the kernels' domain,
-    a multiple of 128 rays and sample counts (coarse, merged) that are
-    multiples of 8."""
+    """Where the ray-major training pair runs: inside the train step's
+    kernels' domain (``plain_route_reason(cfg, train=True)``), a multiple
+    of 128 rays and sample counts (coarse, merged) that are multiples of
+    8."""
     s_merged = cfg.N_samples_c + cfg.N_samples_f
-    return (supports_kernels(cfg) and cfg.N_samples_c % 8 == 0
+    return (plain_route_reason(cfg, train=True) is None
+            and cfg.N_samples_c % 8 == 0
             and (cfg.N_samples_f == 0 or s_merged % 8 == 0)
             and _train_rays_tile(n_rays) is not None)
 

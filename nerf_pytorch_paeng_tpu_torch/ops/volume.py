@@ -6,9 +6,9 @@ the sample-major one the ray-major kernels emit (``weights_from_sigma_t``,
 along axis 0) and the ray-major one of the plane layout
 (``weights_from_sigma``, ``volume_render_planar``: [N, S], raw [4, N, S],
 the scan along the last axis).  Both share ``_weights``; the transmittance
-is the ``cumprod`` form of ``exclusive_cumprod`` (the JAX package's
-log-space associative scan serves its sample-sharded mesh path, which is
-not ported).
+is the ``cumprod`` form of ``exclusive_cumprod``.  Its log-space form
+(``scan_impl="associative"``, a prefix sum of logs) is the one-device form
+of the sample-sharded path's distributed scan (``parallel/sp.py``).
 
 - dists = dz with a 1e10 cap for the last bin, scaled by ||ray_d||;
 - alpha = 1 - exp(-relu(sigma) * dist);
@@ -42,8 +42,18 @@ class RenderOutputsT(NamedTuple):
     depth: torch.Tensor     # [N]
 
 
-def exclusive_cumprod(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    """out[i] = prod(x[:i]) along ``axis``, out[0] = 1."""
+def exclusive_cumprod(x: torch.Tensor, axis: int = -1,
+                      scan_impl: str = "cumprod") -> torch.Tensor:
+    """out[i] = prod(x[:i]) along ``axis``, out[0] = 1.  ``scan_impl``
+    "associative": exp of the exclusive prefix sum of log(x), the JAX
+    package's log-space scan, which splits over shards of the axis."""
+    if scan_impl == "associative":
+        # clamp before the log: callers pass x = 1 - alpha + 1e-10, which
+        # a compiler may reassociate into (1 + 1e-10) - alpha, exactly 0 at
+        # alpha == 1 in float32; log(0) = -inf would then make the prefix
+        # -inf - -inf = NaN
+        logs = torch.log(torch.clamp(x, min=1e-10))
+        return torch.exp(torch.cumsum(logs, axis) - logs)
     ones = torch.ones_like(x.narrow(axis, 0, 1))
     prod = torch.cumprod(torch.cat([ones, x], axis), axis)
     return prod.narrow(axis, 0, x.shape[axis])

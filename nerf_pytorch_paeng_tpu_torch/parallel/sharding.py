@@ -1,20 +1,22 @@
-"""Data-parallel pieces of the train step and the frame renderers
-(counterpart of the data-axis parts of the JAX package's
-``parallel/sharding.py`` and ``train/step.py``).
+"""Collectives of the train step and the frame renderers (counterpart of
+the data-axis parts of the JAX package's ``parallel/sharding.py`` and
+``train/step.py``).
 
-Every helper is the identity without a process group.  The step's
+Each helper runs over a ``Group`` of the rank layout (``parallel/mesh.py``;
+default: the whole world) and is the identity without a process group
+and over a group of one rank inside a larger world.  The step's
 reductions and the frames' gathers run their collectives at world size 1
 too (they then copy), so a launch of one process runs them and is
 bit-equal to a plain run.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable, Sequence, Tuple, TypeVar
+from typing import Callable, Iterable, Optional, Sequence, Tuple, TypeVar
 
 import torch
 import torch.distributed as dist
 
-from .mesh import is_distributed, is_main, rank, world_size
+from .mesh import Group, is_distributed, is_main, rank, world_group, world_size
 
 T = TypeVar("T")
 
@@ -28,19 +30,48 @@ def rank_bounds(n: int, r: int, world: int) -> Tuple[int, int]:
     return lo, lo + base + (1 if r < extra else 0)
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks in place; returns it."""
-    if is_distributed():
-        dist.all_reduce(t)
+def _runs(group: Optional[Group]) -> Optional[Group]:
+    """``group`` (default: the world) where its collectives run, else None:
+    no process group, or a group of one rank inside a larger world."""
+    group = group or world_group()
+    if not is_distributed():
+        return None
+    if group.size == 1 and world_size() > 1:
+        return None
+    return group
+
+
+def all_reduce_sum(t: torch.Tensor, group: Optional[Group] = None
+                   ) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group`` in place; returns it."""
+    g = _runs(group)
+    if g is not None:
+        dist.all_reduce(t, group=g.pg)
     return t
 
 
-def all_reduce_grads(params: Iterable[torch.Tensor], weight: float) -> None:
-    """Replace every gradient by the sum over the ranks of ``weight`` times
-    the rank's gradient, through one flat buffer.  With ``weight`` =
-    the rank's share of the global batch (``n_r / N``) the result is the
-    gradient of the loss over the whole batch, however it was split."""
-    if not is_distributed():
+def all_gather_cat(t: torch.Tensor, dim: int, group: Optional[Group] = None
+                   ) -> torch.Tensor:
+    """The ranks' ``t`` (one shape on every rank) concatenated along
+    ``dim`` in the group's order."""
+    g = _runs(group)
+    if g is None:
+        return t
+    t = t.contiguous()
+    got = [torch.empty_like(t) for _ in range(g.size)]
+    dist.all_gather(got, t, group=g.pg)
+    return torch.cat(got, dim)
+
+
+def all_reduce_grads(params: Iterable[torch.Tensor], weight: float,
+                     group: Optional[Group] = None) -> None:
+    """Replace every gradient by the sum over the ranks of ``group`` of
+    ``weight`` times the rank's gradient, through one flat buffer.  With
+    ``weight`` = the rank's share of the global batch (``n_r / N``) the
+    result is the gradient of the loss over the whole batch, however it
+    was split."""
+    g = _runs(group)
+    if g is None:
         return
     params = [p for p in params if p.requires_grad]
     for p in params:
@@ -48,54 +79,63 @@ def all_reduce_grads(params: Iterable[torch.Tensor], weight: float) -> None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads]).mul_(weight)
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=g.pg)
     # one multi-tensor copy back: the step is short of host time
-    torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(
-        flat.split([g.numel() for g in grads]), grads)])
+    torch._foreach_copy_(grads, [part.view_as(t) for part, t in zip(
+        flat.split([t.numel() for t in grads]), grads)])
 
 
-def broadcast0(t: torch.Tensor) -> torch.Tensor:
-    """Rank 0's ``t`` on every rank, in place; returns it."""
-    if is_distributed():
-        dist.broadcast(t.view(torch.uint8) if t.dtype == torch.bool else t, 0)
+def broadcast0(t: torch.Tensor, group: Optional[Group] = None
+               ) -> torch.Tensor:
+    """The group's first rank's ``t`` on every rank of the group (default:
+    rank 0's on every rank), in place; returns it."""
+    g = _runs(group)
+    if g is not None:
+        dist.broadcast(t.view(torch.uint8) if t.dtype == torch.bool else t,
+                       g.src, group=g.pg)
     return t
 
 
-def gather_rows(parts: Sequence[torch.Tensor], n: int
-                ) -> Tuple[torch.Tensor, ...]:
-    """Each rank's rows ``rank_bounds(n, rank, world)`` of every tensor in
-    ``parts`` -> the whole tensors ([n, ...]) on every rank.  The parts
-    are padded to ``ceil(n / world)`` rows for the gather, so ``n`` need
-    not divide."""
-    if not is_distributed():
+def gather_rows(parts: Sequence[torch.Tensor], n: int,
+                group: Optional[Group] = None) -> Tuple[torch.Tensor, ...]:
+    """Each rank's rows ``rank_bounds(n, index, size)`` of every tensor in
+    ``parts`` -> the whole tensors ([n, ...]) on every rank of ``group``
+    (default: the world).  The parts are padded to ``ceil(n / size)`` rows
+    for the gather, so ``n`` need not divide."""
+    g = _runs(group)
+    if g is None:
         return tuple(parts)
-    world = world_size()
-    per = -(-n // world)
+    per = -(-n // g.size)
     out = []
     for t in parts:
         pad = t.new_zeros((per, *t.shape[1:]))
         pad[:t.shape[0]] = t
-        got = [torch.empty_like(pad) for _ in range(world)]
-        dist.all_gather(got, pad.contiguous())
-        out.append(torch.cat([g[:hi - lo] for g, (lo, hi) in zip(
-            got, (rank_bounds(n, r, world) for r in range(world)))], 0))
+        got = [torch.empty_like(pad) for _ in range(g.size)]
+        dist.all_gather(got, pad.contiguous(), group=g.pg)
+        out.append(torch.cat([part[:hi - lo] for part, (lo, hi) in zip(
+            got, (rank_bounds(n, r, g.size) for r in range(g.size)))], 0))
     return tuple(out)
 
 
-def check_replicas(tensors: Iterable[torch.Tensor], what: str) -> None:
-    """Raise on every rank unless every rank holds rank 0's ``tensors``
-    bit for bit (the weights a data-parallel run must keep alike)."""
-    if not is_distributed() or world_size() == 1:
+def check_replicas(tensors: Iterable[torch.Tensor], what: str,
+                   group: Optional[Group] = None) -> None:
+    """Raise on every rank of ``group`` (default: the world) unless each
+    holds its first rank's ``tensors`` bit for bit (the weights that data
+    parallelism keeps alike, and the replicated weights of the
+    width-sharded MLP)."""
+    g = _runs(group)
+    tensors = list(tensors)
+    if g is None or g.size == 1 or not tensors:
         return
     flat = torch.cat([t.detach().float().reshape(-1).view(torch.int32)
                       for t in tensors])
-    same = torch.equal(flat, broadcast0(flat.clone()))
+    same = torch.equal(flat, broadcast0(flat.clone(), g))
     differ = all_reduce_sum(torch.tensor([0.0 if same else 1.0],
-                                         device=flat.device))
+                                         device=flat.device), g)
     if float(differ) > 0:
         raise RuntimeError(
-            f"{what}: {int(differ)} rank(s) hold other bits than rank 0 "
-            f"(rank {rank()} {'agrees' if same else 'differs'})")
+            f"{what}: {int(differ)} rank(s) hold other bits than rank "
+            f"{g.src} (rank {rank()} {'agrees' if same else 'differs'})")
 
 
 def rank0_first(fn: Callable[[bool], T], device) -> T:

@@ -6,18 +6,48 @@ names, ``NeRF.state_dict()``) and ``optimizer_state_dict``.  The
 ``--eval_only`` entry and the reference read the same files.  The step is
 in the file, so the schedule resumes where it stopped.  Under a process
 group only rank 0 writes (every rank holds the same state); every rank
-restores.
+restores.  A width-sharded model (``parallel/tensor.py``) is gathered
+over its model group first, weights and Adam's moments, so the file is
+the ordinary full-width one (a one-process run and the JAX package's
+converters read it), and a restore cuts the rank's parts from it again
+(the JAX package's ``restore_params_only`` re-applies its shardings).
 """
 from __future__ import annotations
 
 import os
 import re
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import parallel
+from ..parallel.tensor import ShardedNeRF, shard_state_dict, shard_tensor
 from .state import TrainState
+
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _split_dims(model) -> list:
+    """Each parameter's split dim, in the optimizer's order."""
+    return [model.full_dims[name] for name, _ in model.named_parameters()]
+
+
+def full_states(state: TrainState) -> Tuple[Dict, Dict]:
+    """(model state dict, optimizer state dict) at full width: a sharded
+    model's gathered over its model group (a collective: every rank of
+    the group calls it)."""
+    model, osd = state.model, state.optimizer.state_dict()
+    if not isinstance(model, ShardedNeRF):
+        return model.state_dict(), osd
+    group = model.group
+    for i, dim in enumerate(_split_dims(model)):
+        entry = osd["state"].get(i)
+        if entry is None or dim is None:
+            continue
+        osd["state"][i] = {k: (parallel.all_gather_cat(v, dim, group)
+                               if k in _MOMENTS else v)
+                           for k, v in entry.items()}
+    return model.full_state_dict(), osd
 
 
 def checkpoint_path(logdir: str, exp_name: str, step: int) -> str:
@@ -36,15 +66,16 @@ def latest_checkpoint_step(logdir: str, exp_name: str) -> Optional[int]:
 
 
 def save_checkpoint(logdir: str, exp_name: str, state: TrainState) -> str:
-    """Write ``state`` (rank 0 only); returns the checkpoint's path."""
+    """Write ``state`` (rank 0 only; every rank of a width-sharded model
+    calls it, for the gather); returns the checkpoint's path."""
     path = checkpoint_path(logdir, exp_name, state.step)
+    model_sd, optim_sd = full_states(state)
     if not parallel.is_main():
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
-    torch.save({"idx": state.step,
-                "model_state_dict": state.model.state_dict(),
-                "optimizer_state_dict": state.optimizer.state_dict()}, tmp)
+    torch.save({"idx": state.step, "model_state_dict": model_sd,
+                "optimizer_state_dict": optim_sd}, tmp)
     os.replace(tmp, path)        # a reader sees the old file or the new one
     return path
 
@@ -53,10 +84,21 @@ def restore_checkpoint(logdir: str, exp_name: str, step: int,
                        state: TrainState) -> TrainState:
     """Load weights, optimizer moments and the step count into ``state``
     (on its model's device)."""
-    device = next(state.model.parameters()).device
+    model = state.model
+    device = next(model.parameters()).device
     ckpt = torch.load(checkpoint_path(logdir, exp_name, step),
                       map_location=device, weights_only=True)
-    state.model.load_state_dict(ckpt["model_state_dict"])
-    state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+    model_sd, optim_sd = ckpt["model_state_dict"], ckpt["optimizer_state_dict"]
+    if isinstance(model, ShardedNeRF):
+        n, m = model.group.size, model.group.index
+        model_sd = shard_state_dict(model_sd, model.full_dims, n, m)
+        for i, dim in enumerate(_split_dims(model)):
+            entry = optim_sd["state"].get(i)
+            if entry is not None and dim is not None:
+                optim_sd["state"][i] = {
+                    k: shard_tensor(v, dim, n, m) if k in _MOMENTS else v
+                    for k, v in entry.items()}
+    model.load_state_dict(model_sd)
+    state.optimizer.load_state_dict(optim_sd)
     state.step = int(ckpt["idx"])
     return state

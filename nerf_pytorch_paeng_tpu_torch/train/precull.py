@@ -66,8 +66,10 @@ def train_precull_active(cfg, world: int) -> bool:
     """``train_precull_enabled`` at the per-rank ray count of a launch of
     ``world`` ranks, where the ranks split the batch evenly (the JAX
     package's ``train_precull_active``: its shard_map path needs a
-    dividing batch, and each shard gates its ``N_rays / world`` rays)."""
-    if cfg.N_rays % world != 0:
+    dividing batch, and each shard gates its ``N_rays / world`` rays).
+    Never under ``n_model_shards > 1``: the width-sharded step takes the
+    plain route (JAX ``train/precull.py:77-83``)."""
+    if int(cfg.n_model_shards) > 1 or cfg.N_rays % world != 0:
         return False
     return train_precull_enabled(cfg, cfg.N_rays // world)
 

@@ -25,6 +25,10 @@ def make_optimizer(model: NeRF, cfg) -> torch.optim.Adam:
 
 
 def create_train_state(cfg, device=None) -> TrainState:
-    """Fresh weights drawn from ``cfg.seed`` and a fresh optimizer."""
-    model = init_nerf(cfg, device=device)
+    """Fresh weights drawn from ``cfg.seed`` and a fresh optimizer; under a
+    model group of more than one rank (``n_model_shards > 1``) the rank's
+    parts of those weights (``parallel/tensor.shard_nerf``), so that
+    Adam's moments are split too."""
+    from ..parallel.tensor import shard_nerf
+    model = shard_nerf(init_nerf(cfg, device=device))
     return TrainState(model, make_optimizer(model, cfg), 0)

@@ -26,7 +26,7 @@ same draws.  Tests inject the JAX package's draws instead (``coords``,
 
 Under a process group (``parallel/``, the JAX package's shard_map path)
 both steps still receive the whole batch: the global batch, or the image
-whose ``N_rays`` pixels every rank draws alike.  Each rank keeps its
+whose ``N_rays`` pixels every rank draws alike.  Each data rank keeps its
 contiguous slice (``parallel.rank_bounds``), routes and renders it as the
 JAX package's kernels see a shard (``step_route`` at the rank's own
 count), and after ``backward`` the gradients are summed over the ranks
@@ -36,6 +36,15 @@ the mean losses (``_pmean_metrics`` there).  At world size > 1 the
 render's jitter comes from a generator seeded from (seed, step, rank);
 at world size 1 every draw is the plain run's.  Injected ``u_c``/``u_f``
 are the rank's own.
+
+Under ``n_model_shards > 1`` (the JAX package's GSPMD path) the ranks
+of a model group hold their parts of the MLP's width
+(``parallel/tensor.py``) and the step takes the plain route
+(``plain_route_reason(cfg, train=True)``, the JAX package's
+``force_xla``).  Its draws are the one-process run's: each data rank
+takes its rows of the batch and of the whole batch's jitter
+(``_global_draws``); the gradients, split or replicated, and the metrics
+are reduced over the data group alone.
 
 Both steps take ``support=`` (coarse bounds, fine bounds) from
 ``train/precull.make_train_support_program``, or None: with bounds each
@@ -53,8 +62,8 @@ import torch
 from .. import parallel
 from ..ops.rays import gather_rays, get_rays, sample_pixels
 from ..ops.render import (make_plain_field_fns, make_train_field_fns,
-                          maybe_ndc, render_rays_from_cfg, render_rays_train,
-                          supports_kernels, supports_train_rays_kernels)
+                          maybe_ndc, plain_route_reason, render_rays_from_cfg,
+                          render_rays_train, supports_train_rays_kernels)
 from .state import TrainState
 
 _U64 = (1 << 64) - 1
@@ -88,10 +97,11 @@ def step_generator(seed: int, step: int, device,
 
 def step_route(cfg, n_rays: int) -> str:
     """The step's route, the JAX package's: "plain" outside the kernels'
-    domain, else "rays" (the ray-major pair: K1/K2, or gated K5/K6) where
-    ``use_rays_train`` is on and its shapes apply, else "planes" (the
-    plane pair: K8/K9)."""
-    if not supports_kernels(cfg):
+    domain and under ``n_model_shards > 1`` (``plain_route_reason(cfg,
+    train=True)``), else "rays" (the ray-major pair: K1/K2, or gated
+    K5/K6) where ``use_rays_train`` is on and its shapes apply, else
+    "planes" (the plane pair: K8/K9)."""
+    if plain_route_reason(cfg, train=True) is not None:
         return "plain"
     if cfg.use_rays_train and supports_train_rays_kernels(cfg, n_rays):
         return "rays"
@@ -133,12 +143,13 @@ def _loss_and_metrics(model, rays_o, rays_d, target, cfg,
 
 def _reduce_metrics(metrics: Dict[str, torch.Tensor], share: float
                     ) -> Dict[str, torch.Tensor]:
-    """The ranks' loss entries (and ``gate_frac``) averaged by their
+    """The data group's loss entries (and ``gate_frac``) averaged by their
     shares of the batch in one all-reduce, the PSNRs taken again from the
     mean losses: PSNR is not linear in the MSE."""
     keys = [k for k in metrics if not k.startswith("psnr")]
     vals = parallel.all_reduce_sum(
-        torch.stack([metrics[k].float() for k in keys]) * share)
+        torch.stack([metrics[k].float() for k in keys]) * share,
+        parallel.data_group())
     out = dict(zip(keys, vals.unbind()))
     return {k: mse2psnr(out["loss" + k[4:]]) if k.startswith("psnr")
             else out[k] for k in metrics}
@@ -149,14 +160,16 @@ def _update(state: TrainState, schedule: Callable[[int], float],
             ) -> Dict[str, torch.Tensor]:
     """One Adam update; under a process group (``share``: this rank's
     share of the batch) the gradients and metrics are reduced over the
-    ranks first."""
+    data group first (a width-sharded model's split gradients are each
+    rank's own parts, its replicated ones alike over the model group)."""
     for group in state.optimizer.param_groups:
         group["lr"] = schedule(state.step)
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn()
     loss.backward()
     if share is not None:
-        parallel.all_reduce_grads(state.model.parameters(), share)
+        parallel.all_reduce_grads(state.model.parameters(), share,
+                                  parallel.data_group())
         metrics = _reduce_metrics(metrics, share)
     state.optimizer.step()
     state.step += 1
@@ -164,14 +177,37 @@ def _update(state: TrainState, schedule: Callable[[int], float],
 
 
 def _rank_slice(n: int):
-    """(lo, hi, share, render rank): this rank's rows of an n-row batch,
-    its share of the batch (None without a process group: nothing is
-    reduced) and the rank to mix into the render's generator (None at
-    world size 1: the plain run's draws)."""
-    world, r = parallel.world_size(), parallel.rank()
-    lo, hi = parallel.rank_bounds(n, r, world)
+    """(lo, hi, share, render rank): this rank's rows of an n-row batch
+    (its data index's part), its share of the batch (None without a
+    process group: nothing is reduced) and the rank to mix into the
+    render's generator: the data index where data parallelism alone
+    splits the batch (the JAX package's shard_map path), None at one data
+    rank and under ``n_model_shards > 1`` (its GSPMD path: the plain run's
+    draws, ``_global_draws``)."""
+    g = parallel.data_group()
+    lo, hi = parallel.rank_bounds(n, g.index, g.size)
     share = (hi - lo) / n if parallel.is_distributed() else None
-    return lo, hi, share, (r if world > 1 else None)
+    per_rank = g.size > 1 and parallel.layout().n_model == 1
+    return lo, hi, share, (g.index if per_rank else None)
+
+
+def _global_draws(cfg, generator, n: int, lo: int, hi: int, u_c, u_f):
+    """Under ``n_model_shards > 1`` with more than one data rank: rows
+    [lo, hi) of the render's draws for the whole n-ray batch, drawn as the
+    plain run's samplers draw them (the coarse jitter, then the fine
+    uniforms), so that the step is the one-process step (the JAX
+    package's GSPMD semantics).  Injected draws, and every other layout,
+    pass through."""
+    if (u_c is not None or u_f is not None or parallel.layout().n_model == 1
+            or hi - lo == n):
+        return u_c, u_f
+    dev = generator.device
+    u_c = torch.rand((n, cfg.N_samples_c), generator=generator,
+                     device=dev)[lo:hi]
+    if cfg.N_samples_f > 0 and float(cfg.perturb) != 0.0:
+        u_f = torch.rand((n, cfg.N_samples_f), generator=generator,
+                         device=dev)[lo:hi]
+    return u_c, u_f
 
 
 def _with_half(cfg, support):
@@ -196,6 +232,8 @@ def make_train_step(cfg, schedule: Callable[[int], float], H: int = 0,
                    u_f: Optional[torch.Tensor] = None, support=None):
         lo, hi, share, render_rank = _rank_slice(rays_o.shape[0])
         gen = step_generator(seed, state.step, rays_o.device, render_rank)
+        u_c, u_f = _global_draws(cfg, gen, rays_o.shape[0], lo, hi, u_c,
+                                 u_f)
         rays_o, rays_d = maybe_ndc(rays_o[lo:hi], rays_d[lo:hi], H, W, focal,
                                    cfg.data_type)
         target = target[lo:hi]
@@ -231,6 +269,7 @@ def make_image_train_step(cfg, schedule: Callable[[int], float], H: int,
         ro, rd = maybe_ndc(ro, rd, H, W, focal, cfg.data_type)
         if render_rank is not None:
             gen = step_generator(seed, state.step, image.device, render_rank)
+        u_c, u_f = _global_draws(cfg, gen, cfg.N_rays, lo, hi, u_c, u_f)
         sup = _with_half(cfg, support)
         return _update(state, schedule, lambda: _loss_and_metrics(
             state.model, ro.contiguous(), rd.contiguous(), target, cfg, gen,

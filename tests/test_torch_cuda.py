@@ -1101,3 +1101,42 @@ def test_nccl_world_one_step_is_the_plain_step(dev, mode, monkeypatch):
     assert launched[0] == plain[0]
     for k, v in plain[1].items():
         assert torch.equal(launched[1][k], v), k
+
+
+# ------------------------------------------------ the sample-sharded path
+
+
+@pytest.mark.parametrize("n_sh,idx,s", [(2, 0, 64), (2, 1, 192), (4, 3, 192)])
+def test_plane_kernel_on_a_sample_sharded_slice(dev, n_sh, idx, s):
+    """K8 on the planes one rank of the sample-sharded frame builds
+    (``parallel/sp.py``: its contiguous ``s / n_sh`` columns of every
+    ray's sorted depths, unit directions), bf16 logits as on that path,
+    against its plain version."""
+    from nerf_pytorch_paeng_tpu_torch.ops.render import (direction_plane,
+                                                         position_plane)
+    p = _packed(3, dev)
+    od, z = _inputs(4, 1000, s, dev)
+    k = s // n_sh
+    z_local = z.T[:, idx * k:(idx + 1) * k].contiguous()
+    o, d = od[0:3].T, od[3:6].T
+    x = position_plane(o, d, z_local)
+    dp = direction_plane(d / d.norm(dim=-1, keepdim=True), k)
+    got = fm.fused_mlp_eval(x, dp, p, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (4, 1000 * k)
+    _close(got, fm.fused_mlp_eval_plain(x, dp, p, out_dtype=torch.bfloat16))
+
+
+def test_associative_scan_on_the_card(dev):
+    """The log-space exclusive product on the card against the cumprod
+    form there, one sample of one ray fully opaque (the clamp's case):
+    1e-4 relative, 1e-7 absolute (float32 prefix sums of 64 logs)."""
+    from nerf_pytorch_paeng_tpu_torch.ops import volume
+    g = torch.Generator(dev).manual_seed(5)
+    alpha = 1.0 - torch.exp(-torch.rand(4096, 64, generator=g, device=dev))
+    alpha[7, 9] = 1.0
+    x = 1.0 - alpha + 1e-10
+    got = volume.exclusive_cumprod(x, -1, scan_impl="associative")
+    want = volume.exclusive_cumprod(x, -1)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-7)

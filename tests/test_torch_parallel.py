@@ -177,12 +177,36 @@ def test_world_mismatch_raises(no_launch, tmp_path):
         main_worker(cfg)
 
 
-@pytest.mark.parametrize("knob", ["n_model_shards", "sp_shards"])
-def test_unported_mesh_axes_are_refused(knob):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        load_config([f"--{knob}", "2"])
+@pytest.mark.parametrize("argv,world,match", [
+    (["--sp_shards", "2"], 2, "needs n_model_shards == sp_shards"),
+    (["--sp_shards", "3", "--n_model_shards", "3"], 3,
+     "must divide N_samples_c=64"),
+    (["--sp_shards", "2", "--n_model_shards", "2", "--N_samples_f", "127"],
+     2, r"N_samples_c \+ N_samples_f = 191"),
+    (["--n_model_shards", "2"], 3, "does not divide the launch's 3"),
+    (["--n_model_shards", "2", "--n_data_shards", "3"], 4,
+     "n_data_shards=3 x n_model_shards=2 = 6"),
+    (["--n_model_shards", "0"], 1, "invalid n_model_shards=0")],
+    ids=["sp_without_model", "coarse_not_divisible", "merged_not_divisible",
+         "world_not_divisible", "data_x_model_not_world", "model_below_1"])
+def test_mesh_axis_checks_raise(argv, world, match):
+    """The JAX package's rules for the mesh knobs (its ``config.py:278``
+    and ``eval/frame.py:698-703``), before any rank starts: ``validate``
+    for the sample counts, ``check_data_shards`` for the launch's world."""
+    with pytest.raises(ValueError, match=match):
+        parallel.check_data_shards(load_config(argv), world)
+
+
+def test_mesh_axes_are_accepted():
+    cfg = load_config(["--n_model_shards", "2"])
+    assert parallel.check_data_shards(cfg, 4) == (2, 2)
+    cfg = load_config(["--sp_shards", "2", "--n_model_shards", "2"])
+    assert (cfg.sp_shards, cfg.n_model_shards) == (2, 2)
+    assert parallel.check_data_shards(cfg, 2) == (1, 2)
     for ok in ("0", "1"):
-        assert getattr(load_config([f"--{knob}", ok]), knob) == int(ok)
+        assert load_config(["--sp_shards", ok]).sp_shards == int(ok)
+    assert parallel.layout() == parallel.Layout(
+        1, 1, parallel.world_group(), parallel.world_group())
 
 
 # ------------------------------------------------------------ the steps

@@ -1,4 +1,6 @@
-"""One rank of a data-parallel job for tests/test_torch_parallel.py.
+"""One rank of a multi-rank job for tests/test_torch_parallel.py (data
+parallelism), tests/test_torch_tp.py (the width-sharded MLP) and
+tests/test_torch_sp.py (the sample-sharded frame).
 
     RANK=r WORLD_SIZE=w LOCAL_RANK=r MASTER_ADDR=localhost MASTER_PORT=p \\
         python tests/torch_dist_worker.py <inputs.pt> <out_dir> <job> ...
@@ -11,6 +13,7 @@ imports torch and the port only, so it starts without JAX.
 """
 from __future__ import annotations
 
+import copy
 import os
 import sys
 
@@ -145,8 +148,224 @@ def job_frames(inputs, r: int) -> dict:
     return out
 
 
+# ------------------------------------- the model axis (tests/test_torch_tp.py,
+# tests/test_torch_sp.py): every job lays the ranks out as n_data x 2
+TINY = dict(netDepth=4, netWidth=64, L_x=6, L_d=2, compute_dtype="float32")
+TP_KW = dict(TINY, N_samples_c=16, N_samples_f=16, iter_N=10, iter_warmup=2,
+             precrop_frac=0.5, n_model_shards=2)
+
+
+def tp_cfg(n_rays: int = 64, **kw) -> NerfConfig:
+    cfg = NerfConfig(device="cpu", N_rays=n_rays, **{**TP_KW, **kw})
+    parallel.init_layout(cfg)
+    return cfg
+
+
+def _tp_state(sd, cfg):
+    from nerf_pytorch_paeng_tpu_torch.parallel.tensor import shard_nerf
+    model = NeRF(depth=cfg.netDepth, width=cfg.netWidth, L_x=cfg.L_x,
+                 L_d=cfg.L_d)
+    model.load_state_dict(sd)
+    model = shard_nerf(model)
+    return TrainState(model, make_optimizer(model, cfg), 0)
+
+
+def _full_grads(model) -> dict:
+    """Every parameter's gradient at full width (gathered over the model
+    group by its split dim)."""
+    return {k: (g if (dim := model.full_dims[k]) is None
+                else parallel.all_gather_cat(g, dim, model.group))
+            for k, g in ((k, p.grad) for k, p in model.named_parameters())}
+
+
+def _tp_steps(state, step, n_steps: int, args) -> dict:
+    from nerf_pytorch_paeng_tpu_torch.parallel.tensor import \
+        check_model_replicas
+    out = dict(metrics=[], grads=[], weights=[], replicated=[])
+    for i in range(n_steps):
+        m = step(state, **args(i))
+        check_model_replicas(state.model, f"step {i}")
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["grads"].append(_full_grads(state.model))
+        out["weights"].append(state.model.full_state_dict())
+        out["replicated"].append([p.detach().clone() for p in
+                                  state.model.replicated_parameters()])
+    return out
+
+
+def job_tp_forward(inputs, r: int) -> dict:
+    """The width-sharded coarse module's forward and input gradient."""
+    cfg = tp_cfg()
+    state = _tp_state(inputs["tp_sd"], cfg)
+    x = inputs["tp_x"].clone().requires_grad_(True)
+    out = state.model.model_coarse(x)
+    (out ** 2).sum().backward()
+    return dict(out=out.detach(), dx=x.grad,
+                kinds=state.model.model_coarse.kinds,
+                shapes={k: tuple(v.shape) for k, v in
+                        state.model.state_dict().items()})
+
+
+def job_tp_steps(inputs, r: int) -> dict:
+    """Both batch modes' width-sharded steps on the global batches, each
+    data rank with its rows of the global draws (``tp_u_c``/``tp_u_f``
+    [steps, N, S]; per image ``tp_ui_c``/``tp_ui_f``)."""
+    out = {}
+    batches = inputs["tp_batches"]
+    n = batches.shape[2]
+    cfg = tp_cfg(n)
+    g = parallel.data_group()
+    lo, hi = parallel.rank_bounds(n, g.index, g.size)
+    state = _tp_state(inputs["tp_sd"], cfg)
+    step = make_train_step(cfg, schedule_from_cfg(cfg))
+    out["global"] = _tp_steps(state, step, len(batches), lambda i: dict(
+        rays_o=batches[i][0], rays_d=batches[i][1], target=batches[i][2],
+        u_c=inputs["tp_u_c"][i][lo:hi], u_f=inputs["tp_u_f"][i][lo:hi]))
+    state = _tp_state(inputs["tp_sd"], cfg)
+    hw = inputs["images"].shape[1:3]
+    step = make_image_train_step(cfg, schedule_from_cfg(cfg), *hw,
+                                 inputs["K"].numpy())
+    out["image"] = _tp_steps(state, step, len(inputs["tp_coords"]),
+                             lambda i: dict(
+        image=inputs["images"][i], pose=inputs["poses"][i],
+        precrop=bool(inputs["precrop"][i]), coords=inputs["tp_coords"][i],
+        u_c=inputs["tp_ui_c"][i][lo:hi], u_f=inputs["tp_ui_f"][i][lo:hi]))
+    return out
+
+
+def job_tp_drawn(inputs, r: int) -> dict:
+    """Two global-batch steps whose draws the step takes itself: at more
+    than one data rank each takes its rows of the whole batch's draws."""
+    batches = inputs["tp_batches"]
+    cfg = tp_cfg(batches.shape[2])
+    state = _tp_state(inputs["tp_sd"], cfg)
+    step = make_train_step(cfg, schedule_from_cfg(cfg))
+    return _tp_steps(state, step, len(batches), lambda i: dict(
+        rays_o=batches[i][0], rays_d=batches[i][1], target=batches[i][2]))
+
+
+RESUME_KW = dict(netDepth=8, netWidth=256, L_x=10, L_d=4, N_samples_c=8,
+                 N_samples_f=8)
+
+
+def job_tp_resume(inputs, r: int, out_dir: str) -> dict:
+    """The reference MLP (the JAX package's checkpoint converters take
+    that depth only): 2 + 2 width-sharded steps with a checkpoint after
+    2, and 2 steps from that checkpoint restored into fresh shards: the
+    full states at the checkpoint and after 4 steps either way, weights
+    and Adam's moments, and the checkpoint's path."""
+    from nerf_pytorch_paeng_tpu_torch.train import checkpoint as ckpt
+    batches = inputs["rs_batches"]
+    cfg = tp_cfg(batches.shape[2], **RESUME_KW)
+    step = make_train_step(cfg, schedule_from_cfg(cfg))
+
+    def run(state, steps):
+        for i in steps:
+            b = batches[i % len(batches)]
+            step(state, rays_o=b[0], rays_d=b[1], target=b[2])
+    state = _tp_state(inputs["rs_sd"], cfg)
+    run(state, range(2))
+    path = ckpt.save_checkpoint(out_dir, "tp", state)
+    at_save = copy.deepcopy(ckpt.full_states(state))    # not the live moments
+    run(state, range(2, 4))
+    straight = ckpt.full_states(state)
+    again = _tp_state(inputs["rs_sd"], cfg)
+    ckpt.restore_checkpoint(out_dir, "tp", 2, again)
+    run(again, range(2, 4))
+    return dict(at_save=at_save, straight=straight,
+                resumed=ckpt.full_states(again), path=path, step=again.step)
+
+
+def job_tp_frames(inputs, r: int) -> dict:
+    """The dense and culled frames of the compact field's gathered weights
+    under the 1 x 2 layout: the rays split over every rank."""
+    from nerf_pytorch_paeng_tpu_torch.parallel.tensor import (full_model,
+                                                              shard_nerf)
+    tp_cfg()
+    out = {}
+    for cull in ("none", "auto"):
+        renderer, packed, pose = frame_setup(cull)
+        model = NeRF()
+        model.load_state_dict(compact_field_state_dict(r=1.0, k=20.0))
+        cfg = NerfConfig(device="cpu", render_cull=cull, **FRAME_KW)
+        packed = pack_nerf(full_model(shard_nerf(model)), cfg)
+        out[cull] = renderer(packed, pose, torch.Generator().manual_seed(5))
+    return out
+
+
+def job_sp_composite(inputs, r: int) -> dict:
+    """``composite_sample_sharded`` on this rank's columns of the inputs,
+    and the two sample-sharded renders of the tiny MLP's plain fields
+    (one pass on ``sp_z``; coarse and fine at the fine uniforms
+    ``sp_u``)."""
+    from nerf_pytorch_paeng_tpu_torch.ops.render import make_plain_field_fns
+    from nerf_pytorch_paeng_tpu_torch.parallel.sp import (
+        composite_sample_sharded, make_sample_sharded_render,
+        make_sample_sharded_render_full)
+    cfg = tp_cfg()
+    g = parallel.model_group()
+    raw, z, rays_d = inputs["sp_raw"], inputs["sp_z"], inputs["sp_rays_d"]
+    k = z.shape[1] // g.size
+    cols = slice(g.index * k, (g.index + 1) * k)
+    out = composite_sample_sharded(raw[:, :, cols].contiguous(),
+                                   z[:, cols].contiguous(), rays_d, g)
+    model = NeRF(depth=cfg.netDepth, width=cfg.netWidth, L_x=cfg.L_x,
+                 L_d=cfg.L_d)
+    model.load_state_dict(inputs["sp_sd"])
+    coarse, fine = make_plain_field_fns(model, cfg)
+    rays_o = inputs["sp_rays_o"]
+    with torch.no_grad():
+        one = make_sample_sharded_render(coarse)(rays_o, rays_d, z)
+        full = make_sample_sharded_render_full(
+            coarse, fine, n_fine=cfg.N_samples_f, perturb=1.0)(
+                rays_o, rays_d, z, u=inputs["sp_u"])
+    return dict(out._asdict(), index=g.index, render=one, render_full=full)
+
+
+def sp_frame_cfg(**kw) -> NerfConfig:
+    """The sample-sharded frames' config: the tiny MLP off the kernels'
+    domain, 16 + 16 samples, ``perturb`` 0, dense."""
+    base = dict(TINY, N_samples_c=16, N_samples_f=16, near=2.0, far=6.0,
+                perturb=0.0, render_cull="none", use_pallas=False,
+                chunk_rays=32)
+    return NerfConfig(device="cpu", **{**base, **kw})
+
+
+def job_sp_frames(inputs, r: int) -> dict:
+    """Frames through ``make_frame_renderer`` with ``sp_shards 2``: the tiny
+    MLP with the coarse jitter drawn (16x16, 32-ray blocks) and without
+    (8x8), and the reference MLP on K8's plain version (4x4, 8 + 8
+    samples), all at ``perturb 0``."""
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
+    tp_cfg()
+    out = {}
+    for name, hw, kw, sd, stratified in (
+            ("tiny_jitter", 16, {}, "sp_sd", True),
+            ("tiny", 8, {}, "sp_sd", False),
+            ("full", 4, dict(netDepth=8, netWidth=256, L_x=10, L_d=4,
+                             N_samples_c=8, N_samples_f=8, use_pallas=True),
+             "sp_sd_full", False)):
+        cfg = sp_frame_cfg(sp_shards=2, n_model_shards=2, **kw)
+        _, K, poses = make_synth_scene(n_views=1, H=hw, W=hw)
+        model = NeRF(depth=cfg.netDepth, width=cfg.netWidth, L_x=cfg.L_x,
+                     L_d=cfg.L_d)
+        model.load_state_dict(inputs[sd])
+        renderer = make_frame_renderer(cfg, hw, hw, K, "cpu",
+                                       stratified=stratified)
+        out[name] = renderer(pack_nerf(model, cfg),
+                             torch.from_numpy(poses[0]),
+                             torch.Generator().manual_seed(9))
+        out[name + "_route"] = renderer.route
+    return out
+
+
 JOBS = dict(global_step=job_global, image_step=job_image,
-            uneven_step=job_uneven, pool=job_pool, frames=job_frames)
+            uneven_step=job_uneven, pool=job_pool, frames=job_frames,
+            tp_forward=job_tp_forward, tp_steps=job_tp_steps,
+            tp_drawn=job_tp_drawn, tp_resume=job_tp_resume,
+            tp_frames=job_tp_frames, sp_composite=job_sp_composite,
+            sp_frames=job_sp_frames)
+WITH_OUT_DIR = ("tp_resume",)
 
 
 def main(argv) -> int:
@@ -157,7 +376,8 @@ def main(argv) -> int:
         inputs = torch.load(inputs_path, weights_only=True) \
             if os.path.isfile(inputs_path) else {}
         r = parallel.rank()
-        res = {job: JOBS[job](inputs, r) for job in jobs}
+        res = {job: JOBS[job](inputs, r, *((out_dir,) if job in WITH_OUT_DIR
+                                           else ())) for job in jobs}
         res["world"] = parallel.world_size()
         torch.save(res, os.path.join(out_dir, f"rank{r}.pt"))
     finally:
