@@ -171,6 +171,24 @@
    block within ``KERNEL_TOL`` of its plain version, timed one rank at a
    time).
 
+15. ``scan_chunk`` (``chunk_phase``, run after the LLFF phase): the lego
+   ray step (K1/K2), the gated step from the compact field (K5/K6, a
+   refresh every 16 steps), the plane step (K8/K9) and fern's pool step
+   (K1/K2 on NDC rays), 48 steps each at ``--scan_chunk 16`` (three full
+   chunks: CUDA graphs of the staged step, captured once a kind and
+   replayed) and at ``--scan_chunk 1``: losses, weights and Adam's state
+   bit-equal, the launch counts equal, the captures and replays printed
+   (a run without a replay fails); the ray step again under a world-1
+   NCCL group (its all-reduces captured), bit-equal; the median step of
+   steps 17-48 of both beside the card's name and power limit; one
+   replayed chunk of 16 ray steps and the same steps eager under the
+   profiler (idle shares; each kernel's launches in the device trace
+   equal to the launch counters' change, so the counts a replay adds are
+   true); a ``--profile true`` run whose Chrome trace names K1 and K2.  The earlier phases run at the default
+   ``scan_chunk 16`` too: the 60-step runs replay graphs, and the launch
+   counters stay true (each replay adds the launches its capture
+   recorded).
+
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -251,6 +269,9 @@ PLAIN_RENDER_VIEWS = 3
 PLAIN_SHAPE = ("--netDepth", "4", "--netWidth", "128", "--L_x", "0",
                "--L_d", "0")              # outside the kernels' domain
 PLAIN_SHAPE_STEPS = 10
+# the chunk phase: --scan_chunk CHUNK against 1, three full chunks a run
+CHUNK = 16
+CHUNK_STEPS = 48
 # the mesh phase: two ranks on the one card over gloo, which stages every
 # collective through the host; the width-sharded steps' batch is cut from
 # 4096 rays (one row-parallel activation all-reduce at 4096 x 192 points
@@ -1010,9 +1031,10 @@ def psnr(a, b) -> float:
     return math.inf if mse == 0 else -10.0 * math.log10(mse)
 
 
-def profile_call(fn, what: str, device) -> dict:
+def profile_call(fn, what: str, device, with_counts: bool = False) -> dict:
     """``fn()`` under torch.profiler: device time by kernel and the
-    device's idle share of the call's wall time."""
+    device's idle share of the call's wall time (``with_counts``: and
+    ``counts``, every kernel's launches in the trace, by name)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1022,9 +1044,11 @@ def profile_call(fn, what: str, device) -> dict:
         torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}     # device kernels only: CPU-op rows repeat their time
+    counts = {}        # launches by kernel name, as the device trace saw them
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        counts[e.key] = counts.get(e.key, 0) + e.count
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3
         if ms > 0:
@@ -1032,7 +1056,8 @@ def profile_call(fn, what: str, device) -> dict:
     busy = sum(ms for ms, _ in by_kernel.values())
     if busy == 0:
         log("profile: the profiler saw no device time (not measured)")
-        return {"wall_ms": wall_ms, "device_busy_ms": None}
+        return {"wall_ms": wall_ms, "device_busy_ms": None,
+                **({"counts": counts} if with_counts else {})}
     log(f"profile: {what} wall {wall_ms:.1f} ms under the profiler, device "
         f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
@@ -1040,7 +1065,8 @@ def profile_call(fn, what: str, device) -> dict:
         log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{count:<4d} {key[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall_ms,
-            "top": [[k[:90], ms, n] for k, (ms, n) in top]}
+            "top": [[k[:90], ms, n] for k, (ms, n) in top],
+            **({"counts": counts} if with_counts else {})}
 
 
 def launch_counters() -> dict:
@@ -2777,6 +2803,221 @@ def plain_route_phase(fm, work: str, data_root: str, device, ray: dict):
     return launches, out
 
 
+# ------------------------------------------------ scan_chunk: CUDA graphs
+
+
+def chunk_state_equal(a: dict, b: dict) -> bool:
+    """Two checkpoints' weights and Adam states bit-equal."""
+    if a["model_state_dict"].keys() != b["model_state_dict"].keys():
+        return False
+    if not all(torch.equal(v, b["model_state_dict"][k])
+               for k, v in a["model_state_dict"].items()):
+        return False
+    sa, sb = (x["optimizer_state_dict"]["state"] for x in (a, b))
+    return sa.keys() == sb.keys() and all(
+        torch.equal(sa[i][k], sb[i][k])
+        for i in sa for k in ("exp_avg", "exp_avg_sq", "step"))
+
+
+def chunk_run(argv: list, device, chunk: int, start: int = 0,
+              compact: bool = False) -> dict:
+    """``main_worker`` at ``--scan_chunk chunk`` (from the compact field's
+    checkpoint at ``start`` where ``compact``): its launches, result and
+    final checkpoint."""
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    cfg = load_config(argv + ["--scan_chunk", str(chunk)])
+    if compact:
+        compact_checkpoint(cfg, start, device, GATED_RADIUS)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = driver.main_worker(cfg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    state = torch.load(driver.checkpoint_path(cfg, start + CHUNK_STEPS),
+                       map_location="cpu", weights_only=True)
+    step_ms = [t * 1e3 for t in res["step_s"]]
+    return dict(cfg=cfg, res=res, launches=launches, state=state, wall=wall,
+                median_ms=statistics.median(step_ms[CHUNK:]))
+
+
+def chunk_kinds(work: str, data_root: str, llff_root: str) -> dict:
+    """(argv without --scan_chunk and --exp_name's suffix, start, compact)
+    of each step kind the phase holds: the lego ray step (K1/K2), the
+    gated step from the compact field (K5/K6, a refresh every CHUNK
+    steps), the plane step (K8/K9) and fern's pool step (K1/K2, NDC)."""
+    def lego(exp, iters, *extra):
+        return train_args(work, data_root, exp, iters, "--idx_print", "0",
+                          "--idx_save", str(iters), *extra)
+    end = GATED_START + CHUNK_STEPS
+    return {
+        "ray": (lambda s: lego(f"chunk_ray{s}", CHUNK_STEPS), 0, False),
+        "gated": (lambda s: lego(
+            f"chunk_gated{s}", end, "--iter_start", str(GATED_START),
+            "--train_precull_every", str(CHUNK)), GATED_START, True),
+        "plane": (lambda s: lego(f"chunk_plane{s}", CHUNK_STEPS,
+                                 "--use_rays_train", "false"), 0, False),
+        "llff_pool": (lambda s: llff_args(
+            work, llff_root, "--exp_name", f"chunk_llff{s}", "--iter_N",
+            str(CHUNK_STEPS), "--idx_print", "0", "--idx_save",
+            str(CHUNK_STEPS)), 0, False)}
+
+
+def trace_kernel_names(path: str) -> set:
+    """The kernel names in a Chrome trace written by torch.profiler."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events
+            if str(e.get("cat", "")).lower() == "kernel"}
+
+
+# the port's kernels in a device trace, by a part of their names, each with
+# the launch counters of the wrappers that launch it once a call: one walk
+# kernel a forward call (fused_mlp.cu walk_launch); one reduce_kernel a
+# backward call and one compact_tiles_kernel a gated one (fused_mlp_vjp.cu
+# bwd_run; PyTorch's own reduce kernels are templates, "reduce_kernel<")
+TRACE_FAMILIES = {
+    "eval_rays_wgmma_kernel": ("fused_mlp_eval_rays",
+                               "fused_mlp_eval_rays_gated"),
+    "sigma_rays_wgmma_kernel": ("fused_mlp_sigma_rays",
+                                "fused_mlp_sigma_rays_gated"),
+    "eval_points_wgmma_kernel": ("fused_mlp_eval",),
+    "sigma_points_wgmma_kernel": ("fused_mlp_sigma",),
+    "reduce_kernel(": ("fused_mlp_bwd_rays", "fused_mlp_bwd_rays_gated",
+                       "fused_mlp_bwd"),
+    "compact_tiles_kernel": ("fused_mlp_bwd_rays_gated",)}
+
+
+def profiled_launches(fn, what: str, device) -> dict:
+    """``profile_call(fn)`` and the launch counters' change over it, held
+    family by family (``TRACE_FAMILIES``) against the launches the device
+    trace saw: a CUDA graph's replay adds the counts its capture recorded
+    without calling a wrapper, so this shows those counts true."""
+    before = read_launches()
+    stats = profile_call(fn, what, device, with_counts=True)
+    after = read_launches()
+    counts = stats.pop("counts")
+    seen = {fam: sum(n for k, n in counts.items() if fam in k)
+            for fam in TRACE_FAMILIES}
+    counted = {fam: sum(after[c] - before[c] for c in cs)
+               for fam, cs in TRACE_FAMILIES.items()}
+    log(f"profile: {what}: launches in the device trace {seen}, by the "
+        f"counters {counted}")
+    check(seen == counted and sum(counted.values()) > 0,
+          f"{what}: the trace's launches {seen} against the counters' "
+          f"{counted}")
+    stats.update(trace_launches=seen)
+    return stats
+
+
+def chunk_phase(work: str, data_root: str, llff_root: str, device) -> tuple:
+    """``--scan_chunk 16`` against ``--scan_chunk 1`` for each step kind
+    (``chunk_kinds``), CHUNK_STEPS steps each: losses, weights and Adam's
+    state bit-equal, the launch counts equal, graphs captured and replayed;
+    the ray step again under a world-1 NCCL group (its collectives inside
+    the graph), bit-equal; median step times from step CHUNK + 1 on; one
+    replayed chunk and the same steps eager under the profiler, their
+    traces' launches against the counters (``profiled_launches``); a
+    ``--profile true`` run whose trace names K1 and K2.  Returns
+    ({kind: the chunked run's launches}, stats)."""
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.data import load_blender
+    from nerf_pytorch_paeng_tpu_torch.train import create_train_state
+    from nerf_pytorch_paeng_tpu_torch.train.chunk import StagedSteps
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+
+    card = card_line()
+    launches, stats = {}, {"card": card}
+    for kind, (argv, start, compact) in chunk_kinds(
+            work, data_root, llff_root).items():
+        one = chunk_run(argv(1), device, 1, start, compact)
+        many = chunk_run(argv(CHUNK), device, CHUNK, start, compact)
+        r1, rk = one["res"], many["res"]
+        log(f"chunk [{kind}]: scan_chunk {CHUNK}: {rk['graph_captures']} "
+            f"capture(s), {rk['graph_replays']} replayed step(s) of "
+            f"{CHUNK_STEPS}, chunks {rk['chunks']}; median step "
+            f"{many['median_ms']:.2f} ms against {one['median_ms']:.2f} ms "
+            f"at scan_chunk 1 ({one['median_ms'] / many['median_ms']:.3f}x; "
+            f"steps {CHUNK + 1}..{CHUNK_STEPS}, CUDA events); {card}")
+        check(rk["graph_replays"] > 0 and rk["graph_captures"] >= 1
+              and r1["graph_captures"] == r1["graph_replays"] == 0,
+              f"{kind}: graphs {rk['graph_captures']}/{rk['graph_replays']}")
+        check(rk["loss"] == r1["loss"] and all(map(math.isfinite, rk["loss"])),
+              f"{kind}: the losses differ from scan_chunk 1")
+        check(chunk_state_equal(one["state"], many["state"]),
+              f"{kind}: the weights or Adam's state differ from scan_chunk 1")
+        check(many["launches"] == one["launches"],
+              f"{kind}: launches {many['launches']} against {one['launches']}")
+        if kind == "gated":
+            check(all(g is not None for g in rk["gate_frac"])
+                  and many["launches"]["fused_mlp_bwd_rays_gated"]
+                  == 2 * CHUNK_STEPS, f"gated: not every step gated")
+        launches[kind] = many["launches"]
+        stats[kind] = dict(
+            captures=rk["graph_captures"], replays=rk["graph_replays"],
+            chunks=rk["chunks"], median_step_ms=many["median_ms"],
+            median_step_ms_scan1=one["median_ms"],
+            loss_last=rk["loss"][-1], wall_s=many["wall"],
+            wall_s_scan1=one["wall"], launches=many["launches"])
+        if kind == "ray":
+            # the same run under a world-1 NCCL group: the step's
+            # all-reduces are captured with it
+            with world_one_launch(make_group=True):
+                nccl = chunk_run(argv(f"{CHUNK}_nccl"), device, CHUNK)
+            check(nccl["res"]["graph_replays"] > 0
+                  and nccl["res"]["loss"] == rk["loss"]
+                  and chunk_state_equal(nccl["state"], many["state"]),
+                  "ray: the NCCL world-1 chunked run differs")
+            log(f"chunk [ray, NCCL world 1]: {nccl['res']['graph_replays']} "
+                f"replayed steps, losses and state bit-equal to no group; "
+                f"median step {nccl['median_ms']:.2f} ms")
+            stats["ray_nccl"] = dict(replays=nccl["res"]["graph_replays"],
+                                     median_step_ms=nccl["median_ms"])
+
+    # one replayed chunk and the same 16 steps eager under the profiler
+    cfg = load_config(train_args(work, data_root, "chunk_prof", 1000))
+    images, (K, ext), (H, W), i_split = load_blender(
+        data_root, cfg.bkg_white, cfg.downsample, cfg.testskip)
+    i_train = i_split[0]
+    staged = StagedSteps(
+        cfg, create_train_state(cfg, device), schedule_from_cfg(cfg), device,
+        H, W, K, graphs=True,
+        images=torch.as_tensor(np.asarray(images[i_train], np.float32),
+                               device=device),
+        poses=torch.as_tensor(np.asarray(ext[i_train], np.float32)[:, :3, :4],
+                              device=device))
+    items = [j % len(i_train) for j in range(CHUNK)]
+    staged.run(items, precrop=True, replay=True)     # warm-up and capture
+    stats["profile_replayed"] = profiled_launches(
+        lambda: staged.run(items, precrop=True, replay=True),
+        f"one replayed chunk of {CHUNK} ray steps", device)
+    stats["profile_eager"] = profiled_launches(
+        lambda: staged.run(items, precrop=True, replay=False),
+        f"the same {CHUNK} ray steps eager", device)
+    staged.close()
+    log(f"chunk: idle share {card}: replayed chunk "
+        f"{stats['profile_replayed'].get('idle_share')}, eager "
+        f"{stats['profile_eager'].get('idle_share')}")
+
+    # --profile true: the window's trace names K1 and K2
+    cfg = load_config(train_args(work, data_root, "chunk_trace", 16,
+                                 "--idx_print", "0", "--idx_save", "0",
+                                 "--profile", "true"))
+    from nerf_pytorch_paeng_tpu_torch import driver
+    driver.main_worker(cfg)
+    path = os.path.join(cfg.logdir, cfg.exp_name, "profile",
+                        "trace_10-14.json")
+    names = trace_kernel_names(path)
+    k1 = sorted(n for n in names if "eval_rays_wgmma_kernel" in n)
+    k2 = sorted(n for n in names if "bwd_chain_kernel" in n)
+    log(f"chunk: --profile true wrote {os.path.getsize(path)} bytes; K1 "
+        f"{k1[:1]}, K2 {k2[:1]} among {len(names)} kernel names")
+    check(k1 and k2, f"the profile trace names no K1 or K2: {sorted(names)}")
+    stats["profile_trace_kernels"] = len(names)
+    return launches, stats
+
+
 @contextlib.contextmanager
 def world_one_launch(make_group: bool = False):
     """The launch contract's variables for a world of one rank (rank 0, a
@@ -3433,6 +3674,9 @@ def main() -> int:
         lap("plane")
         llff_launches, llff_stats = llff_phase(fm, fv, packed, work, device)
         lap("llff")
+        chunk_launches, chunk_stats = chunk_phase(
+            work, data_root, os.path.join(work, "fern_synth"), device)
+        lap("chunks")
         plain_launches, plain_stats = plain_route_phase(
             fm, work, data_root, device,
             {"step_ms": train_stats["median_step_ms"],
@@ -3459,7 +3703,8 @@ def main() -> int:
              "plane_train": plane_launches, "plane_train_n4000": n4000_launches,
              **{f"plane_{k}": v for k, v in plane_frame_launches.items()},
              **llff_launches, "eval_lpips": lpips_launches, **dp_launches,
-             **mesh_launches}
+             **mesh_launches,
+             **{f"chunk_{k}": v for k, v in chunk_launches.items()}}
     only = {"fused_mlp_eval_rays_gated": ("render",),
             "fused_mlp_eval_rays_gated_f32": ("gated_train",),
             "fused_mlp_eval": tuple(f"plane_{k}" for k in plane_frame_launches)
@@ -3470,6 +3715,8 @@ def main() -> int:
         check(row["launches"] > 0, f"{name} never launched on a main path")
         row["launches_llff_custom"] = sum(paths[p][name]
                                           for p in llff_launches)
+        row["launches_chunked"] = sum(v[name]
+                                      for v in chunk_launches.values())
         row["launches_plain_route"] = plain_launches[name]
         row["launches_dp"] = sum(v[name] for v in dp_launches.values())
         row["launches_mesh"] = sum(mesh_launches[p][name]
@@ -3514,6 +3761,7 @@ def main() -> int:
     log(json.dumps({"plane_frames": {
         **plane_frame_stats, "launches": plane_frame_launches}}))
     log(json.dumps({"llff": {**llff_stats, "launches": llff_launches}}))
+    log(json.dumps({"chunks": chunk_stats}))
     log(json.dumps({"plain_route": {**plain_stats,
                                     "launches": plain_launches}}))
     log(json.dumps({"lpips": {**lpips_stats, "launches": lpips_launches}}))

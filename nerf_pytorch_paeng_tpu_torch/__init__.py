@@ -10,7 +10,10 @@ forward and backward kernels (``kernels/csrc/fused_mlp.cu``,
 ``fused_mlp_vjp.cu``); held-out-view evaluation through the exact dense
 renderer (``--eval_only``, with LPIPS given VGG16 weights) and novel
 views through the culled one (``--render_only``); data parallelism over
-the ranks of a torchrun launch (``parallel/``).
+the ranks of a torchrun launch (``parallel/``); the JAX package's run
+knobs: ``scan_chunk`` (chunks of staged train steps, replayed from CUDA
+graphs on the card, ``train/chunk.py``), ``profile``, ``check_nans`` and
+``compile_cache``.
 """
 from .config import NerfConfig, config_from_file, load_config
 

@@ -2,25 +2,34 @@
 
 Own copy of the JAX package's parser (``nerf_pytorch_paeng_tpu/config.py``):
 the same dialect (inline ``#`` comments, bare action flags such as
-``bkg_white_true``, bracketed lists) and every option under the same name,
-so one config file drives both packages.  Of the JAX package's additions it
-keeps those the ported slices read (``seed``, ``eval_only``, ``render_only``,
-``compute_dtype``, ``log_dir``, ``lpips_weights``, ``use_pallas``,
-``use_rays_train``, the seven knobs of the culled frame renderer,
-``render_cull`` ... ``render_gate_fine``, the five of occupancy-gated
-training, ``train_precull`` ... ``train_precull_backoff_max``, and the
-three of the device mesh, ``n_data_shards``, ``n_model_shards`` and
-``sp_shards``) and adds one knob, ``device``.  ``use_pallas`` keeps the
-JAX package's name, default and parsing; here it means "run the
-hand-written CUDA kernels where the architecture allows" (off: the
-plain-MLP route, ``ops/render.py``).  The mesh knobs lay the launch's
-ranks out as ``n_data`` x ``n_model`` (``parallel.check_data_shards``:
-the product must be the world size); ``sp_shards > 1`` needs
-``n_model_shards == sp_shards`` and sample counts it divides, checked
-here before any rank starts.  The JAX package's
-other TPU knobs (``scan_chunk``, ``profile``, ``check_nans``,
-``compile_cache``) are not fields here: a config file or command line
-that sets one fails instead of being ignored.
+``bkg_white_true``, bracketed lists) and every option of the JAX package's
+``NerfConfig`` under the same name, with the same default and parsing, so
+one config file or command line drives both packages.  It adds one knob,
+``device``.  ``use_pallas`` means "run the hand-written CUDA kernels where
+the architecture allows" (off: the plain-MLP route, ``ops/render.py``).
+The mesh knobs lay the launch's ranks out as ``n_data`` x ``n_model``
+(``parallel.check_data_shards``: the product must be the world size);
+``sp_shards > 1`` needs ``n_model_shards == sp_shards`` and sample counts
+it divides, checked here before any rank starts.
+
+The JAX package's four run knobs, as the port reads them:
+
+- ``scan_chunk`` (16): up to this many consecutive train steps run as one
+  chunk (``train/chunk.py``): on the card each step of a full-length chunk
+  replays a CUDA graph of the staged step, with the step's draws, batch
+  and learning rate copied into the graph's static buffers between
+  replays; hooks fall on a chunk's last step, and the trajectory is the
+  single steps' bit for bit.  ``--scan_chunk 1`` turns graphs off.  Under
+  a gloo process group or ``n_model_shards > 1`` chunks have length 1.
+- ``profile`` (false): ``torch.profiler`` traces steps ``iter_start + 10``
+  to ``iter_start + 14`` into a Chrome trace under ``logs/<exp>/profile/``.
+- ``check_nans`` (false): a step whose loss, gradients or updated weights
+  are not finite raises ``FloatingPointError`` naming it (read once a
+  chunk); off, no check runs.
+- ``compile_cache`` ("auto"): the directory of the ``nvcc`` builds of the
+  kernels (``kernels/build.py``): "auto" ``<repo>/build/kernels``, "off" a
+  fresh temporary directory for the process, anything else that
+  directory.
 """
 from __future__ import annotations
 
@@ -109,12 +118,20 @@ class NerfConfig:
     idx_render: int = 200000
     idx_vis_cam_param: int = 1000
 
-    # ====== Additions of the JAX package that this slice reads
+    # ====== Additions of the JAX package
     seed: int = 0
     eval_only: bool = False       # load ckpt at testing_idx, run test, exit
     render_only: bool = False
     compute_dtype: str = "bfloat16"
     log_dir: str = ""             # defaults to <repo>/logs
+    # where the kernels' nvcc builds go: "auto" <repo>/build/kernels, "off"
+    # a fresh temporary directory for the process, else that directory
+    compile_cache: str = "auto"
+    # consecutive train steps run as one chunk: on the card a CUDA graph of
+    # the staged step replayed once a step (train/chunk.py); 1 turns it off
+    scan_chunk: int = 16
+    profile: bool = False         # torch.profiler trace of a few steps
+    check_nans: bool = False      # raise at the first non-finite step
     lpips_weights: str = ""       # VGG16 weights .npz for LPIPS ("" = nan)
     # the fused CUDA kernels for the reference architecture (8x256,
     # 1<=L_x<=10, 1<=L_d<=4); off, or for other architectures, the plain

@@ -54,6 +54,7 @@ from .config import NerfConfig, load_config
 from .data import load_blender, load_custom, load_llff
 from .eval.render import run_render
 from .eval.test import run_test
+from .kernels import build
 from .kernels.fused_mlp import pack_nerf
 from .models.nerf import NeRF
 from .ops.rays import get_rays
@@ -65,8 +66,9 @@ from .parallel.tensor import check_model_replicas, full_model
 from .train.precull import (make_gate_frac_estimator,
                             make_train_support_program, train_precull_active,
                             train_precull_mode)
+from .train.chunk import (PROFILE_START, PROFILE_STOP, ChunkSchedule,
+                          StagedSteps, chunk_off_reason)
 from .train.schedule import schedule_from_cfg
-from .train.step import make_image_train_step, make_train_step
 from .utils.logging import MetricLogger
 
 
@@ -119,27 +121,77 @@ def load_model(cfg: NerfConfig, step: int, device) -> NeRF:
 
 class _StepClock:
     """Per-step time without a host sync per step: on the card, device
-    time between CUDA events recorded at the step boundaries (read once,
-    at the end); on the CPU the host clock."""
+    time between CUDA events recorded at the chunk boundaries (read once,
+    at the end); on the CPU the host clock.  A chunk of K steps
+    (``train/chunk.py``) is timed as a whole, and each of its steps is
+    given the chunk's time divided by K."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.marks: list = []
+        self.lengths: List[int] = []
 
-    def mark(self) -> None:
+    def mark(self, steps: int = 0) -> None:
+        """A chunk boundary, after ``steps`` steps (0 at the start)."""
         if self.cuda:
             event = torch.cuda.Event(enable_timing=True)
             event.record()
             self.marks.append(event)
         else:
             self.marks.append(time.perf_counter())
+        if steps:
+            self.lengths.append(steps)
 
     def seconds(self) -> List[float]:
-        if not self.cuda:
-            return [b - a for a, b in zip(self.marks, self.marks[1:])]
-        torch.cuda.synchronize()
-        return [a.elapsed_time(b) / 1e3
-                for a, b in zip(self.marks, self.marks[1:])]
+        if self.cuda:
+            torch.cuda.synchronize()
+            spans = [a.elapsed_time(b) / 1e3
+                     for a, b in zip(self.marks, self.marks[1:])]
+        else:
+            spans = [b - a for a, b in zip(self.marks, self.marks[1:])]
+        return [t / k for t, k in zip(spans, self.lengths) for _ in range(k)]
+
+
+class _Profiler:
+    """The JAX package's profiler window (``driver.py:307, 378-386``) on
+    ``torch.profiler``: started before step ``iter_start + 10``, stopped
+    before step ``iter_start + 15`` (or at the end of a shorter run), CPU
+    and CUDA activity on the card, CPU activity on the CPU, written as a
+    Chrome trace under ``logs/<exp>/profile/``."""
+
+    def __init__(self, cfg, device: torch.device):
+        self.dir = os.path.join(cfg.logdir, cfg.exp_name, "profile")
+        self.cuda = device.type == "cuda"
+        self.prof = None
+        self.first = 0
+
+    def start(self, it: int) -> None:
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.cuda else [])
+            prof = profile(activities=acts)
+            prof.start()
+        except Exception as e:     # the JAX package's message
+            print0(f">> profiler unavailable: {e}")
+            return
+        self.prof, self.first = prof, it
+
+    def stop(self, it: int) -> None:
+        """Stop before step ``it`` and write the trace."""
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        if self.cuda:
+            torch.cuda.synchronize()
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        rank = (f"_rank{parallel.rank()}" if parallel.world_size() > 1
+                else "")
+        path = os.path.join(self.dir,
+                            f"trace_{self.first}-{it - 1}{rank}.json")
+        prof.export_chrome_trace(path)
+        print0(f">> profiler trace written to {path}")
 
 
 class _SupportPolicy:
@@ -215,7 +267,9 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
           device: torch.device, render_poses=None) -> dict:
     """Steps ``iter_start + 1 .. iter_N``; returns the final step, every
     step's loss, time (``step_s``, see ``_StepClock``) and skipped block
-    share (``gate_frac``, None where the step ran ungated).
+    share (``gate_frac``, None where the step ran ungated), the chunks'
+    lengths in order (``chunks``) and the CUDA graphs captured and the
+    steps replayed from them (``graph_captures``, ``graph_replays``).
     ``render_poses`` (the LLFF spiral, [M, 3, 4]) feed the ``idx_render``
     hook.
 
@@ -225,7 +279,18 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
     ``train_precull_backoff_max`` times) while the policy declines.  A
     resumed run restarts that cadence at its first step, so a gated run's
     resume is not bit-exact with the uninterrupted run (as in the JAX
-    package)."""
+    package).
+
+    Steps run in chunks (``train/chunk.py``, ``scan_chunk``): the hooks
+    fire on a chunk's last step, ``idx_print`` and ``idx_vis`` log from
+    the chunk's metric slab after it (one host read a chunk), and on the
+    card the steps of a full-length chunk replay a CUDA graph.  The
+    trajectory is the same at every ``scan_chunk``.  ``check_nans`` reads
+    each chunk's finiteness flags and raises ``FloatingPointError`` at the
+    first bad step; ``profile`` traces steps ``iter_start + 10 .. + 14``.
+    Under a gloo process group, an NCCL group of more than one rank or
+    ``n_model_shards > 1`` chunks have length 1
+    (``chunk.chunk_off_reason``)."""
     i_train, _, i_test = i_split
     H, W = hw
     state = create_train_state(cfg, device)
@@ -247,16 +312,16 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
             ray_pool.fast_forward(state.step, cfg.N_rays)
             print0(f">> ray pool fast-forwarded to step {state.step} "
                    f"(epoch {ray_pool.epoch}, cursor {ray_pool.i_batch})")
-        step_fn = make_train_step(cfg, schedule, H, W, float(K[0][0]))
+        data = dict(pool=ray_pool)
     else:
         print0(">> per-image sampling mode")
         slot = {int(v): k for k, v in enumerate(i_train)}
-        train_imgs = torch.as_tensor(np.asarray(images[i_train], np.float32),
-                                     device=device)
-        train_poses = torch.as_tensor(
-            np.asarray(extrinsics[i_train], np.float32)[:, :3, :4],
-            device=device)
-        step_fn = make_image_train_step(cfg, schedule, H, W, K)
+        data = dict(
+            images=torch.as_tensor(np.asarray(images[i_train], np.float32),
+                                   device=device),
+            poses=torch.as_tensor(
+                np.asarray(extrinsics[i_train], np.float32)[:, :3, :4],
+                device=device))
 
     policy = None
     world = parallel.world_size()
@@ -282,48 +347,95 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
     test_on = bool(cfg.idx_test and cfg.mode_test and len(i_test) > 0)
     render_on = bool(cfg.idx_render and cfg.mode_render)
 
+    off = chunk_off_reason(cfg, torch.distributed.get_backend()
+                           if parallel.is_distributed() else None, world)
+    if off is not None and int(cfg.scan_chunk) > 1:
+        print0(f">> scan_chunk {cfg.scan_chunk} -> 1 ({off})")
+    chunks = ChunkSchedule.from_cfg(cfg, test_on, render_on, off)
+    steps = StagedSteps(cfg, state, schedule, device, H, W, K,
+                        graphs=chunks.k > 1, **data)
+    profiler = _Profiler(cfg, device) if cfg.profile else None
+
     first = cfg.iter_start + 1
     losses = torch.empty(max(cfg.iter_N - cfg.iter_start, 0), device=device)
     gate_fracs = torch.full_like(losses, float("nan"))   # nan: ungated
+    loss_col, gate_col = steps.keys.index("loss"), steps.keys.index(
+        "gate_frac")
     support, next_refresh, backoff = None, first, 1
     clock = _StepClock(device)
     clock.mark()
-    for i in range(first, cfg.iter_N + 1):
-        if policy is not None and i >= next_refresh:
-            support = policy.refresh(state.model, i)
-            # declined refreshes stretch the interval (no bounds are in use
-            # while ungated, so staleness costs nothing); engaging resets it
-            backoff = 1 if support is not None else min(
-                backoff * 2, max(int(cfg.train_precull_backoff_max), 1))
-            next_refresh = i + max(int(cfg.train_precull_every), 1) * backoff
-        if cfg.global_batch:
-            metrics = step_fn(state, *ray_pool.next_batch(cfg.N_rays),
-                              support=support)
-        else:
-            k = slot[int(rng.choice(i_train))]
-            metrics = step_fn(state, train_imgs[k], train_poses[k],
-                              precrop=i < cfg.precrop_iters, support=support)
-        clock.mark()
-        losses[i - first] = metrics["loss"]     # on the device, no sync
-        if "gate_frac" in metrics:
-            gate_fracs[i - first] = metrics["gate_frac"]
-        show = bool(cfg.idx_print and i % cfg.idx_print == 0)
-        if show or (cfg.idx_vis and i % cfg.idx_vis == 0):
-            # update i ran with schedule(i - 1)
-            logger.log(i, {**metrics, "lr": schedule(i - 1)},
-                       to_stdout=show, n_rays=cfg.N_rays)
-        if cfg.idx_save and i % cfg.idx_save == 0:
-            check_model_replicas(state.model, f"weights at iter {i}")
-            path = ckpt.save_checkpoint(cfg.logdir, cfg.exp_name, state)
-            print0(f">> checkpoint saved: {path}")
-        if test_on and i % cfg.idx_test == 0:
-            run_test(i, pack_nerf(full_model(state.model), cfg,
-                                  device=device),
-                     images[i_test], extrinsics[i_test], K, hw, cfg, device)
-        if render_on and i % cfg.idx_render == 0:
-            run_render(i, pack_nerf(full_model(state.model), cfg,
-                                    device=device), K, hw, cfg, device,
-                       render_poses=render_poses)
+    i = first
+    try:
+        while i <= cfg.iter_N:
+            if policy is not None and i >= next_refresh:
+                support = policy.refresh(state.model, i)
+                steps.set_support(support)
+                # declined refreshes stretch the interval (no bounds are in
+                # use while ungated, so staleness costs nothing); engaging
+                # resets it
+                backoff = 1 if support is not None else min(
+                    backoff * 2, max(int(cfg.train_precull_backoff_max), 1))
+                next_refresh = i + max(int(cfg.train_precull_every),
+                                       1) * backoff
+            if profiler is not None:
+                if i == cfg.iter_start + PROFILE_START:
+                    profiler.start(i)
+                elif i == cfg.iter_start + PROFILE_STOP:
+                    profiler.stop(i)
+            if cfg.global_batch:
+                k = chunks.length(i, ray_pool.i_batch, len(ray_pool.pool),
+                                  next_refresh if policy else None)
+                items = [ray_pool.next_start(cfg.N_rays) for _ in range(k)]
+            else:
+                k = chunks.length(i, next_refresh=next_refresh if policy
+                                  else None)
+                items = [slot[int(rng.choice(i_train))] for _ in range(k)]
+            slab = steps.run(items, precrop=i < cfg.precrop_iters,
+                             gated=support is not None,
+                             replay=k == chunks.k and k > 1)
+            clock.mark(k)
+            losses[i - first:i - first + k] = slab[:, loss_col]  # no sync
+            gate_fracs[i - first:i - first + k] = slab[:, gate_col]
+            rows = [j for j in range(k)      # JAX driver.py:404-406
+                    if (cfg.idx_vis and (i + j) % cfg.idx_vis == 0)
+                    or (cfg.idx_print and (i + j) % cfg.idx_print == 0)]
+            if rows or cfg.check_nans:
+                host = slab.cpu().numpy()            # one host read a chunk
+                bad = (steps.first_bad_step(host, i) if cfg.check_nans
+                       else None)
+                if bad is not None:
+                    raise FloatingPointError(
+                        f"check_nans: update {bad} gave a non-finite loss, "
+                        "gradient or weight")
+                for j in rows:
+                    e = i + j                # update e ran with schedule(e-1)
+                    logger.log(e, {**steps.row_metrics(host[j]),
+                                   "lr": schedule(e - 1)},
+                               to_stdout=bool(cfg.idx_print
+                                              and e % cfg.idx_print == 0),
+                               n_rays=cfg.N_rays)
+            last = i + k - 1           # the hooks fire on the chunk's last
+            if cfg.idx_save and last % cfg.idx_save == 0:
+                check_model_replicas(state.model, f"weights at iter {last}")
+                path = ckpt.save_checkpoint(cfg.logdir, cfg.exp_name, state)
+                print0(f">> checkpoint saved: {path}")
+            if test_on and last % cfg.idx_test == 0:
+                run_test(last, pack_nerf(full_model(state.model), cfg,
+                                         device=device),
+                         images[i_test], extrinsics[i_test], K, hw, cfg,
+                         device)
+            if render_on and last % cfg.idx_render == 0:
+                run_render(last, pack_nerf(full_model(state.model), cfg,
+                                           device=device), K, hw, cfg,
+                           device, render_poses=render_poses)
+            i += k
+    finally:
+        if profiler is not None:
+            profiler.stop(i)
+        steps.close()
+    if chunks.k > 1:
+        print0(f">> scan_chunk {chunks.k}: {steps.captures} graph "
+               f"capture(s), {steps.replays} replayed step(s)")
     logger.close()
     check_model_replicas(state.model, "final weights")
     lay = parallel.layout()
@@ -336,15 +448,20 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
     print0(">> training done")
     return dict(step=state.step, loss=losses.tolist(), step_s=clock.seconds(),
                 gate_frac=[None if math.isnan(g) else g
-                           for g in gate_fracs.tolist()])
+                           for g in gate_fracs.tolist()],
+                chunks=list(clock.lengths), graph_captures=steps.captures,
+                graph_replays=steps.replays)
 
 
 def main_worker(cfg: NerfConfig) -> dict:
     """One run (training, or ``eval_only``/``render_only``) on this
     process's device; under a launch, the process group is made first and
-    destroyed at the end.  The returned dict is rank 0's record (see
+    destroyed at the end.  The kernels' build directory is resolved first
+    (``compile_cache``).  The returned dict is rank 0's record (see
     ``train``, ``eval/test.run_test`` and ``eval/render.run_render``)."""
+    cache = build.use_build_dir(cfg.compile_cache)
     device, made_group = parallel.maybe_initialize_distributed(cfg.device)
+    print0(f">> kernel build cache: {cache}")
     try:
         return _run(cfg, device)
     finally:

@@ -5,11 +5,15 @@ interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The library's name carries a hash of the source, the shared
 headers (``csrc/*.cuh``) and the flags, so an edited source rebuilds and a
 stale library is never loaded.  The build directory is
-``<repo>/build/kernels`` (git-ignored).  ``build_all`` runs one ``nvcc``
-per source, all at once.
+``<repo>/build/kernels`` (git-ignored) unless ``use_build_dir`` names
+another: the config's ``compile_cache`` ("auto" that directory, "off" a
+fresh temporary directory for the process, else the directory given),
+the counterpart of the JAX package's persistent compilation cache.
+``build_all`` runs one ``nvcc`` per source, all at once.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
@@ -20,7 +24,9 @@ from pathlib import Path
 from typing import Iterable, List
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR = DEFAULT_BUILD_DIR
+_process_tmp: List[Path] = []     # compile_cache "off": made once a process
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,6 +38,30 @@ def nvcc() -> str:
             "nvcc not found (put the CUDA toolkit on PATH): the port's "
             "kernels are built from source at first use")
     return found
+
+
+def resolve_build_dir(compile_cache: str) -> Path:
+    """The build directory that ``compile_cache`` names: "auto" the
+    repository's ``build/kernels``, "off" a fresh temporary directory
+    (one a process, removed at exit), anything else that directory."""
+    spec = str(compile_cache).strip()
+    if spec.lower() == "auto":
+        return DEFAULT_BUILD_DIR
+    if spec.lower() == "off":
+        if not _process_tmp:
+            tmp = Path(tempfile.mkdtemp(prefix="nerf_kernels_"))
+            atexit.register(shutil.rmtree, tmp, True)
+            _process_tmp.append(tmp)
+        return _process_tmp[0]
+    return Path(spec).expanduser().resolve()
+
+
+def use_build_dir(compile_cache: str) -> Path:
+    """Point every later build at ``resolve_build_dir(compile_cache)``
+    and return it.  A library already loaded stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = resolve_build_dir(compile_cache)
+    return BUILD_DIR
 
 
 def library_path(name: str) -> Path:

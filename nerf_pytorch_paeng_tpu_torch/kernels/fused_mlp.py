@@ -157,6 +157,13 @@ def emb_perm(L: int) -> np.ndarray:
     return perm
 
 
+@functools.lru_cache(maxsize=None)
+def _emb_index(L: int, device: torch.device) -> torch.Tensor:
+    """``emb_perm(L)`` on ``device``, copied there once: a captured train
+    step (``train/chunk.py``) may copy nothing from the host."""
+    return torch.as_tensor(emb_perm(L), device=device)
+
+
 def pack_flat(mlp, L_x: int = 10, L_d: int = 4
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One ``NeRFMLP`` (reference architecture: 8x256, skip at 4) in the
@@ -173,8 +180,7 @@ def pack_flat(mlp, L_x: int = 10, L_d: int = 4
             f"1<=L_d<=4 (got L_x={L_x}, L_d={L_d})")
     in_x, in_d = 3 + 6 * L_x, 3 + 6 * L_d
     device = mlp.linear_feat.weight.device
-    px = torch.as_tensor(emb_perm(L_x), device=device)
-    pd = torch.as_tensor(emb_perm(L_d), device=device)
+    px, pd = _emb_index(L_x, device), _emb_index(L_d, device)
 
     def kern(layer):                                 # [in, out] float32
         return layer.weight.float().T

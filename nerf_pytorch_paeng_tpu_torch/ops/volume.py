@@ -42,6 +42,27 @@ class RenderOutputsT(NamedTuple):
     depth: torch.Tensor     # [N]
 
 
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` whose backward is the formula PyTorch's own takes
+    for an input without zeros, reversed_cumsum(out * grad) / x, bit for
+    bit, without PyTorch's host check for zeros (a ``.item()``, which no
+    CUDA graph can hold: ``train/chunk.py`` captures the step).  The
+    transmittance's factors 1 - alpha + 1e-10 are never 0."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        out = torch.cumprod(x, dim)
+        ctx.save_for_backward(x, out)
+        ctx.dim = dim
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        d = ctx.dim
+        return (out * grad).flip(d).cumsum(d).flip(d).div(x), None
+
+
 def exclusive_cumprod(x: torch.Tensor, axis: int = -1,
                       scan_impl: str = "cumprod") -> torch.Tensor:
     """out[i] = prod(x[:i]) along ``axis``, out[0] = 1.  ``scan_impl``
@@ -55,7 +76,7 @@ def exclusive_cumprod(x: torch.Tensor, axis: int = -1,
         logs = torch.log(torch.clamp(x, min=1e-10))
         return torch.exp(torch.cumsum(logs, axis) - logs)
     ones = torch.ones_like(x.narrow(axis, 0, 1))
-    prod = torch.cumprod(torch.cat([ones, x], axis), axis)
+    prod = _Cumprod.apply(torch.cat([ones, x], axis), axis)
     return prod.narrow(axis, 0, x.shape[axis])
 
 

@@ -25,6 +25,8 @@ from ..parallel.tensor import ShardedNeRF, shard_state_dict, shard_tensor
 from .state import TrainState
 
 _MOMENTS = ("exp_avg", "exp_avg_sq")
+# the optimizer's own configuration, kept over a checkpoint's (_load_optimizer)
+_RUN_KEYS = ("capturable", "foreach", "fused", "differentiable")
 
 
 def _split_dims(model) -> list:
@@ -37,6 +39,8 @@ def full_states(state: TrainState) -> Tuple[Dict, Dict]:
     model's gathered over its model group (a collective: every rank of
     the group calls it)."""
     model, osd = state.model, state.optimizer.state_dict()
+    for group in osd["param_groups"]:      # a device scalar on the card
+        group["lr"] = float(group["lr"])
     if not isinstance(model, ShardedNeRF):
         return model.state_dict(), osd
     group = model.group
@@ -99,6 +103,34 @@ def restore_checkpoint(logdir: str, exp_name: str, step: int,
                     k: shard_tensor(v, dim, n, m) if k in _MOMENTS else v
                     for k, v in entry.items()}
     model.load_state_dict(model_sd)
-    state.optimizer.load_state_dict(optim_sd)
+    _load_optimizer(state.optimizer, optim_sd)
     state.step = int(ckpt["idx"])
     return state
+
+
+def _load_optimizer(optimizer: torch.optim.Optimizer, osd: Dict) -> None:
+    """Adam's moments, step counts and ``lr`` from ``osd`` into
+    ``optimizer``, which keeps its own way of running (``_RUN_KEYS``;
+    ``train/state.make_optimizer``: capturable with a device-scalar ``lr``
+    on the card).  ``load_state_dict`` alone would take the writer's: the
+    reference, the JAX package's exporter and a port run on the CPU write
+    ``capturable`` False, and a capturable optimizer's device ``lr`` then
+    fails its first update (and no CUDA graph can hold one that is not
+    capturable).  Under ``capturable`` each step count moves to its
+    parameter's device as float32, where a capturable Adam keeps it."""
+    own = [{k: g[k] for k in ("lr", *_RUN_KEYS) if k in g}
+           for g in optimizer.param_groups]
+    optimizer.load_state_dict(osd)
+    for group, keep in zip(optimizer.param_groups, own):
+        lr = keep.pop("lr")
+        if isinstance(lr, torch.Tensor):      # the capturable device scalar
+            lr.fill_(float(group["lr"]))
+            group["lr"] = lr
+        group.update(keep)
+        if not group.get("capturable"):
+            continue
+        for p in group["params"]:
+            entry = optimizer.state.get(p, {})
+            if "step" in entry:
+                entry["step"] = torch.as_tensor(
+                    entry["step"]).to(device=p.device, dtype=torch.float32)

@@ -19,9 +19,30 @@ class TrainState:
 def make_optimizer(model: NeRF, cfg) -> torch.optim.Adam:
     """Adam(beta=(0.9, 0.999), eps=1e-8), as optax.adam in the JAX package
     and torch's Adam in the reference.  The train step sets ``lr`` to the
-    schedule's value before every update."""
+    schedule's value before every update (``set_lr``).
+
+    On a CUDA device the optimizer is capturable: its step count lives on
+    the card and ``lr`` is a device scalar, so that one configuration runs
+    the eager steps and the CUDA graphs of ``train/chunk.py`` alike, bit
+    for bit.  On the CPU (no graphs) ``lr`` is a float, as in the JAX
+    package's parity runs."""
+    device = next(model.parameters()).device
+    if device.type == "cuda":
+        return torch.optim.Adam(
+            model.parameters(), lr=torch.tensor(float(cfg.lr), device=device),
+            betas=(0.9, 0.999), eps=1e-8, capturable=True)
     return torch.optim.Adam(model.parameters(), lr=cfg.lr,
                             betas=(0.9, 0.999), eps=1e-8)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The next update's learning rate: filled into a device scalar ``lr``
+    (queued on the stream, no host sync), or set where it is a float."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def create_train_state(cfg, device=None) -> TrainState:

@@ -22,7 +22,12 @@ the JAX package.
 Each step draws from a generator seeded from (seed, completed updates),
 the counterpart of ``fold_in(key, state.step)``: a resumed run replays the
 same draws.  Tests inject the JAX package's draws instead (``coords``,
-``u_c``, ``u_f``).
+``u_c``, ``u_f``).  A step is its draws (``batch_draws``,
+``image_draws``: the pixels, the coarse jitter, the fine uniforms, in the
+order the render would take them) and then its body (``make_train_body``,
+``make_image_train_body``: render, loss, backward, Adam, with every draw
+injected), so that ``train/chunk.py`` can stage the draws into the static
+buffers of a captured body.
 
 Under a process group (``parallel/``, the JAX package's shard_map path)
 both steps still receive the whole batch: the global batch, or the image
@@ -64,7 +69,7 @@ from ..ops.rays import gather_rays, get_rays, sample_pixels
 from ..ops.render import (make_plain_field_fns, make_train_field_fns,
                           maybe_ndc, plain_route_reason, render_rays_from_cfg,
                           render_rays_train, supports_train_rays_kernels)
-from .state import TrainState
+from .state import TrainState, set_lr
 
 _U64 = (1 << 64) - 1
 
@@ -155,15 +160,14 @@ def _reduce_metrics(metrics: Dict[str, torch.Tensor], share: float
             else out[k] for k in metrics}
 
 
-def _update(state: TrainState, schedule: Callable[[int], float],
-            loss_fn, share: Optional[float] = None
-            ) -> Dict[str, torch.Tensor]:
-    """One Adam update; under a process group (``share``: this rank's
-    share of the batch) the gradients and metrics are reduced over the
-    data group first (a width-sharded model's split gradients are each
-    rank's own parts, its replicated ones alike over the model group)."""
-    for group in state.optimizer.param_groups:
-        group["lr"] = schedule(state.step)
+def apply_update(state: TrainState, loss_fn, share: Optional[float] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """One Adam update at the optimizer's current ``lr``; under a process
+    group (``share``: this rank's share of the batch) the gradients and
+    metrics are reduced over the data group first (a width-sharded model's
+    split gradients are each rank's own parts, its replicated ones alike
+    over the model group).  No host read: ``train/chunk.py`` captures it.
+    The step count is the caller's."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn()
     loss.backward()
@@ -172,6 +176,18 @@ def _update(state: TrainState, schedule: Callable[[int], float],
                                   parallel.data_group())
         metrics = _reduce_metrics(metrics, share)
     state.optimizer.step()
+    return metrics
+
+
+def scheduled_update(state: TrainState, schedule: Callable[[int], float],
+            body) -> Dict[str, torch.Tensor]:
+    """``body()`` (an ``apply_update``, or a staged step's replay in
+    ``train/chunk.py``) at ``schedule(state.step)``, then one more
+    completed update: the one place where a train step's learning rate is
+    set and its count advanced, for the single steps and the driver's
+    chunks alike."""
+    set_lr(state.optimizer, schedule(state.step))
+    metrics = body()
     state.step += 1
     return metrics
 
@@ -210,6 +226,56 @@ def _global_draws(cfg, generator, n: int, lo: int, hi: int, u_c, u_f):
     return u_c, u_f
 
 
+def _render_draws(cfg, generator: torch.Generator, n: int, lo: int,
+                  hi: int, u_c, u_f, device):
+    """The render's uniforms of this rank's rows [lo, hi) of an n-ray
+    batch, each drawn from ``generator`` unless injected, in the order and
+    shapes the samplers draw them (``stratified_z_vals``: the coarse
+    jitter [m, Sc]; ``sample_pdf``: the fine uniforms [m, Sf], none at
+    ``perturb 0`` or without a fine pass), or the whole batch's rows
+    under ``_global_draws``."""
+    u_c, u_f = _global_draws(cfg, generator, n, lo, hi, u_c, u_f)
+    if u_c is None:
+        u_c = torch.rand((hi - lo, cfg.N_samples_c), generator=generator,
+                         dtype=torch.float32, device=device)
+    if u_f is None and cfg.N_samples_f > 0 and float(cfg.perturb) != 0.0:
+        u_f = torch.rand((hi - lo, cfg.N_samples_f), generator=generator,
+                         dtype=torch.float32, device=device)
+    return u_c, u_f
+
+
+def batch_draws(cfg, step: int, n: int, device,
+                u_c: Optional[torch.Tensor] = None,
+                u_f: Optional[torch.Tensor] = None):
+    """(u_c, u_f) of global-batch update ``step`` (``step`` completed
+    updates before it) for this rank's slice of an n-ray batch, from the
+    step's own generator; injected draws are kept."""
+    lo, hi, _, render_rank = _rank_slice(n)
+    gen = step_generator(cfg.seed + 3, step, device, render_rank)
+    return _render_draws(cfg, gen, n, lo, hi, u_c, u_f, device)
+
+
+def image_draws(cfg, step: int, H: int, W: int, precrop: bool, device,
+                coords: Optional[torch.Tensor] = None,
+                u_c: Optional[torch.Tensor] = None,
+                u_f: Optional[torch.Tensor] = None):
+    """(coords, u_c, u_f) of per-image update ``step``: the ``N_rays``
+    pixels (``sample_pixels``' randperm, from the centre crop while
+    ``precrop``), then the render's uniforms of this rank's rays, from the
+    step's generator (under data parallelism the pixels from the
+    rank-free one, every rank alike, the render's from the rank's own);
+    injected draws are kept."""
+    lo, hi, _, render_rank = _rank_slice(cfg.N_rays)
+    gen = step_generator(cfg.seed + 3, step, device)
+    if coords is None:
+        coords = sample_pixels(H, W, cfg.N_rays, precrop, cfg.precrop_frac,
+                               generator=gen, device=device)
+    if render_rank is not None:
+        gen = step_generator(cfg.seed + 3, step, device, render_rank)
+    return (coords, *_render_draws(cfg, gen, cfg.N_rays, lo, hi, u_c, u_f,
+                                   device))
+
+
 def _with_half(cfg, support):
     """(coarse bounds, fine bounds) -> the render's (..., half-side)."""
     if support is None:
@@ -218,60 +284,87 @@ def _with_half(cfg, support):
     return (*support, _precull_half(cfg))
 
 
-def make_train_step(cfg, schedule: Callable[[int], float], H: int = 0,
-                    W: int = 0, focal: float = 0.0):
-    """Global-batch step: ``(state, rays_o, rays_d, target, u_c=None,
-    u_f=None, support=None) -> metrics``; updates ``state`` in place.
-    The rays are the global batch (a rank keeps its slice).
-    ``H``, ``W`` and ``focal`` serve only LLFF's NDC projection, applied
-    to each batch of world rays."""
-    seed = cfg.seed + 3
-
-    def train_step(state: TrainState, rays_o, rays_d, target,
-                   u_c: Optional[torch.Tensor] = None,
-                   u_f: Optional[torch.Tensor] = None, support=None):
-        lo, hi, share, render_rank = _rank_slice(rays_o.shape[0])
-        gen = step_generator(seed, state.step, rays_o.device, render_rank)
-        u_c, u_f = _global_draws(cfg, gen, rays_o.shape[0], lo, hi, u_c,
-                                 u_f)
+def make_train_body(cfg, H: int = 0, W: int = 0, focal: float = 0.0):
+    """The global-batch step with its draws injected: ``(state, rays_o,
+    rays_d, target, u_c, u_f, support=None) -> metrics``, one
+    ``apply_update`` at the optimizer's ``lr``, no host read and no step
+    count.  The rays are the global batch (a rank keeps its slice; the
+    draws are the rank's, ``batch_draws``).  ``H``, ``W`` and ``focal``
+    serve only LLFF's NDC projection, applied to each batch of world
+    rays."""
+    def body(state: TrainState, rays_o, rays_d, target, u_c, u_f,
+             support=None):
+        lo, hi, share, _ = _rank_slice(rays_o.shape[0])
         rays_o, rays_d = maybe_ndc(rays_o[lo:hi], rays_d[lo:hi], H, W, focal,
                                    cfg.data_type)
         target = target[lo:hi]
         sup = _with_half(cfg, support)
-        return _update(state, schedule, lambda: _loss_and_metrics(
-            state.model, rays_o, rays_d, target, cfg, gen, u_c, u_f, sup),
+        return apply_update(state, lambda: _loss_and_metrics(
+            state.model, rays_o, rays_d, target, cfg, None, u_c, u_f, sup),
             share)
+    return body
+
+
+def make_train_step(cfg, schedule: Callable[[int], float], H: int = 0,
+                    W: int = 0, focal: float = 0.0):
+    """Global-batch step: ``(state, rays_o, rays_d, target, u_c=None,
+    u_f=None, support=None) -> metrics``; updates ``state`` in place:
+    ``batch_draws``, then ``make_train_body``'s body at
+    ``schedule(state.step)``."""
+    body = make_train_body(cfg, H, W, focal)
+
+    def train_step(state: TrainState, rays_o, rays_d, target,
+                   u_c: Optional[torch.Tensor] = None,
+                   u_f: Optional[torch.Tensor] = None, support=None):
+        u_c, u_f = batch_draws(cfg, state.step, rays_o.shape[0],
+                               rays_o.device, u_c, u_f)
+        return scheduled_update(state, schedule, lambda: body(
+            state, rays_o, rays_d, target, u_c, u_f, support))
     return train_step
+
+
+def make_image_train_body(cfg, H: int, W: int, K):
+    """The per-image step with its draws injected: ``(state, image
+    [H,W,3], pose, coords [N_rays, 2], u_c, u_f, support=None) ->
+    metrics``, one ``apply_update`` at the optimizer's ``lr``, no host
+    read and no step count.  The image's rays are generated, the pixels
+    at ``coords`` gathered (this rank's rows) and, for LLFF, projected
+    into NDC."""
+    focal = float(np.asarray(K)[0, 0])
+    K_on = {}           # K on each device, copied once (none in a capture)
+
+    def body(state: TrainState, image, pose, coords, u_c, u_f,
+             support=None):
+        lo, hi, share, _ = _rank_slice(cfg.N_rays)
+        dev = image.device
+        if dev not in K_on:
+            K_on[dev] = torch.as_tensor(np.asarray(K), dtype=torch.float32,
+                                        device=dev)
+        rays_o, rays_d = get_rays(H, W, K_on[dev], pose)
+        ro, rd, target = gather_rays(rays_o, rays_d, image, coords[lo:hi])
+        ro, rd = maybe_ndc(ro, rd, H, W, focal, cfg.data_type)
+        sup = _with_half(cfg, support)
+        return apply_update(state, lambda: _loss_and_metrics(
+            state.model, ro.contiguous(), rd.contiguous(), target, cfg, None,
+            u_c, u_f, sup), share)
+    return body
 
 
 def make_image_train_step(cfg, schedule: Callable[[int], float], H: int,
                           W: int, K):
     """Per-image step: ``(state, image [H,W,3], pose, precrop=False,
-    coords=None, u_c=None, u_f=None, support=None) -> metrics``.  The
-    image's rays are generated, ``N_rays`` pixels drawn (the step's
-    generator draws the pixels first, then the render's jitter) and
-    gathered (and, for LLFF, projected into NDC)."""
-    seed = cfg.seed + 3
-    focal = float(np.asarray(K)[0, 0])
+    coords=None, u_c=None, u_f=None, support=None) -> metrics``:
+    ``image_draws`` (the step's generator draws the pixels first, then the
+    render's jitter), then ``make_image_train_body``'s body at
+    ``schedule(state.step)``."""
+    body = make_image_train_body(cfg, H, W, K)
 
     def train_step(state: TrainState, image, pose, precrop: bool = False,
                    coords: Optional[torch.Tensor] = None,
                    u_c: Optional[torch.Tensor] = None,
                    u_f: Optional[torch.Tensor] = None, support=None):
-        lo, hi, share, render_rank = _rank_slice(cfg.N_rays)
-        gen = step_generator(seed, state.step, image.device)
-        rays_o, rays_d = get_rays(H, W, K, pose)
-        if coords is None:
-            coords = sample_pixels(H, W, cfg.N_rays, precrop,
-                                   cfg.precrop_frac, generator=gen,
-                                   device=image.device)
-        ro, rd, target = gather_rays(rays_o, rays_d, image, coords[lo:hi])
-        ro, rd = maybe_ndc(ro, rd, H, W, focal, cfg.data_type)
-        if render_rank is not None:
-            gen = step_generator(seed, state.step, image.device, render_rank)
-        u_c, u_f = _global_draws(cfg, gen, cfg.N_rays, lo, hi, u_c, u_f)
-        sup = _with_half(cfg, support)
-        return _update(state, schedule, lambda: _loss_and_metrics(
-            state.model, ro.contiguous(), rd.contiguous(), target, cfg, gen,
-            u_c, u_f, sup), share)
+        coords, u_c, u_f = image_draws(cfg, state.step, H, W, precrop,
+                                       image.device, coords, u_c, u_f)
+        return scheduled_update(state, schedule, lambda: body(
+            state, image, pose, coords, u_c, u_f, support))
     return train_step

@@ -16,6 +16,8 @@ kernel's gradients are held per packed tensor to a cosine of at least
 0.999 and 1e-2 relative L2, or three times the distance between the plain
 version on the card and on the CPU where that is more (``_grads_close``).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -928,10 +930,8 @@ PLAIN_SHAPES = {"a": dict(netDepth=4, netWidth=64, L_x=0, L_d=0),
 
 def _all_launches():
     """Every kernel wrapper's launch counters, in one tuple."""
-    return tuple(getattr(fn, attr) for fn in (
-        fm.fused_mlp_sigma_rays, fm.fused_mlp_eval_rays, fm.fused_mlp_sigma,
-        fm.fused_mlp_eval, fv.fused_mlp_bwd_rays, fv.fused_mlp_bwd)
-        for attr in ("launches", "gated_launches") if hasattr(fn, attr))
+    from nerf_pytorch_paeng_tpu_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def _plain_cfg(shape, **kw):
@@ -1140,3 +1140,149 @@ def test_associative_scan_on_the_card(dev):
     want = volume.exclusive_cumprod(x, -1)
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-7)
+
+
+# ------------------------------------ scan_chunk: CUDA graphs of the step
+
+
+def _staged_run(dev, kind, replay, steps=6, resume=None):
+    """``steps`` lego-width per-image steps (64x64 views, 4096 rays,
+    64+128 samples) through ``train/chunk.StagedSteps``, one chunk:
+    replayed from a CUDA graph (after its warm-up steps) or eager.  kind:
+    "rays" (K1/K2), "gated" (K5/K6 on the compact field's bounds),
+    "planes" (K8/K9), "plain" (no kernel).  ``resume`` (logdir, exp,
+    step): the state is restored from that checkpoint first, as the
+    driver's ``iter_start`` does.  Returns (state, slab, staged, the
+    launch counters' change)."""
+    from nerf_pytorch_paeng_tpu_torch.kernels import launch_counts
+    from nerf_pytorch_paeng_tpu_torch.train import TrainState, make_optimizer
+    from nerf_pytorch_paeng_tpu_torch.train.chunk import StagedSteps
+    from nerf_pytorch_paeng_tpu_torch.train.precull import \
+        make_train_support_program
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+
+    over = {"planes": dict(use_rays_train=False),
+            "plain": dict(use_pallas=False)}.get(kind, {})
+    cfg = NerfConfig(N_rays=4096, N_samples_c=64, N_samples_f=128,
+                     iter_warmup=0, iter_N=100, **over)
+    images, K, poses = make_synth_scene(n_views=2, H=64, W=64)
+    model = NeRF()
+    if kind == "gated":
+        model.load_state_dict(compact_field_state_dict(r=1.5, k=20.0))
+    else:
+        model.load_state_dict(init_nerf(cfg, seed=3, device=dev).state_dict())
+    model.to(dev)
+    state = TrainState(model, make_optimizer(model, cfg), 0)
+    if resume is not None:
+        from nerf_pytorch_paeng_tpu_torch.train import checkpoint as ckpt
+        ckpt.restore_checkpoint(*resume, state)
+    staged = StagedSteps(
+        cfg, state, schedule_from_cfg(cfg), dev, 64, 64, K,
+        images=torch.from_numpy(images).to(dev),
+        poses=torch.from_numpy(poses[:, :3, :4]).to(dev), graphs=True)
+    if kind == "gated":
+        prog, _ = make_train_support_program(cfg, poses=poses[:, :3, :4],
+                                             K=K, hw=(64, 64), device=dev)
+        staged.set_support(prog(model))
+    before = launch_counts()
+    slab = staged.run([j % 2 for j in range(steps)], gated=kind == "gated",
+                      replay=replay)
+    torch.cuda.synchronize()
+    launched = tuple(b - a for a, b in zip(before, launch_counts()))
+    return state, slab, staged, launched
+
+
+@pytest.mark.parametrize("kind", ["rays", "gated", "planes", "plain"])
+def test_captured_steps_equal_eager_steps(dev, kind):
+    """Six steps replayed from a CUDA graph (two eager warm-up steps of the
+    trajectory, one capture, four replays) against the same six steps run
+    eagerly: losses, weights and Adam's state bit-equal, and the launch
+    counters moved alike (each replay adds the launches its capture
+    recorded)."""
+    eager, slab_e, st_e, launched_e = _staged_run(dev, kind, replay=False)
+    graph, slab_g, st_g, launched_g = _staged_run(dev, kind, replay=True)
+    assert (st_e.captures, st_e.replays) == (0, 0)
+    assert (st_g.captures, st_g.replays) == (1, 4)
+    # bit-equal metric rows (gate_frac is nan in both where ungated)
+    torch.testing.assert_close(slab_g, slab_e, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isfinite(slab_g[:, st_g.keys.index("loss")]).all())
+    if kind == "gated":
+        assert bool((slab_g[:, st_g.keys.index("gate_frac")] > 0).all())
+    for a, b in zip(eager.model.parameters(), graph.model.parameters()):
+        assert torch.equal(a, b)
+    sa, sb = (s.optimizer.state_dict()["state"] for s in (eager, graph))
+    for i in sa:
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa[i][k], sb[i][k]), (i, k)
+    assert launched_e == launched_g
+    assert (sum(launched_g) == 0) == (kind == "plain")
+
+
+def _non_capturable_checkpoint(logdir, writer):
+    """A lego-width checkpoint at update 2 whose Adam groups say
+    ``capturable`` False: written by two port steps on the CPU
+    ("port_cpu"), or those weights and moments in the layout of the JAX
+    package's exporter ("jax_export": ``utils/interop.py``'s
+    ``reference_checkpoint_from_train_state``, float64 step scalars and
+    the reference's hyper-parameters, ``foreach`` None).  Returns the
+    exp name."""
+    from nerf_pytorch_paeng_tpu_torch.train import checkpoint as ckpt
+    from nerf_pytorch_paeng_tpu_torch.train import create_train_state
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_train_step
+
+    cfg = NerfConfig(device="cpu", N_rays=32, N_samples_c=8, N_samples_f=8,
+                     iter_warmup=0, iter_N=100)
+    state = create_train_state(cfg, "cpu")
+    step = make_train_step(cfg, schedule_from_cfg(cfg))
+    g = torch.Generator().manual_seed(13)
+    for _ in range(2):
+        o = torch.randn(32, 3, generator=g) * 0.1 + torch.tensor([0, 0, 4.0])
+        d = -o / 4 + torch.randn(32, 3, generator=g) * 0.2
+        step(state, o, d, torch.rand(32, 3, generator=g))
+    path = ckpt.save_checkpoint(logdir, "port_cpu", state)
+    if writer == "port_cpu":
+        return "port_cpu"
+    file = torch.load(path, weights_only=True)
+    osd = file["optimizer_state_dict"]
+    n = len(osd["state"])
+    file["optimizer_state_dict"] = {
+        "state": {i: {"step": torch.tensor(2.0, dtype=torch.float64),
+                      "exp_avg": osd["state"][i]["exp_avg"],
+                      "exp_avg_sq": osd["state"][i]["exp_avg_sq"]}
+                  for i in range(n)},
+        "param_groups": [{
+            "params": list(range(n)), "lr": 5e-4, "betas": (0.9, 0.999),
+            "eps": 1e-8, "weight_decay": 0, "amsgrad": False,
+            "maximize": False, "foreach": None, "capturable": False,
+            "differentiable": False, "fused": None}]}
+    os.makedirs(os.path.join(logdir, "jax_export"))
+    torch.save(file, ckpt.checkpoint_path(logdir, "jax_export", 2))
+    return "jax_export"
+
+
+@pytest.mark.parametrize("writer", ["port_cpu", "jax_export"])
+def test_resume_on_the_card_from_a_non_capturable_checkpoint(dev, tmp_path,
+                                                             writer):
+    """A checkpoint whose optimizer is not capturable (``writer``: a port
+    run on the CPU, or the JAX package's export layout) resumed into the
+    card's capturable Adam (``train/checkpoint._load_optimizer``) and run
+    six ray steps at ``--scan_chunk 1`` (eager) and from a CUDA graph (the
+    default 16: two warm-up steps, a capture, four replays): both run,
+    stay capturable, and agree bit for bit; finite losses."""
+    exp = _non_capturable_checkpoint(str(tmp_path), writer)
+    runs = [_staged_run(dev, "rays", replay, resume=(str(tmp_path), exp, 2))
+            for replay in (False, True)]
+    (eager, slab_e, _, _), (graph, slab_g, st_g, _) = runs
+    assert st_g.replays == 4
+    for st in (eager, graph):
+        assert st.step == 8
+        assert all(g["capturable"] for g in st.optimizer.param_groups)
+    torch.testing.assert_close(slab_g, slab_e, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isfinite(slab_g[:, st_g.keys.index("loss")]).all())
+    for a, b in zip(eager.model.parameters(), graph.model.parameters()):
+        assert torch.equal(a, b)
+    sa, sb = (s.optimizer.state_dict()["state"] for s in (eager, graph))
+    for i in sa:
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa[i][k], sb[i][k]), (i, k)

@@ -124,18 +124,24 @@ def test_cli_overrides_and_device_knob():
         port_config.load_config(["--data_type", "nope"])
 
 
-@pytest.mark.parametrize("knob", [("compile_cache", "off"),
-                                  ("scan_chunk", "4")])
+@pytest.mark.parametrize("knob", [
+    (("compile_cache", "off", "auto"), ("profile", "true", False)),
+    (("scan_chunk", "4", 16), ("check_nans", "true", False))])
 def test_unported_tpu_knobs_are_refused(knob, tmp_path):
-    """A TPU knob of the JAX package fails loudly instead of being
-    ignored, on the command line and in a config file."""
-    name, value = knob
-    with pytest.raises(SystemExit):
-        port_config.load_config([f"--{name}", value])
-    path = tmp_path / "knob.txt"
-    path.write_text(f"{name} = {value}\n")
-    with pytest.raises(KeyError, match=name):
-        port_config.config_from_file(str(path))
+    """The JAX package's four run knobs (once refused here, now ported:
+    ``train/chunk.py``, ``driver.py``, ``kernels/build.py``) parse on the
+    command line and in a config file as the JAX package parses them, and
+    default to the JAX package's values."""
+    from nerf_pytorch_paeng_tpu.config import NerfConfig as JaxConfig
+    for name, value, default in knob:
+        want = {"true": True, "4": 4}.get(value, value)
+        assert getattr(port_config.NerfConfig(), name) == default
+        assert getattr(JaxConfig(), name) == default
+        assert getattr(port_config.load_config([f"--{name}", value]),
+                       name) == want
+        path = tmp_path / "knob.txt"
+        path.write_text(f"{name} = {value}  # the JAX package's knob\n")
+        assert getattr(port_config.config_from_file(str(path)), name) == want
 
 
 def test_resolve_device_never_falls_back():

@@ -198,13 +198,15 @@ def test_coarse_only_frame_renders_through_the_plane_kernel(scene):
 
 
 def test_config_knobs_are_the_jax_packages():
-    """Every knob of the port's NerfConfig, ``device`` apart, is the JAX
-    package's, with its default; the shipped configs set none that the port
-    lacks; the JAX package's TPU knobs are not carried."""
+    """The port's NerfConfig has every field of the JAX package's, with its
+    default, and one more, ``device``; the JAX package's run knobs
+    (``scan_chunk``, ``profile``, ``check_nans``, ``compile_cache``) are
+    among them."""
     ours = {f.name: f.default for f in dataclasses.fields(NerfConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
     assert set(ours) - set(theirs) == {"device"}
+    assert set(theirs) <= set(ours)
     for k, v in ours.items():
         assert k == "device" or theirs[k] == v, k
-    for name in ("scan_chunk", "compile_cache"):
-        assert name in theirs and name not in ours, name
+    for name in ("scan_chunk", "profile", "check_nans", "compile_cache"):
+        assert name in theirs and name in ours, name

@@ -126,10 +126,10 @@ def _assert_state_matches(state, jparams, jmu, jnu, jstep_count):
     assert state.step == jstep_count
 
 
-def test_jax_train_state_restores_into_the_port(tmp_path):
-    """A JAX train state after two XLA steps -> the JAX package's
-    reference checkpoint -> ``torch.save`` -> the port's
-    ``restore_checkpoint``: the same weights, Adam moments and step."""
+def _jax_exported(tmp_path):
+    """A JAX train state after two XLA steps, written as the JAX package's
+    reference checkpoint (``torch.save``) at logs ``tmp_path``, exp
+    "exp": (jcfg, cfg, the JAX state)."""
     jcfg, cfg = _small_cfgs()
     model, jstate, tx = jax_create_state(jcfg, jax.random.PRNGKey(0))
     step = jax.jit(jstep.make_train_step(model, tx, jcfg))
@@ -144,7 +144,14 @@ def test_jax_train_state_restores_into_the_port(tmp_path):
     path = ckpt.checkpoint_path(str(tmp_path), "exp", int(jstate.step))
     (tmp_path / "exp").mkdir()
     torch.save(_tensors(ref), path)
+    return jcfg, cfg, jstate
 
+
+def test_jax_train_state_restores_into_the_port(tmp_path):
+    """A JAX train state after two XLA steps -> the JAX package's
+    reference checkpoint -> ``torch.save`` -> the port's
+    ``restore_checkpoint``: the same weights, Adam moments and step."""
+    jcfg, cfg, jstate = _jax_exported(tmp_path)
     state = create_train_state(cfg, "cpu")
     ckpt.restore_checkpoint(str(tmp_path), "exp", int(jstate.step), state)
     adam = _adam_state(jstate.opt_state)
@@ -172,3 +179,57 @@ def test_port_checkpoint_imports_into_the_jax_package(tmp_path):
     adam = _adam_state(jstate.opt_state)
     assert int(jstate.step) == int(adam.count) == 2
     _assert_state_matches(state, jstate.params, adam.mu, adam.nu, 2)
+
+
+@pytest.mark.parametrize("writer", ["jax_export", "port_cpu"])
+def test_restore_keeps_a_capturable_optimizer(tmp_path, writer):
+    """A checkpoint whose Adam groups say ``capturable`` False (the JAX
+    package's exporter; a port run on the CPU) restored into a capturable
+    Adam with a tensor ``lr``, as ``make_optimizer`` makes on the card:
+    the optimizer stays capturable, keeps its ``lr`` tensor (now holding
+    the file's rate), its step counts are float32 tensors on the
+    parameters' device, and weights, moments and step are the file's.
+    (``tests/test_torch_cuda.py`` resumes such files on the card.)"""
+    if writer == "jax_export":
+        _, cfg, jstate = _jax_exported(tmp_path)
+        count = int(jstate.step)
+    else:
+        _, cfg = _small_cfgs()
+        src = create_train_state(cfg, "cpu")
+        step = make_train_step(cfg, schedule_from_cfg(cfg))
+        g = torch.Generator().manual_seed(12)
+        for _ in range(2):
+            o = torch.randn(32, 3, generator=g) * 0.1 + torch.tensor(
+                [0, 0, 4.0])
+            d = -o / 4 + torch.randn(32, 3, generator=g) * 0.2
+            step(src, o, d, torch.rand(32, 3, generator=g))
+        ckpt.save_checkpoint(str(tmp_path), "exp", src)
+        count = src.step
+    saved = torch.load(ckpt.checkpoint_path(str(tmp_path), "exp", count),
+                       weights_only=True)["optimizer_state_dict"]
+    assert saved["param_groups"][0]["capturable"] is False
+
+    model = NeRF()
+    lr = torch.tensor(1.0)
+    state = TrainState(model, torch.optim.Adam(
+        model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        capturable=True), 0)
+    ckpt.restore_checkpoint(str(tmp_path), "exp", count, state)
+    (group,) = state.optimizer.param_groups
+    assert group["capturable"] is True and group["lr"] is lr
+    assert float(lr) == np.float32(saved["param_groups"][0]["lr"])
+    if writer == "jax_export":
+        adam = _adam_state(jstate.opt_state)
+        _assert_state_matches(state, jstate.params, adam.mu, adam.nu, count)
+    else:
+        for a, b in zip(src.model.parameters(), model.parameters()):
+            assert torch.equal(a, b)
+        for i, p in enumerate(model.parameters()):
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(state.optimizer.state[p][k],
+                                   saved["state"][i][k])
+    for p in model.parameters():
+        st = state.optimizer.state[p]["step"]
+        assert st.dtype == torch.float32 and st.device == p.device
+        assert float(st) == count
+    assert state.step == count
