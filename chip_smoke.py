@@ -189,6 +189,42 @@
    counters stay true (each replay adds the launches its capture
    recorded).
 
+16. The distilled fields (``distilled_phase``): the JAX bench's three
+   blob scenes (std, hi, hard: ``DISTILLED_SCENES``) distilled into a
+   lego-width NeRF by ``utils/synth.fit_field_to_blob`` through K8/K9
+   (8192 ray points and a quarter as many uniform ones, then the polish
+   phase; the fit's default learning rates): each fit's time and ms a
+   step, exactly 2 K8 + 2 K9 launches a step and no other kernel, the
+   first step's
+   gradients through K8/K9 against the plain pair on the card within
+   ``GRAD_TOL`` (the floor: the plain pair on the CPU); K8 (float32) and
+   K9 at the fit's two shapes against their plain versions and bounds;
+   both modules' support grids (K7): valid or not, occupied cells, those
+   in the cube's outer layers, the largest far-field density logit; pose
+   0 of the synthetic orbit at 800x800 (focal 0.9 W) through the culled
+   and the dense renderer at ``perturb 0`` (CUDA events, median of 3
+   after a warm-up), with the culled frame's active
+   share, cover blocks, truncated share and gate skip shares, and (std)
+   ``ops.render_frame`` of the frame's rays in 131072-ray blocks on K7 and
+   K8 (one launch of each a block; >= 35 dB against the dense ray-kernel
+   frame); on the hard
+   and std scenes 60 eager train steps on 4096 pixel rays of that pose,
+   gated by the fitted field's bounds and ungated (median of steps
+   17-60, ``gate_frac``, whether the bounds were valid).  Each returned
+   field is gated: the loss the fit returns < 0.1 (the JAX fixtures'
+   limit), the polish-phase loss of the returned weights on fresh draws
+   < 0.1, the dense frame >= 22 dB against the analytic frame of the
+   scene's blob (the JAX fixtures' floor), the culled frame >= 40 dB from
+   the dense one and no further from the blob than the JAX package's
+   guards allow (0.05 dB on the soft scenes, 0.3 dB on the hard one).  A
+   failed gate is printed, the later phases still run, and the run fails
+   at its end.
+17. The multi-rank dry run (``dryrun_phase``): ``python -m
+   nerf_pytorch_paeng_tpu_torch.dryrun 2`` with both ranks on the card
+   over gloo: six ``OK`` lines and each phase's launches summed over the
+   ranks (none on the plain route, K1/K2 on the data-parallel steps, K7
+   then K4/K5 on the culled frame, K5/K6 on the gated step).
+
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -279,6 +315,43 @@ CHUNK_STEPS = 48
 MESH_RAYS = 512
 MESH_STEPS = 3
 MESH_TIMEOUT_S = 600
+# phase 16: the JAX bench's three distilled scenes (bench.py:125-157), fit
+# at lego's width through K8/K9 from init seed 0 with the fit's generator
+# seeded 1, at the fit's default learning rates (``fit_learning_rates``:
+# the JAX function's constant rate can leave the hard scene's fit inside a
+# loss spike and its long polish grows a halo round the blob)
+DISTILLED_SCENES = (
+    ("std", dict(blob_r=0.45, blob_cutoff=1.35, blob_amp=8.0,
+                 blob_hard_w=0.0, n_steps=300)),
+    ("hi", dict(blob_r=0.54, blob_cutoff=1.62, blob_amp=8.0,
+                blob_hard_w=0.0, n_steps=300)),
+    ("hard", dict(blob_r=0.45, blob_cutoff=1.35, blob_amp=60.0,
+                  blob_hard_w=0.08, n_steps=1500)))
+FIT_PTS = 8192
+FIT_UNIFORM_FRAC = 0.25
+# the gates on each returned field (``gate``: a failure is printed, the
+# other phases still run, the run fails at its end).  The loss a fit
+# returns (its last main step's) below FIT_LOSS_MAX, the JAX fixtures'
+# limit (tests/test_render_culled.py); the polish-phase loss of the
+# returned weights on fresh draws (the objective they were last trained
+# on) below the same limit; the dense frame of pose 0 against the
+# analytic frame of the blob at least DENSE_VS_BLOB_PSNR_MIN, the JAX
+# fixtures' floor; the culled frame CULLED_VS_DENSE_PSNR_MIN from the
+# dense one, and against the blob no more than CULLED_VS_BLOB_LOSS_MAX
+# further from it than the dense one: the JAX package's guards, 0.05 dB on
+# its soft scene and 0.3 dB on its hard one, where separately distilled
+# coarse and fine modules disagree on the silhouette
+FIT_LOSS_MAX = 0.1
+HELD_OUT_DRAWS = 4
+DENSE_VS_BLOB_PSNR_MIN = 22.0
+GT_SAMPLES = 256          # the analytic frame of a distilled scene's blob
+DISTILLED_HW = 800        # the JAX bench's frame: pose 0, focal 0.9 W
+CULLED_VS_BLOB_LOSS_MAX = {"std": 0.05, "hi": 0.05, "hard": 0.3}
+DISTILLED_GATED = ("hard", "std")
+DISTILLED_STEPS = 60      # gated and ungated steps on 4096 pixel rays
+DISTILLED_MEDIAN_FROM = 17
+DRYRUN_RANKS = 2
+DRYRUN_TIMEOUT_S = 300
 
 
 def log(*a):
@@ -289,6 +362,18 @@ def check(ok: bool, what) -> None:
     """A failed check ends the run (asserts would vanish under -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+FAILED_GATES: list = []
+
+
+def gate(ok: bool, what) -> None:
+    """A failed gate on what a path produced (a fitted field): printed at
+    once and again at the end, where it fails the run after every phase
+    has run and printed its numbers."""
+    if not ok:
+        log(f"chip_smoke gate failed: {what}")
+        FAILED_GATES.append(str(what))
 
 
 def card_line() -> str:
@@ -3560,6 +3645,493 @@ def mesh_phase(work: str, data_root: str, device) -> tuple:
     return launches, record
 
 
+class _PlainPoints(torch.autograd.Function):
+    """The plane pair's plain versions (K8's forward, K9's backward) as one
+    autograd pair, for the fit's gradients on the card without the
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, w, b, xplane, dplane, L_x, L_d, weight_dtype):
+        from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp as fm
+        packed = fm._with_views(w.to(weight_dtype), b)
+        ctx.save_for_backward(packed["w"], b, xplane, dplane)
+        ctx.encodings = (L_x, L_d)
+        return fm.fused_mlp_eval_plain(xplane, dplane, packed, L_x, L_d,
+                                       out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, gout):
+        from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp as fm
+        from nerf_pytorch_paeng_tpu_torch.kernels import fused_mlp_vjp as fv
+        w, b, xplane, dplane = ctx.saved_tensors
+        dw, db = fv.fused_mlp_bwd_plain(xplane, dplane,
+                                        gout.float().contiguous(),
+                                        fm._with_views(w, b), *ctx.encodings)
+        return dw, db, None, None, None, None, None
+
+
+def fit_grads(model, pts, dirs, blob: dict, train_fn=None) -> dict:
+    """The gradients of one fit step's loss (``blob_fit_loss`` through
+    ``blob_fit_fields``) at ``model``'s weights, by parameter name."""
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import (blob_fit_fields,
+                                                          blob_fit_loss)
+    model.zero_grad(set_to_none=True)
+    fields = blob_fit_fields(model, train_fn=train_fn)
+    blob_fit_loss(fields, pts, dirs, **blob).backward()
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def fit_grad_check(model, draws, blob: dict, device) -> dict:
+    """The first fit step's gradients through K8/K9 against the plain pair
+    on the card, same weights and draws, each parameter within
+    ``GRAD_TOL`` (the floor: the plain pair on the card against the same
+    on the CPU)."""
+    import copy
+
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import orbit_ray_points
+    pts, dirs = orbit_ray_points(draws, FIT_UNIFORM_FRAC)
+    got = fit_grads(model, pts, dirs, blob)
+    want = fit_grads(model, pts, dirs, blob, train_fn=_PlainPoints.apply)
+    cpu = copy.deepcopy(model).cpu()
+    other = fit_grads(cpu, pts.cpu(), dirs.cpu(), blob)   # plain on the CPU
+    worst, worst_cos = (0.0, 1.0, None), 1.0
+    for k in want:
+        a, b, c = (x[k].double().cpu().flatten() for x in (got, want, other))
+        rel = float((a - b).norm() / b.norm())
+        limit = max(GRAD_TOL["rel_l2"],
+                    GRAD_TOL["floor_factor"] * float((c - b).norm()
+                                                     / b.norm()))
+        cos = float(a @ b / (a.norm() * b.norm()))
+        check(rel <= limit and cos >= GRAD_TOL["cos"],
+              f"fit gradients: {k} through K8/K9 {rel} > {limit} or cos "
+              f"{cos} against the plain pair")
+        if rel / limit > worst[0] / worst[1]:
+            worst = (rel, limit, k)
+        worst_cos = min(worst_cos, cos)
+    model.zero_grad(set_to_none=True)
+    return dict(worst_rel=worst[0], worst_limit=worst[1], worst_at=worst[2],
+                min_cos=worst_cos, points=int(pts.shape[0]))
+
+
+def grid_stragglers(fm, packed_module, cfg, device, cutoff: float) -> dict:
+    """K7 on the support grid: occupied cells, those in the cube's two
+    outer layers (which make the bounds invalid) and the largest density
+    logit beyond ``cutoff + 0.6`` (the far field the polish sweeps)."""
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import _precull_half
+    from nerf_pytorch_paeng_tpu_torch.ops.occupancy import grid_points
+    g, half = SUPPORT_GRID, _precull_half(cfg)
+    x = grid_points(half, g, device)
+    sig = fm.fused_mlp_sigma(x, packed_module, L_x=cfg.L_x,
+                             out_dtype=torch.bfloat16).float()
+    occ = (sig > 0).reshape(g, g, g)
+    inner = torch.zeros_like(occ)
+    inner[2:-2, 2:-2, 2:-2] = True
+    far = torch.linalg.norm(x, dim=0) > cutoff + 0.6
+    return dict(occupied=int(occ.sum()), outer=int((occ & ~inner).sum()),
+                far_max_raw=float(sig[far].max()))
+
+
+def distilled_phase(fm, fv, device) -> tuple:
+    """Phase 16: the JAX bench's three distilled scenes at lego's width
+    (``utils/synth.fit_field_to_blob`` through K8/K9, 2 K8 + 2 K9 launches
+    a step, the first step's gradients against the plain pair within
+    ``GRAD_TOL``), K8/K9 against their plain versions at the fit's two
+    shapes, the support grids' validity and stragglers (K7), the culled
+    and dense 800x800 frames of pose 0 (``perturb 0``, CUDA events, median
+    of 3 after a warm-up), and on the hard and std scenes
+    ``DISTILLED_STEPS`` gated and ungated train steps on 4096 pixel rays of
+    that pose (median of steps 17-60).  Each returned field is gated
+    (``gate``): the loss the fit returns below ``FIT_LOSS_MAX``, its
+    weights' polish-phase loss on fresh draws below the same, its dense
+    frame at least ``DENSE_VS_BLOB_PSNR_MIN`` against the blob, the culled
+    frame ``CULLED_VS_DENSE_PSNR_MIN`` from the dense one and at most
+    ``CULLED_VS_BLOB_LOSS_MAX`` further from the blob.  Returns the
+    paths' launches, the phase's record and K8/K9 at the fit's shapes."""
+    import dataclasses
+
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import (_support_for_eval,
+                                                         make_frame_renderer)
+    from nerf_pytorch_paeng_tpu_torch.models.nerf import NeRF, init_nerf
+    from nerf_pytorch_paeng_tpu_torch.ops.rays import get_rays
+    from nerf_pytorch_paeng_tpu_torch.train.precull import \
+        make_train_support_program
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import (fit_field_to_blob,
+                                                          orbit_draws,
+                                                          polish_steps)
+
+    cfg, H, W, K, pose = distilled_frame_setup(device)
+    renderers = {
+        label: make_frame_renderer(c, H, W, K, device, stratified=False)
+        for label, c in (("culled", cfg), ("dense", dataclasses.replace(
+            cfg, render_cull="none")))}
+    ro, rd = get_rays(H, W, K, pose)
+    g = torch.Generator(device).manual_seed(0)
+    pick = torch.randperm(H * W, generator=g, device=device)[:TRAIN_RAYS]
+    ro, rd = ro.reshape(-1, 3)[pick], rd.reshape(-1, 3)[pick]
+    target = torch.rand((TRAIN_RAYS, 3), generator=g, device=device)
+    launches, out = {}, {}
+    for name, kw in DISTILLED_SCENES:
+        blob = {k: v for k, v in kw.items() if k != "n_steps"}
+        model0 = init_nerf(cfg, seed=0, device=device)
+        first = orbit_draws(FIT_PTS, FIT_UNIFORM_FRAC, torch.Generator(
+            device).manual_seed(1), device)
+        grads = fit_grad_check(model0, first, blob, device)
+        zero_launches()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        sd, loss = fit_field_to_blob(
+            model0, n_pts=FIT_PTS, uniform_frac=FIT_UNIFORM_FRAC,
+            generator=torch.Generator(device).manual_seed(1), **kw)
+        torch.cuda.synchronize(device)
+        fit_s = time.perf_counter() - t0
+        launches[f"distilled_fit_{name}"] = fit_l = read_launches()
+        steps = kw["n_steps"] + polish_steps(kw["n_steps"])
+        check(fit_l["fused_mlp_eval"] == fit_l["fused_mlp_bwd"] == 2 * steps,
+              f"distilled {name}: K8 {fit_l['fused_mlp_eval']}, K9 "
+              f"{fit_l['fused_mlp_bwd']} launches for {steps} fit steps")
+        check(sum(fit_l.values()) - fit_l["fused_mlp_eval_f32"]
+              - fit_l["fused_mlp_eval"] - fit_l["fused_mlp_bwd"] == 0,
+              f"distilled {name}: another kernel launched in the fit")
+        model = NeRF().to(device)
+        model.load_state_dict(sd)
+        held = held_out_losses(model, blob, device)
+        packed = fm.pack_nerf(model, cfg, device=device)
+        grid = {}
+        for module in ("coarse", "fine"):
+            bounds, valid = _support_for_eval(packed[module], cfg, device)
+            grid[module] = dict(valid=valid, lo=bounds[0].tolist(),
+                                hi=bounds[1].tolist(),
+                                radius=float(bounds[2][0]),
+                                **grid_stragglers(fm, packed[module], cfg,
+                                                  device, blob["blob_cutoff"]))
+        frames, times = {}, {}
+        for label, render in renderers.items():
+            zero_launches()
+            times[label], frames[label] = cuda_ms(
+                lambda: render(packed, pose), reps=3)
+            launches[f"distilled_frame_{label}_{name}"] = read_launches()
+        if name == DISTILLED_SCENES[0][0]:
+            launches["distilled_render_frame"], rf_ms, p_rf = \
+                render_frame_check(cfg, packed, pose, K, frames["dense"][0],
+                                   device)
+        st = renderers["culled"].stats[-1]
+        p_dense = psnr(frames["culled"][0], frames["dense"][0])
+        gt = blob_frame(blob, H, W, K, pose, device)
+        p_gt, p_culled_gt = (psnr(frames[k][0], gt)
+                             for k in ("dense", "culled"))
+        rec = dict(
+            fit_s=fit_s, fit_steps=steps, fit_step_ms=1e3 * fit_s / steps,
+            fit_loss=loss, held_out_main=held["main"],
+            held_out_polish=held["polish"],
+            dense_vs_blob_psnr=p_gt, culled_vs_blob_psnr=p_culled_gt,
+            fit_launches={k: v for k, v in fit_l.items() if v},
+            grads=grads, grid=grid, frame_ms=times,
+            culled_vs_dense_psnr=p_dense,
+            active_share=st["n_act"] / (H * W), blocks=st["blocks"],
+            trunc_share=st["n_trunc"] / max(st["n_act"], 1),
+            trunc_blocks=st["trunc_blocks"],
+            gate_frac_coarse=(None if st["gate_frac_coarse"] is None
+                              else float(st["gate_frac_coarse"])),
+            gate_frac_fine=(None if st["gate_frac_fine"] is None
+                            else float(st["gate_frac_fine"])))
+        if name in DISTILLED_GATED:
+            bc, bf = make_train_support_program(cfg)[0](model)
+            valid = bool(bc[3][0]) and bool(bf[3][0])
+            rec["gated_bounds_valid"] = valid
+            for label, support in (("gated", (bc, bf)), ("ungated", None)):
+                steps_ms, gf, lw = distilled_steps(
+                    cfg, model, ro, rd, target, support, device)
+                launches[f"distilled_{label}_{name}"] = lw
+                rec[f"{label}_step_ms"] = statistics.median(
+                    steps_ms[DISTILLED_MEDIAN_FROM - 1:])
+                if gf is not None:
+                    rec["gate_frac"] = gf
+        log(f"distilled [{name}]: fit {fit_s:.2f} s, {steps} steps, "
+            f"{rec['fit_step_ms']:.3f} ms a step, returned loss {loss:.4f} "
+            f"(max {FIT_LOSS_MAX}); the returned weights on fresh draws: "
+            f"main-phase loss {held['main']:.4f}, polish-phase loss "
+            f"{held['polish']:.4f} (max {FIT_LOSS_MAX}); against its "
+            f"blob: dense frame {p_gt:.2f} dB (min "
+            f"{DENSE_VS_BLOB_PSNR_MIN}), culled {p_culled_gt:.2f} dB; "
+            f"launches {rec['fit_launches']}; first-step "
+            f"gradients vs plain pair: worst {grads['worst_at']} "
+            f"{grads['worst_rel']:.2e} (limit {grads['worst_limit']:.2e}), "
+            f"min cos {grads['min_cos']:.6f}; grids "
+            f"{ {m: (v['valid'], v['occupied'], v['outer'], round(v['far_max_raw'], 4)) for m, v in grid.items()} } "
+            f"(valid, occupied, outer-layer, far-field max raw); frames ms "
+            f"culled {times['culled']:.1f} dense {times['dense']:.1f}, "
+            f"{p_dense:.2f} dB (min {CULLED_VS_DENSE_PSNR_MIN}); active "
+            f"{rec['active_share']:.3f}, blocks "
+            f"{rec['blocks']}, truncated {rec['trunc_share']:.3f} of active "
+            f"({rec['trunc_blocks']} blocks), skipped coarse "
+            f"{rec['gate_frac_coarse']} fine {rec['gate_frac_fine']}" + (
+                f"; steps gated {rec['gated_step_ms']:.2f} ms (gate_frac "
+                f"{rec.get('gate_frac')}, bounds valid "
+                f"{rec['gated_bounds_valid']}) ungated "
+                f"{rec['ungated_step_ms']:.2f} ms"
+                if name in DISTILLED_GATED else ""))
+        # the returned field: the loss the fit returns, that of its
+        # weights on fresh draws, the blob its dense frame renders; the
+        # culled frame against the dense one and against the blob
+        gate(loss < FIT_LOSS_MAX, f"distilled {name}: the fit returned "
+             f"loss {loss}")
+        gate(held["polish"] < FIT_LOSS_MAX, f"distilled {name}: the "
+             f"returned weights' polish-phase loss {held['polish']}")
+        gate(p_gt >= DENSE_VS_BLOB_PSNR_MIN, f"distilled {name}: the "
+             f"dense frame {p_gt} dB against its blob")
+        gate(p_culled_gt >= p_gt - CULLED_VS_BLOB_LOSS_MAX[name],
+             f"distilled {name}: the culled frame {p_culled_gt} dB against "
+             f"its blob, the dense one {p_gt} dB")
+        gate(p_dense >= CULLED_VS_DENSE_PSNR_MIN,
+             f"distilled {name}: culled vs dense {p_dense} dB")
+        if name == DISTILLED_SCENES[0][0]:
+            rec.update(render_frame_ms=rf_ms, render_frame_vs_dense_psnr=p_rf)
+            log(f"distilled [{name}]: ops.render_frame of the frame's rays "
+                f"through K7 + K8 ({-(-H * W // BLOCK)} blocks): "
+                f"{rf_ms:.1f} ms, {p_rf:.2f} dB against the dense ray-kernel "
+                f"frame (min {FRAME_PSNR_MIN})")
+        out[name] = rec
+        del model0, model, packed, frames
+    # after the fits, so that the plain versions' runs (the CPU's too) do
+    # not share the host with a timed fit
+    fit_shapes = fit_kernel_times(
+        fm, fv, init_nerf(cfg, seed=0, device=device),
+        orbit_draws(FIT_PTS, FIT_UNIFORM_FRAC,
+                    torch.Generator(device).manual_seed(1), device), device)
+    return launches, out, fit_shapes
+
+
+def distilled_frame_setup(device) -> tuple:
+    """The distilled scenes' frame: lego's config at ``perturb 0``, pose 0
+    of ``make_synth_scene``'s orbit at ``DISTILLED_HW`` square and focal
+    0.9 W -> (cfg, H, W, K, pose)."""
+    from nerf_pytorch_paeng_tpu_torch.config import config_from_file
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import make_synth_scene
+    cfg = config_from_file(os.path.join(HERE, "configs/blender/lego.txt"),
+                           device="cuda", perturb=0.0)
+    H = W = DISTILLED_HW
+    K = np.array([[0.9 * W, 0, W / 2], [0, 0.9 * W, H / 2], [0, 0, 1]],
+                 np.float32)
+    pose = torch.as_tensor(make_synth_scene(n_views=1, H=8, W=8)[2][0][:3, :4],
+                           device=device)
+    return cfg, H, W, K, pose
+
+
+def held_out_losses(model, blob: dict, device) -> dict:
+    """The distillation loss of fitted weights (``model``) on
+    ``HELD_OUT_DRAWS`` fresh draws of each phase (a generator seeded 2;
+    the fit's is seeded 1), through the fit's own fields: the main
+    phase's objective at its ray and uniform points, the polish phase's at
+    its sweep -> their means."""
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import (
+        blob_fit_fields, blob_fit_loss, orbit_draws, orbit_ray_points,
+        polish_draws, polish_points)
+    g = torch.Generator(device).manual_seed(2)
+    fields = blob_fit_fields(model)
+    out = {"main": 0.0, "polish": 0.0}
+    with torch.no_grad():
+        for _ in range(HELD_OUT_DRAWS):
+            pts, dirs = orbit_ray_points(orbit_draws(
+                FIT_PTS, FIT_UNIFORM_FRAC, g, device), FIT_UNIFORM_FRAC)
+            out["main"] += float(blob_fit_loss(fields, pts, dirs, **blob))
+            pts, dirs = polish_points(polish_draws(FIT_PTS, g, device),
+                                      blob["blob_cutoff"])
+            out["polish"] += float(blob_fit_loss(fields, pts, dirs,
+                                                 polish=True, **blob))
+    return {k: v / HELD_OUT_DRAWS for k, v in out.items()}
+
+
+def render_frame_check(cfg, packed, pose, K, dense, device) -> tuple:
+    """``ops.render_frame`` of one frame's rays in ``BLOCK``-ray blocks on
+    the plane kernels (K7 for the coarse density, K8 for the field: one
+    launch of each a block), timed once with CUDA events -> (its launches,
+    ms, PSNR against the dense ray-kernel frame ``dense``, at least
+    ``FRAME_PSNR_MIN``)."""
+    from nerf_pytorch_paeng_tpu_torch.ops.rays import get_rays
+    from nerf_pytorch_paeng_tpu_torch.ops.render import (make_field_fns,
+                                                         make_sigma_fn,
+                                                         render_frame)
+    H, W = dense.shape[:2]
+    ro, rd = (t.reshape(-1, 3).contiguous() for t in get_rays(H, W, K, pose))
+    fields = make_field_fns(packed["coarse"], packed["fine"], cfg)
+    sigma = make_sigma_fn(packed["coarse"], cfg)
+    zero_launches()
+    with torch.no_grad():
+        ms, out = cuda_ms(lambda: render_frame(
+            *fields, ro, rd, cfg, block_rays=BLOCK, stratified=False,
+            coarse_sigma_fn=sigma), reps=1, warmup=0)
+    got = read_launches()
+    blocks = -(-H * W // BLOCK)
+    others = {k: v for k, v in got.items() if v and k not in (
+        "fused_mlp_sigma", "fused_mlp_eval", "fused_mlp_eval_f32")}
+    check(got["fused_mlp_sigma"] == got["fused_mlp_eval"] == blocks
+          and not others,
+          f"render_frame launches {got}, not K7 and K8 once a block")
+    p = psnr(out.rgb_f.reshape(H, W, 3), dense)
+    check(p >= FRAME_PSNR_MIN, f"render_frame vs the dense frame {p} dB")
+    return got, ms, p
+
+
+def blob_frame(blob: dict, H: int, W: int, K, pose, device) -> torch.Tensor:
+    """The frame of the blob a scene was distilled from (``blob_field``'s
+    density and colour, ``GT_SAMPLES`` even depths in [2, 6] a ray,
+    composited as the renderer composites) -> [H, W, 3]."""
+    from nerf_pytorch_paeng_tpu_torch.ops.rays import get_rays
+    from nerf_pytorch_paeng_tpu_torch.ops.volume import volume_render
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import blob_field
+    ro, rd = (t.reshape(-1, 3) for t in get_rays(H, W, K, pose))
+    z = torch.linspace(2.0, 6.0, GT_SAMPLES, device=device)
+    out = []
+    for i in range(0, ro.shape[0], 16384):
+        o, d = ro[i:i + 16384], rd[i:i + 16384]
+        zz = z.expand(o.shape[0], GT_SAMPLES)
+        sig, raw_col = blob_field(o[:, None] + d[:, None] * zz[..., None],
+                                  **blob)
+        out.append(volume_render(torch.cat([raw_col, sig[..., None]], -1),
+                                 zz, d).rgb)
+    return torch.cat(out).reshape(H, W, 3)
+
+
+def distilled_steps(cfg, model, ro, rd, target, support, device) -> tuple:
+    """``DISTILLED_STEPS`` global-batch steps from ``model``'s weights on
+    one batch (``support``: gated), each timed by CUDA events -> (ms a
+    step, the last step's ``gate_frac`` or None, the launches)."""
+    import copy
+
+    from nerf_pytorch_paeng_tpu_torch.train import TrainState, make_optimizer
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.step import make_train_step
+    m = copy.deepcopy(model)
+    state = TrainState(m, make_optimizer(m, cfg), 0)
+    step = make_train_step(cfg, schedule_from_cfg(cfg))
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DISTILLED_STEPS + 1)]
+    zero_launches()
+    events[0].record()
+    for i in range(DISTILLED_STEPS):
+        metrics = step(state, ro, rd, target, support=support)
+        events[i + 1].record()
+    torch.cuda.synchronize(device)
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    check(math.isfinite(float(metrics["loss"])), "distilled step: loss")
+    gf = metrics.get("gate_frac")
+    return ms, None if gf is None else float(gf), read_launches()
+
+
+def fit_kernel_times(fm, fv, model, draws, device) -> list:
+    """K8 (float32 out) and K9 at the fit's two shapes (the main phase's
+    ray and uniform points, the polish phase's sweep), the coarse module's
+    packed weights, loss-like cotangents: each held against its plain
+    version on the same inputs (K8 within ``KERNEL_TOL``, ``k8_check``; K9
+    within ``GRAD_TOL``, ``k9_check``) and timed with CUDA events beside
+    the plain version and the bound."""
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import (orbit_ray_points,
+                                                          polish_draws,
+                                                          polish_points)
+    packed = fm.pack_nerf_mlp_params(model.model_coarse, device=device)
+    rows = []
+    sets = (("main", orbit_ray_points(draws, FIT_UNIFORM_FRAC)),
+            ("polish", polish_points(polish_draws(
+                FIT_PTS, torch.Generator(device).manual_seed(2), device))))
+    for what, (pts, dirs) in sets:
+        x, d = pts.T.contiguous(), dirs.T.contiguous()
+        p = x.shape[1]
+        k8_max_abs, k8_rel, k8_ms, k8_plain_ms = k8_check(
+            fm, x, d, packed, torch.float32, f"at the fit's {what} points",
+            reps=20)
+        g4 = plane_cotangents(fm.fused_mlp_eval_plain(
+            x, d, packed, out_dtype=torch.float32), 3, device)
+        (k9_rel, k9_limit, k9_at), k9_cos, k9_max_abs, k9_plain_ms = \
+            k9_check(fm, fv, x, d, g4, packed, f"at the fit's {what} points")
+        k9_ms, _ = cuda_ms(lambda: fv.fused_mlp_bwd(x, d, g4, packed),
+                           reps=20)
+        # the planes, the output or cotangents, the weights (K9: the
+        # float32 gradients written), as plane_kernel_phase counts them
+        wbytes = packed["w"].numel() * 2 + packed["b"].numel() * 4
+        k8_b, k8_by = bound(p * fm.eval_flop_per_point(),
+                            p * (24 + 16) + wbytes)
+        k9_b, k9_by = bound(p * fm.bwd_flop_per_point(),
+                            p * (24 + 16) + wbytes
+                            + (fm.W_TOTAL + fm.B_TOTAL) * 4)
+        rows.append(dict(phase=what, points=p, k8_ms=k8_ms,
+                         k8_plain_ms=k8_plain_ms, k8_bound_ms=k8_b,
+                         k8_bound_by=k8_by, k8_max_abs=k8_max_abs,
+                         k8_rel_l2=k8_rel, k9_ms=k9_ms,
+                         k9_plain_ms=k9_plain_ms, k9_bound_ms=k9_b,
+                         k9_bound_by=k9_by, k9_max_abs=k9_max_abs,
+                         k9_rel_l2=k9_rel, k9_limit=k9_limit,
+                         k9_worst_at=k9_at, k9_cos=k9_cos))
+        log(f"distilled fit shapes [{what}, {p} points]: K8 float32 "
+            f"{k8_ms:.3f} ms (plain {k8_plain_ms:.3f}, bound {k8_b:.4f}; "
+            f"max abs {k8_max_abs:.2e}, rel L2 {k8_rel:.2e}), K9 "
+            f"{k9_ms:.3f} ms (plain {k9_plain_ms:.3f}, bound {k9_b:.4f}; "
+            f"{k9_at} rel L2 {k9_rel:.2e} limit {k9_limit:.2e}, cos "
+            f"{k9_cos:.6f})")
+    return rows
+
+
+DRYRUN_KERNELS = {      # the dry run's names -> this script's counters
+    "K3": ("fused_mlp_sigma_rays",), "K4": ("fused_mlp_sigma_rays_gated",),
+    "K1": ("fused_mlp_eval_rays",),
+    "K5": ("fused_mlp_eval_rays_gated", "fused_mlp_eval_rays_gated_f32"),
+    "K7": ("fused_mlp_sigma",), "K8": ("fused_mlp_eval", "fused_mlp_eval_f32"),
+    "K2": ("fused_mlp_bwd_rays",), "K6": ("fused_mlp_bwd_rays_gated",),
+    "K9": ("fused_mlp_bwd",)}
+
+
+def dryrun_phase(device) -> tuple:
+    """Phase 17: ``python -m nerf_pytorch_paeng_tpu_torch.dryrun 2`` on the
+    card (both ranks on cuda:0 over gloo): six ``OK`` lines, and each
+    phase's launches (both ranks summed) as the phase implies: none on the
+    plain route (1, 5), K1 and K2 two a rank a step (2, 3), K7 once a rank
+    then K4 and K5 (4), K5 and K6 (6).  Returns each phase's launches by
+    counter name and the record."""
+    n = DRYRUN_RANKS
+    env = {**os.environ, "PYTHONPATH": HERE}
+    for v in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(v, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nerf_pytorch_paeng_tpu_torch.dryrun", str(n),
+         "--device", "cuda", "--timeout", str(DRYRUN_TIMEOUT_S)],
+        cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT_S + 60)
+    wall = time.perf_counter() - t0
+    log(proc.stdout[-6000:])
+    check(proc.returncode == 0, f"dryrun exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    ok = [line for line in proc.stdout.splitlines()
+          if line.startswith("dryrun OK (")]
+    check(len(ok) == 6, f"dryrun printed {len(ok)} OK lines, not 6")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])["dryrun"]
+    want = {"tp": {}, "dp": {"K1": 2 * n, "K2": 2 * n},
+            "image": {"K1": 4 * n, "K2": 4 * n}, "sp": {}}
+    paths = {}
+    for rec in report:
+        got = rec["launches"]
+        name = rec["phase"]
+        if name in want:
+            check(got == want[name], f"dryrun {name}: launches {got}, want "
+                  f"{want[name]}")
+        elif name == "culled":
+            check(got.get("K7") == n and got.get("K4", 0) >= 1
+                  and got.get("K5", 0) >= 1 and set(got) <= {"K7", "K4", "K5"},
+                  f"dryrun culled: launches {got}")
+        else:
+            check(got.get("K5", 0) >= 1 and got.get("K6", 0) >= 1
+                  and set(got) <= {"K5", "K6"}, f"dryrun gated: {got}")
+        counts = dict.fromkeys(launch_counters(), 0)
+        for k, v in got.items():
+            names = DRYRUN_KERNELS[k]
+            # K5's and K8's rows share a counter: the gated step's K5 is
+            # the float32 row, the frame's the bf16 one
+            counts[names[-1] if name == "gated" else names[0]] += v
+        paths[f"dryrun_{name}"] = counts
+    log(f"dryrun: {n} ranks on the card over gloo, wall {wall:.1f} s")
+    return paths, dict(ranks=n, wall_s=wall, ok=ok, report=report)
+
+
 def ptxas_lines(text: str) -> list:
     """(kernel, line) for every register and spill line of a ``-Xptxas -v``
     log, each under the entry function it reports on: the ``*_kernel``
@@ -3689,6 +4261,13 @@ def main() -> int:
         lap("data_parallel")
         mesh_launches, mesh_stats = mesh_phase(work, data_root, device)
         lap("mesh")
+        distilled_launches, distilled_stats, fit_shapes = distilled_phase(
+            fm, fv, device)
+        lap("distilled")
+        dryrun_launches, dryrun_stats = dryrun_phase(device)
+        lap("dryrun")
+        log(f"phases distilled + dryrun: {laps['distilled'] + laps['dryrun']:.1f}"
+            " s (budget 120 s)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each path's own run, counters at 0 before it: K3 and K1 on the eval
@@ -3704,12 +4283,19 @@ def main() -> int:
              **{f"plane_{k}": v for k, v in plane_frame_launches.items()},
              **llff_launches, "eval_lpips": lpips_launches, **dp_launches,
              **mesh_launches,
-             **{f"chunk_{k}": v for k, v in chunk_launches.items()}}
-    only = {"fused_mlp_eval_rays_gated": ("render",),
-            "fused_mlp_eval_rays_gated_f32": ("gated_train",),
+             **{f"chunk_{k}": v for k, v in chunk_launches.items()},
+             **distilled_launches, **dryrun_launches}
+
+    def distilled(kind: str) -> tuple:
+        return tuple(k for k in distilled_launches if k.startswith(kind))
+    only = {"fused_mlp_eval_rays_gated": ("render", "dryrun_culled")
+            + distilled("distilled_frame_culled"),
+            "fused_mlp_eval_rays_gated_f32": ("gated_train", "dryrun_gated")
+            + distilled("distilled_gated"),
             "fused_mlp_eval": tuple(f"plane_{k}" for k in plane_frame_launches)
-            + ("mesh_sp_eval",),
-            "fused_mlp_eval_f32": ("plane_train", "plane_train_n4000")}
+            + ("mesh_sp_eval", "distilled_render_frame"),
+            "fused_mlp_eval_f32": ("plane_train", "plane_train_n4000")
+            + distilled("distilled_fit")}
     for name, row in rows.items():
         row["launches"] = sum(paths[p][name] for p in only.get(name, paths))
         check(row["launches"] > 0, f"{name} never launched on a main path")
@@ -3722,6 +4308,23 @@ def main() -> int:
         row["launches_mesh"] = sum(mesh_launches[p][name]
                                    for p in only.get(name, mesh_launches)
                                    if p in mesh_launches)
+        for what, group in (("distilled", distilled_launches),
+                            ("dryrun", dryrun_launches)):
+            row[f"launches_{what}"] = sum(
+                group[p][name] for p in only.get(name, group) if p in group)
+    # K8 (float32) and K9 at the fit's own shapes (phase 16), each held
+    # against its plain version there
+    for name, key in (("fused_mlp_eval_f32", "k8"), ("fused_mlp_bwd", "k9")):
+        rows[name]["fit_shapes"] = [
+            dict(phase=f["phase"], points=f["points"], ms=f[f"{key}_ms"],
+                 plain_ms=f[f"{key}_plain_ms"],
+                 bound_ms=f[f"{key}_bound_ms"],
+                 bound_by=f[f"{key}_bound_by"],
+                 max_abs=f[f"{key}_max_abs"], rel_l2=f[f"{key}_rel_l2"])
+            for f in fit_shapes]
+        rows[name]["max_abs_err"] = max(
+            rows[name]["max_abs_err"],
+            *(f[f"{key}_max_abs"] for f in fit_shapes))
     # K8: its runs on one rank's sample-sharded planes of one frame block
     rows["fused_mlp_eval"]["sp_path"] = mesh_stats["sp_eval"]["k8"]
     rows["fused_mlp_eval"]["max_abs_err"] = max(
@@ -3767,8 +4370,14 @@ def main() -> int:
     log(json.dumps({"lpips": {**lpips_stats, "launches": lpips_launches}}))
     log(json.dumps({"data_parallel": dp_stats}))
     log(json.dumps({"mesh": mesh_stats}))
+    log(json.dumps({"distilled": distilled_stats}))
+    log(json.dumps({"dryrun": dryrun_stats}))
     log(json.dumps({"phase_s": laps}))
     log(json.dumps({"kernels": list(rows.values())}))
+    if FAILED_GATES:
+        log(json.dumps({"failed_gates": FAILED_GATES}))
+        log(card)
+        return 1
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,11 @@ views through the culled one (``--render_only``); data parallelism over
 the ranks of a torchrun launch (``parallel/``); the JAX package's run
 knobs: ``scan_chunk`` (chunks of staged train steps, replayed from CUDA
 graphs on the card, ``train/chunk.py``), ``profile``, ``check_nans`` and
-``compile_cache``.
+``compile_cache``; the SO(3) exponential map (``ops/so3.py``), the
+extrinsics plots (``utils/visualize.py``, Pillow), the blob-field
+distillation that stands in for a trained field
+(``utils/synth.fit_field_to_blob``, through the points kernels) and the
+multi-rank dry run (``python -m nerf_pytorch_paeng_tpu_torch.dryrun N``).
 """
 from .config import NerfConfig, config_from_file, load_config
 

@@ -9,7 +9,9 @@ coarse+fine model, Adam under the warmup-cosine schedule, global ray
 batching or per-image sampling, resume (``iter_start``, ``-1`` for the
 latest checkpoint) and the loop with the ``idx_print``, ``idx_vis``,
 ``idx_save``, ``idx_test`` and ``idx_render`` hooks, and occupancy-gated
-training (``train_precull``) with its refresh policy.  Checkpoints are the
+training (``train_precull``) with its refresh policy; a run from step 0
+draws the training cameras into ``logs/<exp>/_ext_vis/`` first
+(``utils/visualize.py``).  Checkpoints are the
 reference format, ``logs/<exp>/<exp>_<step>.pth.tar``
 (``train/checkpoint.py``).  With ``eval_only`` and/or ``render_only`` it
 restores the weights saved at ``testing_idx``, packs them once for the
@@ -70,6 +72,7 @@ from .train.chunk import (PROFILE_START, PROFILE_STOP, ChunkSchedule,
                           StagedSteps, chunk_off_reason)
 from .train.schedule import schedule_from_cfg
 from .utils.logging import MetricLogger
+from .utils.visualize import visualize_extrinsics
 
 
 def checkpoint_path(cfg: NerfConfig, step: int) -> str:
@@ -339,6 +342,18 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
 
     logger = MetricLogger(cfg.logdir, cfg.exp_name,
                           fresh=(cfg.iter_start == 0))
+    if cfg.iter_start == 0 and parallel.is_main():
+        # the extrinsics plots, once before the loop, as the JAX package
+        # draws them: the training cameras, and with idx_vis_cam_param > 0
+        # their centre-pixel rays' points too
+        vis_dir = os.path.join(cfg.logdir, cfg.exp_name, "_ext_vis")
+        visualize_extrinsics(extrinsics, vis_dir, idx_list=i_train,
+                             name="train_cameras")
+        if cfg.idx_vis_cam_param > 0:
+            visualize_extrinsics(extrinsics, vis_dir, idx_list=i_train,
+                                 name="train_cameras_rays", K=np.asarray(K),
+                                 hw=(H, W), near=float(cfg.near),
+                                 far=float(cfg.far))
     rng = np.random.default_rng(cfg.seed + 2)
     if state.step and not cfg.global_batch:
         # exact resume, per-image mode: replay one image choice per step

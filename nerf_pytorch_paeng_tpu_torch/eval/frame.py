@@ -73,10 +73,15 @@ pre-cull and no gate-fine.  ``pack_nerf`` hands such a renderer the two
 modules in place of packed weights.  ``renderer.route`` is "rays",
 "planes" or "plain".
 
-Each culled frame appends ``{"n_act", "blocks", "gate_frac_coarse",
-"gate_frac_fine"}`` to ``renderer.stats`` (the gate fractions are the
-skipped share of (tile, row) blocks, 0-dim device tensors, or None where
-the pass ran ungated).
+Each culled frame appends ``{"n_act", "blocks", "n_trunc",
+"trunc_blocks", "gate_frac_coarse", "gate_frac_fine"}`` to
+``renderer.stats`` (``n_trunc``: the active rays whose window fits a
+truncated sample class; ``trunc_blocks``: the cover blocks rendered at
+fewer than the merged samples; the gate fractions are the skipped share of
+(tile, row) blocks, 0-dim device tensors, or None where the pass ran
+ungated).  ``renderer.set_support(packed, module, bounds)`` injects a
+module's support bounds for a set of packed weights in place of its
+grid.
 
 **Data parallelism** (the JAX package's mesh-sharded frames, over the
 ranks of a process group, ``parallel/``): every rank generates the whole
@@ -735,13 +740,24 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
             gates.append(gate)
         stats.append(dict(
             n_act=n_act, blocks=len(blocks),
+            n_trunc=cum[-2] if len(cum) > 1 else 0,
+            trunc_blocks=sum(s_keep < s_full for *_, s_keep in blocks),
             gate_frac_coarse=gate_share([gate_c], use_rays and pc is not None),
             gate_frac_fine=gate_share(gates, use_rays and fb is not None)))
         return rgb_frame.reshape(H, W, 3), disp_frame.reshape(H, W)
 
+    def set_support(packed, module: str, bounds) -> None:
+        """Use ``bounds`` ((lo, hi, radius, valid) on the device, as
+        ``_support_for_eval`` gives them) as ``module``'s support for
+        these packed weights, in place of its grid: the hook through which
+        a caller injects known bounds (the dry run's ball)."""
+        support[module] = (packed[module]["w"],
+                           bounds if bool(bounds[3][0]) else None)
+
     render.block = block
     render.sizes = sizes
     render.stats = stats
+    render.set_support = set_support
     render.route = route
     render.rays_route = use_rays
     return render

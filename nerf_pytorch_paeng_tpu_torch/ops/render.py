@@ -5,10 +5,11 @@ JAX package's ``ops/render.py``: ``hierarchical_z_vals``,
 occupancy-gated passes (``train_support_intervals``, ``train_gate_tile``,
 ``train_gate_plan``, ``_gated_train_pass``), ``render_rays``,
 ``render_rays_from_cfg``, ``hierarchical_fine_pass`` and their field
-functions, ``maybe_ndc``, ``span_sort``, ``tile_row_gate``, ``truncation_bounds`` and
-``truncation_window``), and the plain-MLP route (``plain_route_reason``,
-``supports_kernels``, ``chunked_apply``, ``make_plain_field_fns``: the
-JAX package's ``_supports_pallas`` and ``make_xla_field_fns``).
+functions, ``render_frame``, ``maybe_ndc``, ``span_sort``,
+``tile_row_gate``, ``truncation_bounds`` and ``truncation_window``), and
+the plain-MLP route (``plain_route_reason``, ``supports_kernels``,
+``chunked_apply``, ``make_plain_field_fns``: the JAX package's
+``_supports_pallas`` and ``make_xla_field_fns``).
 
 The plane layout: positions and unit view directions as [3, P] planes,
 flattened ray-major (point n * S + s), through field functions
@@ -494,6 +495,40 @@ def render_rays_from_cfg(coarse_fn: Callable, fine_fn: Callable,
                        perturb=float(cfg.perturb), stratified=stratified,
                        coarse_sigma_fn=coarse_sigma_fn, generator=generator,
                        u_c=u_c, u_f=u_f)
+
+
+def render_frame(coarse_fn: Callable, fine_fn: Callable,
+                 rays_o: torch.Tensor, rays_d: torch.Tensor, cfg, *,
+                 block_rays: Optional[int] = None, stratified: bool = True,
+                 coarse_sigma_fn: Optional[Callable] = None,
+                 generator: Optional[torch.Generator] = None,
+                 u_c: Optional[torch.Tensor] = None,
+                 u_f: Optional[torch.Tensor] = None) -> RaysRender:
+    """An arbitrary flat set of rays [N, 3], rendered in blocks of
+    ``block_rays`` (else ``cfg.chunk_rays``, else 4096) to bound memory: a
+    host loop of ``render_rays_from_cfg`` over the blocks, the JAX
+    package's ``render_frame``.  The rays are padded with ones to a whole
+    number of blocks, as the JAX package pads them, and the padding is cut
+    off the outputs.  Each block draws from ``generator`` as
+    ``render_rays`` does, unless ``u_c`` / ``u_f`` (rows for the padded
+    ray count) are injected.  With the plane kernels' field functions
+    (``make_field_fns``; ``make_sigma_fn`` as ``coarse_sigma_fn``) a block
+    launches K8 (K7 for the coarse density) and K8."""
+    n = rays_o.shape[0]
+    block = int(block_rays or cfg.chunk_rays or 4096)
+    n_pad = -n % block
+    ro = torch.cat([rays_o, rays_o.new_ones(n_pad, 3)])
+    rd = torch.cat([rays_d, rays_d.new_ones(n_pad, 3)])
+    parts = []
+    for i in range(0, n + n_pad, block):
+        sl = slice(i, i + block)
+        parts.append(render_rays_from_cfg(
+            coarse_fn, fine_fn, ro[sl], rd[sl], cfg, stratified=stratified,
+            coarse_sigma_fn=coarse_sigma_fn, generator=generator,
+            u_c=None if u_c is None else u_c[sl],
+            u_f=None if u_f is None else u_f[sl]))
+    return RaysRender(*(None if f[0] is None else torch.cat(f)[:n]
+                        for f in zip(*parts)))
 
 
 def maybe_ndc(rays_o: torch.Tensor, rays_d: torch.Tensor, H: int, W: int,

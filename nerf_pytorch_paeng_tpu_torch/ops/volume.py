@@ -5,7 +5,8 @@ the sample-major one the ray-major kernels emit (``weights_from_sigma_t``,
 ``volume_render_rays_t``: every per-sample tensor is [S, N], the scan runs
 along axis 0) and the ray-major one of the plane layout
 (``weights_from_sigma``, ``volume_render_planar``: [N, S], raw [4, N, S],
-the scan along the last axis).  Both share ``_weights``; the transmittance
+the scan along the last axis; ``volume_render``: raw [N, S, 4], the JAX
+package's public layout).  Both share ``_weights``; the transmittance
 is the ``cumprod`` form of ``exclusive_cumprod``.  Its log-space form
 (``scan_impl="associative"``, a prefix sum of logs) is the one-device form
 of the sample-sharded path's distributed scan (``parallel/sp.py``).
@@ -91,11 +92,11 @@ def _dists(z: torch.Tensor, rays_d: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def _weights(sigma: torch.Tensor, z: torch.Tensor, rays_d: torch.Tensor,
-             axis: int) -> torch.Tensor:
+             axis: int, scan_impl: str = "cumprod") -> torch.Tensor:
     """Compositing weights from density logits (before the ReLU)."""
     alpha = 1.0 - torch.exp(-torch.relu(sigma.float()) * _dists(z, rays_d,
                                                                 axis))
-    return alpha * exclusive_cumprod(1.0 - alpha + 1e-10, axis)
+    return alpha * exclusive_cumprod(1.0 - alpha + 1e-10, axis, scan_impl)
 
 
 def weights_from_sigma_t(sigma_t: torch.Tensor, z_t: torch.Tensor,
@@ -132,6 +133,22 @@ def volume_render_rays_t(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     disp_map = _disp_from(depth_map, acc_map)
     rgb_map = rgb_map + (1.0 - acc_map[..., None])
     return RenderOutputsT(rgb_map, disp_map, acc_map, weights, depth_map)
+
+
+def volume_render(raw: torch.Tensor, z_vals: torch.Tensor,
+                  rays_d: torch.Tensor, scan_impl: str = "cumprod"
+                  ) -> RenderOutputs:
+    """Composite raw MLP outputs [N, S, 4] (rgb logits, density logit)
+    along each ray; z_vals [N, S], rays_d [N, 3] unnormalised.
+    ``scan_impl`` as in ``exclusive_cumprod``."""
+    raw = raw.float()
+    weights = _weights(raw[..., 3], z_vals, rays_d, -1, scan_impl)  # [N, S]
+    rgb_map = torch.sum(weights[..., None] * torch.sigmoid(raw[..., :3]), -2)
+    depth_map = torch.sum(weights * z_vals, -1)
+    acc_map = torch.sum(weights, -1)
+    disp_map = _disp_from(depth_map, acc_map)
+    rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    return RenderOutputs(rgb_map, disp_map, acc_map, weights, depth_map)
 
 
 def volume_render_planar(raw: torch.Tensor, z_vals: torch.Tensor,

@@ -1,9 +1,15 @@
-"""Small numeric helpers (reference utils.py:11,17)."""
+"""Small numeric helpers (reference utils.py:6-17)."""
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
+
+
+def img2mse(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean squared error of two images (a 0-dim tensor)."""
+    return torch.mean((x - y) ** 2)
 
 
 def mse2psnr(mse: float) -> float:

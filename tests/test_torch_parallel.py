@@ -444,8 +444,9 @@ def _cli(scene, log_dir, *extra):
 def test_two_rank_cli_trains_resumes_and_only_rank_zero_writes(
         scene, tmp_path, mode):
     """Ten steps on 2 ranks, each rank given its own log dir: rank 0's
-    holds the checkpoints and metrics.csv, rank 1's stays empty, and the
-    run checked that both ranks ended with the same weights.  Then 5
+    holds the checkpoints, metrics.csv and the extrinsics plots, rank 1's
+    stays empty, and the run checked that both ranks ended with the same
+    weights.  Then 5
     steps resumed from rank 0's step-5 checkpoint by 2 ranks sharing one
     log dir: the step-10 state equals the uninterrupted run's bit for
     bit."""
@@ -456,8 +457,8 @@ def test_two_rank_cli_trains_resumes_and_only_rank_zero_writes(
     assert ">> final weights bit-equal on all 2 ranks" in outs[0]
     assert "2 rank(s) over gloo" in outs[0] and outs[1].count(">>") == 0
     exp = os.path.join(logs[0], "dp")
-    assert sorted(os.listdir(exp)) == ["dp_10.pth.tar", "dp_5.pth.tar",
-                                       "metrics.csv"]
+    assert sorted(os.listdir(exp)) == ["_ext_vis", "dp_10.pth.tar",
+                                       "dp_5.pth.tar", "metrics.csv"]
     assert not os.path.exists(logs[1])
     with open(os.path.join(exp, "metrics.csv")) as f:
         assert [row.split(",")[0] for row in f.read().split()[1:]] == \

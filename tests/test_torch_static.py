@@ -22,8 +22,9 @@ def _imports(path: pathlib.Path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "torch_kernel_ab.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_kernel_ab.py",
+        ROOT / "tools" / "torch_distill_study.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
