@@ -224,6 +224,16 @@
    over gloo: six ``OK`` lines and each phase's launches summed over the
    ranks (none on the plain route, K1/K2 on the data-parallel steps, K7
    then K4/K5 on the culled frame, K5/K6 on the gated step).
+18. The culled renderer's phase 0 (``phase0_phase``: ``render_precull on``
+   off the ray kernels) on phase 16's three fields, pose 0 at 800x800,
+   ``perturb 0``: the plane route at 64+100 samples (dense, culled with
+   the pre-cull off and on; median of 3, CUDA events) and the plain route
+   (``--use_pallas false``, 64+128; culled off and on on std and hard, one
+   frame each).  The missed share of the coarse bounds, ``renderer.stats``
+   and the launches (plane route: K7 once for the grid and once a phase-1
+   block, K8 once a cover block; plain route: none).  Gates: on against
+   off within 1e-5 rgb and 1e-4 disp (plane) or 50 dB (plain), on against
+   dense >= 40 dB, a missed share above 0.
 
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -352,6 +362,16 @@ DISTILLED_STEPS = 60      # gated and ungated steps on 4096 pixel rays
 DISTILLED_MEDIAN_FROM = 17
 DRYRUN_RANKS = 2
 DRYRUN_TIMEOUT_S = 300
+# phase 18: the culled renderer's phase 0 (render_precull on off the ray
+# kernels) on phase 16's fields.  Pre-cull on against off: the JAX
+# package's tests/test_precull.py tolerances on the plane route (K7
+# evaluates each point alone, so the hit rays' weights are the same bits),
+# PSNR on the plain route (cuBLAS may pick another algorithm for a block of
+# another row count)
+PHASE0_RGB_MAX = 1e-5
+PHASE0_DISP_MAX = 1e-4
+PHASE0_PLAIN_PSNR_MIN = 50.0
+PHASE0_PLAIN_SCENES = ("std", "hard")
 
 
 def log(*a):
@@ -3746,7 +3766,8 @@ def distilled_phase(fm, fv, device) -> tuple:
     frame at least ``DENSE_VS_BLOB_PSNR_MIN`` against the blob, the culled
     frame ``CULLED_VS_DENSE_PSNR_MIN`` from the dense one and at most
     ``CULLED_VS_BLOB_LOSS_MAX`` further from the blob.  Returns the
-    paths' launches, the phase's record and K8/K9 at the fit's shapes."""
+    paths' launches, the phase's record, K8/K9 at the fit's shapes and
+    the fitted state dicts by scene."""
     import dataclasses
 
     from nerf_pytorch_paeng_tpu_torch.eval.frame import (_support_for_eval,
@@ -3769,7 +3790,7 @@ def distilled_phase(fm, fv, device) -> tuple:
     pick = torch.randperm(H * W, generator=g, device=device)[:TRAIN_RAYS]
     ro, rd = ro.reshape(-1, 3)[pick], rd.reshape(-1, 3)[pick]
     target = torch.rand((TRAIN_RAYS, 3), generator=g, device=device)
-    launches, out = {}, {}
+    launches, out, fields = {}, {}, {}
     for name, kw in DISTILLED_SCENES:
         blob = {k: v for k, v in kw.items() if k != "n_steps"}
         model0 = init_nerf(cfg, seed=0, device=device)
@@ -3792,6 +3813,7 @@ def distilled_phase(fm, fv, device) -> tuple:
         check(sum(fit_l.values()) - fit_l["fused_mlp_eval_f32"]
               - fit_l["fused_mlp_eval"] - fit_l["fused_mlp_bwd"] == 0,
               f"distilled {name}: another kernel launched in the fit")
+        fields[name] = sd
         model = NeRF().to(device)
         model.load_state_dict(sd)
         held = held_out_losses(model, blob, device)
@@ -3898,7 +3920,7 @@ def distilled_phase(fm, fv, device) -> tuple:
         fm, fv, init_nerf(cfg, seed=0, device=device),
         orbit_draws(FIT_PTS, FIT_UNIFORM_FRAC,
                     torch.Generator(device).manual_seed(1), device), device)
-    return launches, out, fit_shapes
+    return launches, out, fit_shapes, fields
 
 
 def distilled_frame_setup(device) -> tuple:
@@ -4132,6 +4154,177 @@ def dryrun_phase(device) -> tuple:
     return paths, dict(ranks=n, wall_s=wall, ok=ok, report=report)
 
 
+def phase0_phase(fm, fields: dict, device) -> tuple:
+    """Phase 18: the culled renderer's phase 0 (``render_precull on`` off
+    the ray kernels) on phase 16's distilled fields, pose 0 at 800x800,
+    ``perturb 0``.  The plane route (64+100 samples, off the 8-sample
+    rows): the dense renderer, the culled one with ``render_precull off``
+    and with ``on``, CUDA events, median of 3 after a warm-up; the missed
+    share from the coarse grid's bounds (K7, built before the counters are
+    zeroed) against ``renderer.stats``; launches: K7 once for the grid and
+    once a phase-1 block, K8 once a cover block, nothing else.  The plain
+    route (``use_pallas false``, 64+128) on ``PHASE0_PLAIN_SCENES``: the
+    culled renderer off and on, one frame each (on: a first frame that
+    builds the grid, then the timed one), no launch.  Gates: on against
+    off within ``PHASE0_RGB_MAX``/``PHASE0_DISP_MAX`` (plane) or
+    ``PHASE0_PLAIN_PSNR_MIN`` (plain), the plane route's on frame
+    ``CULLED_VS_DENSE_PSNR_MIN`` from the dense one, a missed share above
+    0.  Returns the paths' launches and the phase's record."""
+    import dataclasses
+
+    from nerf_pytorch_paeng_tpu_torch.eval.frame import (
+        _greedy_cover, _plane_fields, _precull_half, _support_bounds,
+        make_frame_renderer)
+    from nerf_pytorch_paeng_tpu_torch.models.nerf import NeRF
+    from nerf_pytorch_paeng_tpu_torch.ops.occupancy import (ray_hits_bounds,
+                                                            segment_in_cube)
+    from nerf_pytorch_paeng_tpu_torch.ops.rays import get_rays
+
+    cfg, H, W, K, pose = distilled_frame_setup(device)
+    n_total = H * W
+    plane = dataclasses.replace(cfg, N_samples_f=PLANE_FINE)
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    configs = {"planes": {"dense": dataclasses.replace(plane,
+                                                       render_cull="none"),
+                          "off": dataclasses.replace(plane,
+                                                     render_precull="off"),
+                          "on": dataclasses.replace(plane,
+                                                    render_precull="on")},
+               "plain": {"off": dataclasses.replace(plain,
+                                                    render_precull="off"),
+                         "on": dataclasses.replace(plain,
+                                                   render_precull="on")}}
+    ro, rd = (t.reshape(-1, 3) for t in get_rays(H, W, K, pose))
+    launches, out = {}, {}
+    for name, sd in fields.items():
+        model = NeRF().to(device)
+        model.load_state_dict(sd)
+        rec = {}
+        for route, cfgs in configs.items():
+            if route == "plain" and name not in PHASE0_PLAIN_SCENES:
+                continue
+            c0 = cfgs["on"]
+            packed = fm.pack_nerf(model, c0, device=device)
+            renderers = {label: make_frame_renderer(c, H, W, K, device,
+                                                    stratified=False)
+                         for label, c in cfgs.items()}
+            check(all(r.route == route for r in renderers.values()),
+                  f"phase0 {route}: the renderers took "
+                  f"{[r.route for r in renderers.values()]}")
+            # the missed share the coarse bounds give, outside the counts
+            bounds, valid = _support_bounds(
+                _plane_fields(packed, c0, route, fm.fused_mlp_eval,
+                              fm.fused_mlp_sigma)[2], c0, device)
+            hit = (ray_hits_bounds(ro, rd, *bounds, c0.near, c0.far)
+                   | ~segment_in_cube(ro, rd, _precull_half(c0), c0.near,
+                                      c0.far))
+            n_hit = int(hit.sum())
+            frames, times, stats, first_ms = {}, {}, {}, None
+            for label, render in renderers.items():
+                zero_launches()
+                if route == "planes":
+                    times[label], frames[label] = cuda_ms(
+                        lambda: render(packed, pose), reps=3)
+                else:
+                    if label == "on":       # the frame that builds the grid
+                        first_ms, _ = cuda_ms(lambda: render(packed, pose),
+                                              reps=1, warmup=0)
+                    times[label], frames[label] = cuda_ms(
+                        lambda: render(packed, pose), reps=1, warmup=0)
+                launches[f"phase0_{route}_{label}_{name}"] = got = \
+                    read_launches()
+                if hasattr(render, "stats"):
+                    stats[label] = [
+                        {k: (None if v is None else float(v))
+                         for k, v in st.items()} for st in render.stats]
+                k7, k8 = got["fused_mlp_sigma"], got["fused_mlp_eval"]
+                others = {k: v for k, v in got.items() if v and k not in (
+                    "fused_mlp_sigma", "fused_mlp_eval",
+                    "fused_mlp_eval_f32")}
+                frames_run = 4 if route == "planes" else (
+                    2 if label == "on" else 1)
+                if route == "plain":
+                    check(not any(got.values()), f"phase0 plain {label} "
+                          f"{name}: launches {got}")
+                elif label == "dense":
+                    per = -(-n_total // render.block)
+                    check(k7 == k8 == frames_run * per and not others,
+                          f"phase0 dense {name}: launches {got}")
+                else:
+                    k8_want = sum(st["blocks"] for st in render.stats)
+                    p1 = (len(_greedy_cover(n_hit, render.sizes))
+                          if label == "on" and valid else 1)
+                    k7_want = frames_run * p1 + (label == "on")
+                    check(k7 == k7_want and k8 == k8_want and not others,
+                          f"phase0 {label} {name}: K7 {k7} (want {k7_want}),"
+                          f" K8 {k8} (want {k8_want}), others {others}")
+            on, off = frames["on"], frames["off"]
+            missed = 1.0 - n_hit / n_total
+            st_on = stats["on"][-1]
+            diff = [(a - b).abs().reshape(n_total, -1).amax(-1)
+                    for a, b in zip(on, off)]
+            r = dict(valid=valid, missed_share=missed,
+                     frame_ms=dict(times),
+                     stats_on=st_on, stats_off=stats["off"][-1],
+                     on_vs_off_rgb_max=float(diff[0].max()),
+                     on_vs_off_disp_max=float(diff[1].max()),
+                     on_vs_off_psnr=psnr(on[0], off[0]),
+                     bit_equal=bool(torch.equal(on[0], off[0])
+                                    and torch.equal(on[1], off[1])),
+                     # where the frames differ: the hit or the missed rays
+                     on_vs_off_rgb_max_hit=float(diff[0][hit].max()),
+                     on_vs_off_rgb_max_missed=(
+                         float(diff[0][~hit].max()) if n_hit < n_total
+                         else 0.0),
+                     launches={label: {k: v for k, v in launches[
+                         f"phase0_{route}_{label}_{name}"].items() if v}
+                         for label in renderers})
+            if first_ms is not None:
+                r["frame_ms"]["on_first_with_grid"] = first_ms
+            if route == "planes":
+                r["on_vs_dense_psnr"] = psnr(on[0], frames["dense"][0])
+            rec[route] = r
+            log(f"phase0 [{name}, {route}]: bounds valid {valid}, missed "
+                f"share {missed:.4f} (stats {st_on['gate_frac_coarse']}), "
+                f"frame ms {r['frame_ms']}, on vs off rgb max "
+                f"{r['on_vs_off_rgb_max']:.3e} (hit rays "
+                f"{r['on_vs_off_rgb_max_hit']:.3e}, missed "
+                f"{r['on_vs_off_rgb_max_missed']:.3e}) disp max "
+                f"{r['on_vs_off_disp_max']:.3e}, {r['on_vs_off_psnr']:.2f} "
+                f"dB, bit-equal {r['bit_equal']}" + (
+                    f", on vs dense {r['on_vs_dense_psnr']:.2f} dB"
+                    if route == "planes" else "") +
+                f"; stats on {st_on}; launches {r['launches']}")
+            check(all(bool(torch.isfinite(t).all()) for t in on)
+                  and on[0].shape == (H, W, 3), f"phase0 {route} {name}: "
+                  "frame shape or finiteness")
+            if valid:
+                check(st_on["gate_frac_coarse"] is not None and abs(
+                    st_on["gate_frac_coarse"] - missed) < 1e-6,
+                    f"phase0 {route} {name}: stats "
+                    f"{st_on['gate_frac_coarse']} against the bounds' "
+                    f"missed share {missed}")
+            gate(valid and missed > 0, f"phase0 {route} {name}: bounds "
+                 f"valid {valid}, missed share {missed}")
+            if route == "planes":
+                gate(r["on_vs_off_rgb_max"] <= PHASE0_RGB_MAX
+                     and r["on_vs_off_disp_max"] <= PHASE0_DISP_MAX,
+                     f"phase0 planes {name}: on vs off rgb "
+                     f"{r['on_vs_off_rgb_max']} disp "
+                     f"{r['on_vs_off_disp_max']}")
+                gate(r["on_vs_dense_psnr"] >= CULLED_VS_DENSE_PSNR_MIN,
+                     f"phase0 planes {name}: on vs dense "
+                     f"{r['on_vs_dense_psnr']} dB")
+            else:
+                gate(r["on_vs_off_psnr"] >= PHASE0_PLAIN_PSNR_MIN,
+                     f"phase0 plain {name}: on vs off "
+                     f"{r['on_vs_off_psnr']} dB")
+            del packed, renderers, frames
+        out[name] = rec
+        del model
+    return launches, out
+
+
 def ptxas_lines(text: str) -> list:
     """(kernel, line) for every register and spill line of a ``-Xptxas -v``
     log, each under the entry function it reports on: the ``*_kernel``
@@ -4261,13 +4454,15 @@ def main() -> int:
         lap("data_parallel")
         mesh_launches, mesh_stats = mesh_phase(work, data_root, device)
         lap("mesh")
-        distilled_launches, distilled_stats, fit_shapes = distilled_phase(
-            fm, fv, device)
+        distilled_launches, distilled_stats, fit_shapes, fields = \
+            distilled_phase(fm, fv, device)
         lap("distilled")
         dryrun_launches, dryrun_stats = dryrun_phase(device)
         lap("dryrun")
         log(f"phases distilled + dryrun: {laps['distilled'] + laps['dryrun']:.1f}"
             " s (budget 120 s)")
+        phase0_launches, phase0_stats = phase0_phase(fm, fields, device)
+        lap("phase0")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each path's own run, counters at 0 before it: K3 and K1 on the eval
@@ -4284,7 +4479,7 @@ def main() -> int:
              **llff_launches, "eval_lpips": lpips_launches, **dp_launches,
              **mesh_launches,
              **{f"chunk_{k}": v for k, v in chunk_launches.items()},
-             **distilled_launches, **dryrun_launches}
+             **distilled_launches, **dryrun_launches, **phase0_launches}
 
     def distilled(kind: str) -> tuple:
         return tuple(k for k in distilled_launches if k.startswith(kind))
@@ -4293,7 +4488,9 @@ def main() -> int:
             "fused_mlp_eval_rays_gated_f32": ("gated_train", "dryrun_gated")
             + distilled("distilled_gated"),
             "fused_mlp_eval": tuple(f"plane_{k}" for k in plane_frame_launches)
-            + ("mesh_sp_eval", "distilled_render_frame"),
+            + ("mesh_sp_eval", "distilled_render_frame")
+            + tuple(k for k in phase0_launches
+                    if k.startswith("phase0_planes")),
             "fused_mlp_eval_f32": ("plane_train", "plane_train_n4000")
             + distilled("distilled_fit")}
     for name, row in rows.items():
@@ -4309,7 +4506,8 @@ def main() -> int:
                                    for p in only.get(name, mesh_launches)
                                    if p in mesh_launches)
         for what, group in (("distilled", distilled_launches),
-                            ("dryrun", dryrun_launches)):
+                            ("dryrun", dryrun_launches),
+                            ("phase0", phase0_launches)):
             row[f"launches_{what}"] = sum(
                 group[p][name] for p in only.get(name, group) if p in group)
     # K8 (float32) and K9 at the fit's own shapes (phase 16), each held
@@ -4372,6 +4570,7 @@ def main() -> int:
     log(json.dumps({"mesh": mesh_stats}))
     log(json.dumps({"distilled": distilled_stats}))
     log(json.dumps({"dryrun": dryrun_stats}))
+    log(json.dumps({"phase0": phase0_stats}))
     log(json.dumps({"phase_s": laps}))
     log(json.dumps({"kernels": list(rows.values())}))
     if FAILED_GATES:

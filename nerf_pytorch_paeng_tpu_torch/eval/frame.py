@@ -51,6 +51,16 @@ block (``renderer.launches_per_frame``).
   carry density logits <= 0, so they get the zero weights their
   evaluation would give.  Invalid bounds, and rays whose segment leaves
   the grid's cube, are never gated.
+- Phase 0 (``render_precull on`` off the ray kernels; the JAX package's
+  ``_phase0`` and ``_phase1_block``): the same coarse bounds, from the
+  route's own coarse density (K7, or the plain MLP's sigma row), mark the
+  rays that may hit the support (and every ray whose segment leaves the
+  cube); a stable sort puts them first and one host read takes their
+  count.  Phase 1 then runs on a greedy cover of the hit rays only, each
+  block's weights scattered into a frame of zero weights, so a missed ray
+  composites to the background.  The cover's overhang past the hit count
+  is missed rays, rendered all the same, as in the JAX package.  Every
+  ray keeps its row of the frame's one stratified draw.
 
 **The plane route.**  Where the sample counts are not whole 8-sample rows
 (``_use_rays_kernels``), and in the dense renderer without a fine pass,
@@ -58,8 +68,8 @@ both renderers take the JAX package's plane layout
 (``ops/render.render_rays_from_cfg`` and ``hierarchical_fine_pass``): K7
 (``fused_mlp_sigma``) on the coarse position plane where only the density
 is needed, K8 (``fused_mlp_eval``, or ``plane_fn``) as the field.  The
-pre-cull and gate-fine gate the ray kernels, so they are off there
-(``render_precull auto`` is off there in the JAX package too).
+gates are the ray kernels', so gate-fine is off there; ``render_precull
+on`` runs phase 0 there, ``auto`` does not (as in the JAX package).
 
 **The plain route.**  Outside the kernels' domain
 (``ops/render.plain_route_reason``: ``use_pallas`` off, or an architecture
@@ -68,8 +78,9 @@ the plain MLP (``ops/render.plain_field_fn``, float32 logits) on the plane
 layout, as the JAX package's XLA route does: the dense renderer the full
 coarse field (no density-only function) and the fine pass; the culled one
 the coarse field's sigma row in phase 1 (all-ones directions, as the
-JAX package feeds: sigma does not read them) and ``hierarchical_fine_pass`` in phase 2, with no
-pre-cull and no gate-fine.  ``pack_nerf`` hands such a renderer the two
+JAX package feeds: sigma does not read them) and ``hierarchical_fine_pass``
+in phase 2, with no gate-fine, and phase 0 under ``render_precull on``
+only.  ``pack_nerf`` hands such a renderer the two
 modules in place of packed weights.  ``renderer.route`` is "rays",
 "planes" or "plain".
 
@@ -78,9 +89,10 @@ Each culled frame appends ``{"n_act", "blocks", "n_trunc",
 ``renderer.stats`` (``n_trunc``: the active rays whose window fits a
 truncated sample class; ``trunc_blocks``: the cover blocks rendered at
 fewer than the merged samples; the gate fractions are the skipped share of
-(tile, row) blocks, 0-dim device tensors, or None where the pass ran
-ungated).  ``renderer.set_support(packed, module, bounds)`` injects a
-module's support bounds for a set of packed weights in place of its
+(tile, row) blocks, after phase 0 the missed rays' share of the frame,
+0-dim device tensors, or None where the pass ran ungated).
+``renderer.set_support(packed, module, bounds)`` injects a module's
+support bounds for a set of fields from ``pack_nerf`` in place of its
 grid.
 
 **Data parallelism** (the JAX package's mesh-sharded frames, over the
@@ -108,10 +120,8 @@ JAX package's ``_make_sp_frame_renderer``): the rays split over the data
 group and each ray's samples over the model group, K8 on each rank's
 slice of the samples in both passes (``parallel/sp.py``).
 
-Not carried from the JAX renderer: the block-structured phase 0 (JAX runs
-it only off the gated-kernel path; here the ungated culled path renders
-the same frame), ray padding to the tile (the kernels mask their edges),
-and the packing and renderer caches.
+Not carried from the JAX renderer: ray padding to the tile (the kernels
+mask their edges), and the packing and renderer caches.
 """
 from __future__ import annotations
 
@@ -124,7 +134,8 @@ import torch
 from .. import parallel
 from ..kernels.fused_mlp import (fused_mlp_eval, fused_mlp_eval_rays,
                                  fused_mlp_sigma, fused_mlp_sigma_rays)
-from ..ops.occupancy import support_bounds_from_sigma
+from ..ops.occupancy import (ray_hits_bounds, segment_in_cube,
+                             support_bounds_from_sigma)
 from ..ops.rays import get_rays
 from ..ops.render import (GATE_ROWS, hierarchical_fine_pass,
                           hierarchical_z_vals, make_field_fns, make_sigma_fn,
@@ -430,11 +441,14 @@ def _precull_grid(cfg, device: torch.device) -> int:
 
 
 def _use_precull(cfg, device: torch.device) -> bool:
-    """Coarse pre-cull: blender (origin-centred) scenes with a usable grid,
-    on the ray kernels."""
-    return (str(cfg.render_precull).lower() not in _OFF
-            and _use_rays_kernels(cfg) and cfg.data_type == "blender"
-            and _precull_grid(cfg, device) > 0)
+    """Coarse pre-cull (the JAX package's three states): "off" never;
+    "auto" only on the ray kernels, where it is the gated sigma kernel;
+    "on" on every route, off the ray kernels as phase 0.  Blender
+    (origin-centred) scenes with a usable grid only."""
+    mode = str(cfg.render_precull).lower()
+    if mode in _OFF or (mode == "auto" and not _use_rays_kernels(cfg)):
+        return False
+    return cfg.data_type == "blender" and _precull_grid(cfg, device) > 0
 
 
 def _use_gate_fine(cfg, device: torch.device) -> bool:
@@ -527,16 +541,21 @@ def _gated_fine_rays(packed_fine, rays_o, rays_d, z_all, fb, half: float,
     return tuple(t[:, inv] for t in outs), gate
 
 
+def _support_bounds(sigma_plane_fn: Callable, cfg, device: torch.device):
+    """((lo, hi, radius, valid), valid as a bool) support bounds of the
+    density ``xplane [3, P] -> sigma [P]`` on the G^3 grid (one host read
+    of ``valid``).  The culled renderer calls it once per set of fields."""
+    bounds = support_bounds_from_sigma(
+        sigma_plane_fn, _precull_half(cfg), grid=_precull_grid(cfg, device),
+        device=device)
+    return bounds, bool(bounds[3][0])
+
+
 def _support_for_eval(packed_module, cfg, device: torch.device,
                       points_fn: Callable = fused_mlp_sigma):
-    """((lo, hi, radius, valid), valid as a bool) support bounds of one
-    module's density field on the G^3 grid (one host read of ``valid``).
-    The culled renderer calls it once per set of packed weights."""
-    bounds = support_bounds_from_sigma(
-        lambda xp: points_fn(xp, packed_module, L_x=cfg.L_x,
-                             out_dtype=torch.bfloat16),
-        _precull_half(cfg), grid=_precull_grid(cfg, device), device=device)
-    return bounds, bool(bounds[3][0])
+    """``_support_bounds`` of one packed module's density on K7."""
+    return _support_bounds(make_sigma_fn(packed_module, cfg, points_fn), cfg,
+                           device)
 
 
 def _greedy_cover(n: int, sizes):
@@ -576,8 +595,9 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
     s_full = n_coarse + n_fine
     s_classes = _trunc_classes(s_full, n_fine, trunc_eps)
     # the plane route (sample counts off the 8-sample rows): K7 on the
-    # coarse positions in phase 1, K8 in phase 2, no gates; the plain
-    # route the same with the plain MLP
+    # coarse positions in phase 1, K8 in phase 2, no gates (phase 0 in
+    # their place under render_precull on); the plain route the same with
+    # the plain MLP
     route = _frame_route(cfg, _use_rays_kernels(cfg))
     use_rays = route == "rays"
     use_precull = _use_precull(cfg, device)
@@ -634,21 +654,26 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
         return out.rgb, out.disp, gate
 
     stats: list = []
-    support: dict = {}   # module -> (its packed weights, bounds or None)
+    support: dict = {}   # module -> (its field from pack_nerf, bounds or None)
 
     def module_bounds(packed, module: str):
-        """The module's valid bounds, else None: one grid per set of packed
-        weights (the last set seen, held by a strong reference)."""
-        w = packed[module]["w"]
+        """The module's valid bounds, else None: one grid per field that
+        ``pack_nerf`` handed over (its packed weights, or on the plain route
+        its module copy; the last one seen, held by a strong reference), of
+        the route's own density.  Off the ray kernels only the coarse
+        module's are asked for (no gate-fine there)."""
+        field = packed[module]
         seen = support.get(module)
-        if seen is None or seen[0] is not w:
-            bounds, valid = _support_for_eval(packed[module], cfg, device,
-                                              points_fn)
+        if seen is None or seen[0] is not field:
+            sigma = (_plane_fields(packed, cfg, route, plane_fn, points_fn)[2]
+                     if route == "plain"
+                     else make_sigma_fn(field, cfg, points_fn))
+            bounds, valid = _support_bounds(sigma, cfg, device)
             if parallel.world_size() > 1:     # rank 0's, on every rank
                 for t in bounds:
                     parallel.broadcast0(t)
                 valid = bool(bounds[3][0])
-            support[module] = seen = (w, bounds if valid else None)
+            support[module] = seen = (field, bounds if valid else None)
         return seen[1]
 
     def coarse_weights(packed, pc, rays_o, rays_d, z_vals):
@@ -671,6 +696,27 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
                                z_vals.T.contiguous(), packed["coarse"],
                                L_x=cfg.L_x, out_dtype=torch.bfloat16)
         return weights_from_sigma_t(sigma_t, z_vals.T, rays_d).T, gate
+
+    def precull_weights(packed, pc, rays_o, rays_d, z_vals):
+        """Phase 0 and the phase-1 blocks (the JAX package's ``_phase0``
+        and ``_phase1_block``): the rays that may hit the bounds ``pc``
+        (and those whose segment leaves the grid's cube) sorted first, one
+        host read of their count, then ``coarse_weights`` over a greedy
+        cover of them, each block split over the ranks and scattered into
+        zero weights -> (weights [n_total, Sc], the hit count)."""
+        hit = (ray_hits_bounds(rays_o, rays_d, *pc, near, far)
+               | ~segment_in_cube(rays_o, rays_d, half, near, far))
+        order0 = torch.argsort((~hit).to(torch.int32), stable=True)
+        n_hit = int(hit.sum())        # host read 1 of 2, as in the JAX package
+        weights = torch.zeros_like(z_vals)
+        for pos, sz in _greedy_cover(n_hit, sizes):
+            idx = order0[pos:min(pos + sz, n_total)]
+            (w,), _ = split(
+                lambda i: coarse_weights(packed, None, rays_o[i], rays_d[i],
+                                         z_vals[i]),
+                idx.shape[0], idx)
+            weights.index_copy_(0, idx, w)
+        return weights, n_hit
 
     def split(fn, m: int, *rows):
         """``fn`` over this rank's rows, its row outputs gathered, and the
@@ -710,15 +756,24 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
         pc = module_bounds(packed, "coarse") if use_precull else None
         fb = module_bounds(packed, "fine") if use_gate_fine else None
 
-        # phase 1: every ray's coarse stats, the cull and the sort
+        # phase 1: every ray's coarse stats (off the ray kernels with
+        # bounds: only phase 0's hit rays'), the cull and the sort
         z_vals = stratified_z_vals(n_total, near, far, n_coarse,
                                    perturb=stratified, generator=generator,
                                    device=device)
-        (weights,), gate_c = split(
-            lambda ro, rd, z: coarse_weights(packed, pc, ro, rd, z),
-            n_total, rays_o, rays_d, z_vals)
+        if pc is not None and not use_rays:
+            weights, n_hit = precull_weights(packed, pc, rays_o, rays_d,
+                                             z_vals)
+            # the missed share; a fill, not a host-to-device copy
+            frac_c = torch.full((), (n_total - n_hit) / n_total,
+                                device=device)
+        else:
+            (weights,), gate_c = split(
+                lambda ro, rd, z: coarse_weights(packed, pc, ro, rd, z),
+                n_total, rays_o, rays_d, z_vals)
+            frac_c = gate_share([gate_c], use_rays and pc is not None)
         order, class_cum, rgb_frame, disp_frame = stats_tail(z_vals, weights)
-        cum = class_cum.tolist()              # the frame's one host read
+        cum = class_cum.tolist()      # the frame's host read (phase 0's 2nd)
         n_act = cum[-1]
 
         # phase 2: the surviving rays, block by block, scattered in place;
@@ -742,16 +797,16 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
             n_act=n_act, blocks=len(blocks),
             n_trunc=cum[-2] if len(cum) > 1 else 0,
             trunc_blocks=sum(s_keep < s_full for *_, s_keep in blocks),
-            gate_frac_coarse=gate_share([gate_c], use_rays and pc is not None),
+            gate_frac_coarse=frac_c,
             gate_frac_fine=gate_share(gates, use_rays and fb is not None)))
         return rgb_frame.reshape(H, W, 3), disp_frame.reshape(H, W)
 
     def set_support(packed, module: str, bounds) -> None:
         """Use ``bounds`` ((lo, hi, radius, valid) on the device, as
         ``_support_for_eval`` gives them) as ``module``'s support for
-        these packed weights, in place of its grid: the hook through which
-        a caller injects known bounds (the dry run's ball)."""
-        support[module] = (packed[module]["w"],
+        these fields from ``pack_nerf``, in place of its grid: the hook
+        through which a caller injects known bounds (the dry run's ball)."""
+        support[module] = (packed[module],
                            bounds if bool(bounds[3][0]) else None)
 
     render.block = block

@@ -28,7 +28,10 @@ Tolerances:
   noise by a full step either way; measured up to 4.5e-5);
 - a launch of 1 rank against no launch, the ranks' weights against each
   other, the ray pools: bit for bit;
-- frames of 2 ranks against 1 rank at ``perturb 0``: 1e-5 absolute.
+- frames of 2 ranks against 1 rank at ``perturb 0``: 1e-5 absolute;
+  phase-0 frames (random weights, so the rays the ball misses differ from
+  those the field leaves empty) rtol 1e-4, atol 1e-5, as the JAX
+  package's mesh test of phase 0.
 """
 import os
 import shutil
@@ -310,7 +313,8 @@ def dp(tmp_path_factory):
               for k, v in (("u_c", u_c), ("u_f", u_f), ("ui_c", ui_c),
                            ("ui_f", ui_f))}}
     base = tmp_path_factory.mktemp("dp")
-    jobs = ["global_step", "image_step", "uneven_step", "pool", "frames"]
+    jobs = ["global_step", "image_step", "uneven_step", "pool", "frames",
+            "phase0_frames"]
     # one launch at a time: ranks that share the cores with another
     # launch's threads wait on each other's spinning
     two = _results(_start_worker(2, inputs, base / "w2", jobs))
@@ -417,6 +421,28 @@ def test_two_rank_frames_equal_one_rank(dp, cull):
         assert st["n_act"] == renderer.stats[-1]["n_act"]
         assert st["blocks"] == renderer.stats[-1]["blocks"] >= 2
         assert st["gate_frac_coarse"] is not None
+
+
+@pytest.mark.parametrize("route", ["planes", "plain"])
+def test_two_rank_phase0_frames_equal_one_rank(dp, route):
+    """The culled renderer's phase 0 (``render_precull on`` off the ray
+    kernels) on injected ball bounds with random weights, so that rays hit
+    and miss: every rank builds the same hit mask and cover, renders its
+    part of each phase-1 block, and the frame is one rank's (rtol 1e-4,
+    atol 1e-5, the JAX package's mesh test of phase 0)."""
+    r0, r1 = (res["phase0_frames"] for res in dp["two"])
+    renderer, packed, pose = tdw.phase0_setup(route)
+    want = renderer(packed, pose, torch.Generator().manual_seed(5))
+    assert renderer.route == route
+    for a, b, ref in zip(r0[route], r1[route], want):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), ref.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    st, ref = r0[route + "_stats"], renderer.stats[-1]
+    assert 0 < st["gate_frac_coarse"] < 1
+    assert st["gate_frac_coarse"] == pytest.approx(
+        float(ref["gate_frac_coarse"]))
+    assert st["n_act"] == ref["n_act"] and st["blocks"] == ref["blocks"]
 
 
 # ----------------------------------------------------------------- the CLI

@@ -387,7 +387,8 @@ def test_outside_the_kernels_domain_everything_routes_plain(kw):
     """``use_pallas`` off at the reference shape and every architecture
     outside the kernels' domain: the step (ray-kernel and plane shapes
     alike), both renderers and the pre-cull all take the plain route, as
-    the JAX package's predicates say."""
+    the JAX package's predicates say (``render_precull on`` pre-culls on
+    the plain route too, as phase 0; gate-fine stays off)."""
     base = dict(N_samples_c=8, N_samples_f=8, render_precull_grid=16,
                 train_precull="on", render_precull="on",
                 render_gate_fine="on", N_rays=256)
@@ -404,7 +405,7 @@ def test_outside_the_kernels_domain_everything_routes_plain(kw):
     assert not jprecull.train_precull_enabled(jcfg)
     assert not frame._use_rays_kernels(cfg)
     assert not jframe._use_rays_kernels(jcfg)
-    assert not frame._use_precull(cfg, cpu)
+    assert frame._use_precull(cfg, cpu) == jframe._use_precull(jcfg)
     assert not frame._use_gate_fine(cfg, cpu)
     _, K, _ = make_synth_scene(n_views=1, H=8, W=8)
     for cull in ("none", "auto"):

@@ -24,7 +24,7 @@ from nerf_pytorch_paeng_tpu_torch import parallel
 from nerf_pytorch_paeng_tpu_torch.config import NerfConfig
 from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
 from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import pack_nerf
-from nerf_pytorch_paeng_tpu_torch.models.nerf import NeRF
+from nerf_pytorch_paeng_tpu_torch.models.nerf import NeRF, init_nerf
 from nerf_pytorch_paeng_tpu_torch.train import (RayPool, TrainState,
                                                 build_ray_pool,
                                                 make_optimizer)
@@ -134,6 +134,40 @@ def job_pool(inputs, r: int) -> dict:
     pool.fast_forward(9, 32)                         # 128 rays: 4 a epoch
     return dict(built=built, replayed=pool.pool.clone(),
                 batch=torch.stack(pool.next_batch(32)))
+
+
+# phase 0 (``render_precull on`` off the ray kernels): seeded random
+# weights on the injected ball bounds of the JAX package's mesh test
+# (tests/test_precull.py), 16-ray blocks, on the plane and plain routes
+PHASE0_KW = dict(N_samples_c=12, N_samples_f=20, near=2.0, far=6.0,
+                 perturb=0.0, compute_dtype="float32", chunk_rays=16,
+                 render_precull="on", render_precull_grid=16)
+PHASE0_ROUTES = {"planes": dict(),
+                 "plain": dict(use_pallas=False, netDepth=4, netWidth=64,
+                               L_x=6, L_d=2)}
+
+
+def phase0_setup(route: str):
+    """(renderer, fields, pose): one 16x16 view through the culled
+    renderer's phase 0 on ``route`` with the ball as the coarse bounds."""
+    _, K, poses = make_synth_scene(n_views=1, H=FRAME_HW, W=FRAME_HW)
+    cfg = NerfConfig(device="cpu", **PHASE0_KW, **PHASE0_ROUTES[route])
+    renderer = make_frame_renderer(cfg, FRAME_HW, FRAME_HW, K, "cpu")
+    packed = pack_nerf(init_nerf(cfg, seed=0), cfg)
+    renderer.set_support(packed, "coarse", (
+        torch.full((3,), -1.5), torch.full((3,), 1.5), torch.tensor([2.0]),
+        torch.tensor([True])))
+    return renderer, packed, torch.from_numpy(poses[0])
+
+
+def job_phase0_frames(inputs, r: int) -> dict:
+    out = {}
+    for route in PHASE0_ROUTES:
+        renderer, packed, pose = phase0_setup(route)
+        out[route] = renderer(packed, pose, torch.Generator().manual_seed(5))
+        out[route + "_stats"] = {k: (None if v is None else float(v))
+                                 for k, v in renderer.stats[-1].items()}
+    return out
 
 
 def job_frames(inputs, r: int) -> dict:
@@ -361,6 +395,7 @@ def job_sp_frames(inputs, r: int) -> dict:
 
 JOBS = dict(global_step=job_global, image_step=job_image,
             uneven_step=job_uneven, pool=job_pool, frames=job_frames,
+            phase0_frames=job_phase0_frames,
             tp_forward=job_tp_forward, tp_steps=job_tp_steps,
             tp_drawn=job_tp_drawn, tp_resume=job_tp_resume,
             tp_frames=job_tp_frames, sp_composite=job_sp_composite,
