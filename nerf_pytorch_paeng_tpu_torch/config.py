@@ -23,6 +23,16 @@ The JAX package's four run knobs, as the port reads them:
   a gloo process group or ``n_model_shards > 1`` chunks have length 1.
 - ``profile`` (false): ``torch.profiler`` traces steps ``iter_start + 10``
   to ``iter_start + 14`` into a Chrome trace under ``logs/<exp>/profile/``.
+  The trace carries the program's spans (``utils/spans.py``), annotated
+  only while a profiler runs: ``nerf/chunk``, ``nerf/step.stage``,
+  ``nerf/step.launch``, ``nerf/policy.refresh``, ``nerf/pool.reshuffle``,
+  the frame renderers' ``nerf/frame``, ``nerf/frame.phase0``,
+  ``nerf/frame.read_hits``, ``nerf/frame.phase1``, ``nerf/frame.read``,
+  ``nerf/frame.phase2``, the render loop's ``nerf/pipeline.issue`` and
+  ``nerf/pipeline.drain``, and the set-up spans (``nerf/`` and
+  ``setup.kernels``, ``setup.pack``, ``setup.support_grid``,
+  ``setup.pool``, ``setup.state``, ``chunk.capture``, ``data.load``,
+  ``checkpoint.save``).
 - ``check_nans`` (false): a step whose loss, gradients or updated weights
   are not finite raises ``FloatingPointError`` naming it (read once a
   chunk); off, no check runs.

@@ -72,6 +72,7 @@ from .train.chunk import (PROFILE_START, PROFILE_STOP, ChunkSchedule,
                           StagedSteps, chunk_off_reason)
 from .train.schedule import schedule_from_cfg
 from .utils.logging import MetricLogger
+from .utils.spans import setup_span, setup_table, span
 from .utils.visualize import visualize_extrinsics
 
 
@@ -84,26 +85,28 @@ def load_dataset(cfg: NerfConfig):
     """Dataset dispatch (reference main.py:34-58) -> (images, K,
     extrinsics, hw, i_split, render_poses, cfg).  ``render_poses`` is the
     LLFF spiral, else None; for custom data the returned config carries
-    the near/far the loader derives from the scene's bounds."""
-    if cfg.data_type == "blender":
-        images, (K, ext), hw, i_split = load_blender(
-            data_root=cfg.data_root, downsample=cfg.downsample,
-            testskip=cfg.testskip, bkg_white=cfg.bkg_white)
-        render_poses = None
-    elif cfg.data_type == "llff":
-        images, (K, ext), hw, i_split, render_poses = load_llff(
-            data_root=cfg.data_root, downsample=cfg.downsample,
-            testskip=cfg.testskip, colmap_relaunch=cfg.colmap_relaunch)
-    elif cfg.data_type == "custom":
-        images, (K, ext), hw, i_split, nf = load_custom(
-            data_root=cfg.data_root, downsample=cfg.downsample,
-            testskip=cfg.testskip, video_batch=cfg.video_batch,
-            colmap_relaunch=cfg.colmap_relaunch)
-        render_poses = None
-        cfg = dataclasses.replace(cfg, near=nf[0], far=nf[1])
-    else:
-        raise ValueError(cfg.data_type)
-    return images, K, ext, hw, i_split, render_poses, cfg
+    the near/far the loader derives from the scene's bounds.  Set-up span
+    ``data.load``."""
+    with setup_span("data.load"):
+        if cfg.data_type == "blender":
+            images, (K, ext), hw, i_split = load_blender(
+                data_root=cfg.data_root, downsample=cfg.downsample,
+                testskip=cfg.testskip, bkg_white=cfg.bkg_white)
+            render_poses = None
+        elif cfg.data_type == "llff":
+            images, (K, ext), hw, i_split, render_poses = load_llff(
+                data_root=cfg.data_root, downsample=cfg.downsample,
+                testskip=cfg.testskip, colmap_relaunch=cfg.colmap_relaunch)
+        elif cfg.data_type == "custom":
+            images, (K, ext), hw, i_split, nf = load_custom(
+                data_root=cfg.data_root, downsample=cfg.downsample,
+                testskip=cfg.testskip, video_batch=cfg.video_batch,
+                colmap_relaunch=cfg.colmap_relaunch)
+            render_poses = None
+            cfg = dataclasses.replace(cfg, near=nf[0], far=nf[1])
+        else:
+            raise ValueError(cfg.data_type)
+        return images, K, ext, hw, i_split, render_poses, cfg
 
 
 def _llff_render_poses_34(render_poses):
@@ -244,14 +247,16 @@ class _SupportPolicy:
     def refresh(self, model, it: int):
         """The bounds to gate with from step ``it`` on, or None (ungated):
         None while the bounds are invalid or the predicted skipped share
-        cannot repay the sort and the smaller tiles."""
-        bc, bf = self.prog(model)
-        gf = self.est(bc, bf, self.rays_o, self.rays_d)
-        if parallel.world_size() > 1:
-            for t in (*bc, *bf, gf):
-                parallel.broadcast0(t)
-        vc, vf, gfh = torch.stack([bc[3][0].float(), bf[3][0].float(),
-                                   gf.float()]).tolist()   # one host read
+        cannot repay the sort and the smaller tiles.  Span
+        ``policy.refresh``."""
+        with span("policy.refresh"):
+            bc, bf = self.prog(model)
+            gf = self.est(bc, bf, self.rays_o, self.rays_d)
+            if parallel.world_size() > 1:
+                for t in (*bc, *bf, gf):
+                    parallel.broadcast0(t)
+            vc, vf, gfh = torch.stack([bc[3][0].float(), bf[3][0].float(),
+                                       gf.float()]).tolist()  # one host read
         valid = bool(vc) and bool(vf)
         on = valid and gfh >= self.cfg.train_precull_min_gate
         if parallel.is_main():
@@ -271,8 +276,9 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
     """Steps ``iter_start + 1 .. iter_N``; returns the final step, every
     step's loss, time (``step_s``, see ``_StepClock``) and skipped block
     share (``gate_frac``, None where the step ran ungated), the chunks'
-    lengths in order (``chunks``) and the CUDA graphs captured and the
-    steps replayed from them (``graph_captures``, ``graph_replays``).
+    lengths in order (``chunks``), the CUDA graphs captured and the
+    steps replayed from them (``graph_captures``, ``graph_replays``) and
+    the process's set-up spans (``spans``: ``utils/spans.setup_table``).
     ``render_poses`` (the LLFF spiral, [M, 3, 4]) feed the ``idx_render``
     hook.
 
@@ -465,7 +471,7 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
                 gate_frac=[None if math.isnan(g) else g
                            for g in gate_fracs.tolist()],
                 chunks=list(clock.lengths), graph_captures=steps.captures,
-                graph_replays=steps.replays)
+                graph_replays=steps.replays, spans=setup_table())
 
 
 def main_worker(cfg: NerfConfig) -> dict:

@@ -146,6 +146,7 @@ from ..ops.render import (GATE_ROWS, hierarchical_fine_pass,
 from ..ops.sampling import stratified_z_vals
 from ..ops.volume import (_disp_from, volume_render_rays_t,
                           weights_from_sigma, weights_from_sigma_t)
+from ..utils.spans import setup_span, span
 
 DEFAULT_BLOCK = 131072
 PRECULL_GRID = 128     # the support grid's cells per axis on the card
@@ -325,12 +326,13 @@ def _make_dense_frame_renderer(cfg, H, W, K, device, block, stratified,
     def render(packed, c2w, generator: Optional[torch.Generator] = None):
         _check_fields(packed, route)
         _need_generator(generator)
-        rays_o, rays_d = gen_rays(c2w)
-        parts = [split_block(packed, rays_o[i:i + block], rays_d[i:i + block],
-                             generator)
-                 for i in range(0, n_total, block)]
-        rgb = torch.cat([p[0] for p in parts], 0).reshape(H, W, 3)
-        disp = torch.cat([p[1] for p in parts], 0).reshape(H, W)
+        with span("frame"):
+            rays_o, rays_d = gen_rays(c2w)
+            parts = [split_block(packed, rays_o[i:i + block],
+                                 rays_d[i:i + block], generator)
+                     for i in range(0, n_total, block)]
+            rgb = torch.cat([p[0] for p in parts], 0).reshape(H, W, 3)
+            disp = torch.cat([p[1] for p in parts], 0).reshape(H, W)
         return rgb, disp
 
     render.block = block
@@ -390,20 +392,21 @@ def _make_sp_frame_renderer(cfg, H, W, K, device, block, stratified,
     def render(packed, c2w, generator: Optional[torch.Generator] = None):
         _check_fields(packed, route)
         _need_generator(generator)
-        rays_o, rays_d = gen_rays(c2w)
-        parts = []
-        for i in range(0, n_total, block):
-            ro, rd = rays_o[i:i + block], rays_d[i:i + block]
-            m = ro.shape[0]
-            u_c = (_uniforms(m, n_coarse, generator, device) if stratified
-                   else None)
-            u_f = (_uniforms(m, n_fine, generator, device)
-                   if n_fine > 0 and perturb != 0.0 else None)
-            parts.append(_split_render(
-                lambda *rows: rank_part(packed, *rows), m, ro, rd, u_c, u_f,
-                group=data_g))
-        rgb = torch.cat([p[0] for p in parts], 0).reshape(H, W, 3)
-        disp = torch.cat([p[1] for p in parts], 0).reshape(H, W)
+        with span("frame"):
+            rays_o, rays_d = gen_rays(c2w)
+            parts = []
+            for i in range(0, n_total, block):
+                ro, rd = rays_o[i:i + block], rays_d[i:i + block]
+                m = ro.shape[0]
+                u_c = (_uniforms(m, n_coarse, generator, device)
+                       if stratified else None)
+                u_f = (_uniforms(m, n_fine, generator, device)
+                       if n_fine > 0 and perturb != 0.0 else None)
+                parts.append(_split_render(
+                    lambda *rows: rank_part(packed, *rows), m, ro, rd, u_c,
+                    u_f, group=data_g))
+            rgb = torch.cat([p[0] for p in parts], 0).reshape(H, W, 3)
+            disp = torch.cat([p[1] for p in parts], 0).reshape(H, W)
         return rgb, disp
 
     render.block = block
@@ -545,10 +548,11 @@ def _support_bounds(sigma_plane_fn: Callable, cfg, device: torch.device):
     """((lo, hi, radius, valid), valid as a bool) support bounds of the
     density ``xplane [3, P] -> sigma [P]`` on the G^3 grid (one host read
     of ``valid``).  The culled renderer calls it once per set of fields."""
-    bounds = support_bounds_from_sigma(
-        sigma_plane_fn, _precull_half(cfg), grid=_precull_grid(cfg, device),
-        device=device)
-    return bounds, bool(bounds[3][0])
+    with setup_span("setup.support_grid"):
+        bounds = support_bounds_from_sigma(
+            sigma_plane_fn, _precull_half(cfg),
+            grid=_precull_grid(cfg, device), device=device)
+        return bounds, bool(bounds[3][0])
 
 
 def _support_for_eval(packed_module, cfg, device: torch.device,
@@ -707,7 +711,8 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
         hit = (ray_hits_bounds(rays_o, rays_d, *pc, near, far)
                | ~segment_in_cube(rays_o, rays_d, half, near, far))
         order0 = torch.argsort((~hit).to(torch.int32), stable=True)
-        n_hit = int(hit.sum())        # host read 1 of 2, as in the JAX package
+        with span("frame.read_hits"):
+            n_hit = int(hit.sum())    # host read 1 of 2, as in the JAX package
         weights = torch.zeros_like(z_vals)
         for pos, sz in _greedy_cover(n_hit, sizes):
             idx = order0[pos:min(pos + sz, n_total)]
@@ -752,53 +757,64 @@ def _make_culled_frame_renderer(cfg, H, W, K, device, block, stratified,
     def render(packed, c2w, generator: Optional[torch.Generator] = None):
         _check_fields(packed, route)
         _need_generator(generator)
-        rays_o, rays_d = gen_rays(c2w)
-        pc = module_bounds(packed, "coarse") if use_precull else None
-        fb = module_bounds(packed, "fine") if use_gate_fine else None
+        with span("frame"):
+            # phase 1: every ray's coarse stats (off the ray kernels with
+            # bounds: only phase 0's hit rays'), the cull and the sort
+            with span("frame.phase1"):
+                rays_o, rays_d = gen_rays(c2w)
+                pc = module_bounds(packed, "coarse") if use_precull else None
+                fb = module_bounds(packed, "fine") if use_gate_fine else None
+                z_vals = stratified_z_vals(n_total, near, far, n_coarse,
+                                           perturb=stratified,
+                                           generator=generator,
+                                           device=device)
+                if pc is not None and not use_rays:
+                    with span("frame.phase0"):
+                        weights, n_hit = precull_weights(
+                            packed, pc, rays_o, rays_d, z_vals)
+                    # the missed share; a fill, not a host-to-device copy
+                    frac_c = torch.full((), (n_total - n_hit) / n_total,
+                                        device=device)
+                else:
+                    (weights,), gate_c = split(
+                        lambda ro, rd, z: coarse_weights(packed, pc, ro, rd,
+                                                         z),
+                        n_total, rays_o, rays_d, z_vals)
+                    frac_c = gate_share([gate_c],
+                                        use_rays and pc is not None)
+                order, class_cum, rgb_frame, disp_frame = stats_tail(
+                    z_vals, weights)
+                with span("frame.read"):
+                    # the frame's host read (phase 0's second)
+                    cum = class_cum.tolist()
+                n_act = cum[-1]
 
-        # phase 1: every ray's coarse stats (off the ray kernels with
-        # bounds: only phase 0's hit rays'), the cull and the sort
-        z_vals = stratified_z_vals(n_total, near, far, n_coarse,
-                                   perturb=stratified, generator=generator,
-                                   device=device)
-        if pc is not None and not use_rays:
-            weights, n_hit = precull_weights(packed, pc, rays_o, rays_d,
-                                             z_vals)
-            # the missed share; a fill, not a host-to-device copy
-            frac_c = torch.full((), (n_total - n_hit) / n_total,
-                                device=device)
-        else:
-            (weights,), gate_c = split(
-                lambda ro, rd, z: coarse_weights(packed, pc, ro, rd, z),
-                n_total, rays_o, rays_d, z_vals)
-            frac_c = gate_share([gate_c], use_rays and pc is not None)
-        order, class_cum, rgb_frame, disp_frame = stats_tail(z_vals, weights)
-        cum = class_cum.tolist()      # the frame's host read (phase 0's 2nd)
-        n_act = cum[-1]
-
-        # phase 2: the surviving rays, block by block, scattered in place;
-        # each block's fine uniforms are drawn whole first
-        blocks = _cover(n_act, cum, sizes, s_classes)
-        gates = []
-        for pos, sz, s_keep in blocks:
-            idx = order[pos:min(pos + sz, n_total)]
-            m = idx.shape[0]
-            u = (_uniforms(m, n_fine, generator, device)
-                 if perturb != 0.0 else None)
-            (rgb, disp), gate = split(
-                lambda i, uf: fine_block(packed, rays_o[i], rays_d[i],
-                                         z_vals[i], weights[i], s_keep, fb,
-                                         uf),
-                m, idx, u)
-            rgb_frame.index_copy_(0, idx, rgb)
-            disp_frame.index_copy_(0, idx, disp)
-            gates.append(gate)
-        stats.append(dict(
-            n_act=n_act, blocks=len(blocks),
-            n_trunc=cum[-2] if len(cum) > 1 else 0,
-            trunc_blocks=sum(s_keep < s_full for *_, s_keep in blocks),
-            gate_frac_coarse=frac_c,
-            gate_frac_fine=gate_share(gates, use_rays and fb is not None)))
+            # phase 2: the surviving rays, block by block, scattered in
+            # place; each block's fine uniforms are drawn whole first
+            with span("frame.phase2"):
+                blocks = _cover(n_act, cum, sizes, s_classes)
+                gates = []
+                for pos, sz, s_keep in blocks:
+                    idx = order[pos:min(pos + sz, n_total)]
+                    m = idx.shape[0]
+                    u = (_uniforms(m, n_fine, generator, device)
+                         if perturb != 0.0 else None)
+                    (rgb, disp), gate = split(
+                        lambda i, uf: fine_block(
+                            packed, rays_o[i], rays_d[i], z_vals[i],
+                            weights[i], s_keep, fb, uf),
+                        m, idx, u)
+                    rgb_frame.index_copy_(0, idx, rgb)
+                    disp_frame.index_copy_(0, idx, disp)
+                    gates.append(gate)
+                stats.append(dict(
+                    n_act=n_act, blocks=len(blocks),
+                    n_trunc=cum[-2] if len(cum) > 1 else 0,
+                    trunc_blocks=sum(s_keep < s_full
+                                     for *_, s_keep in blocks),
+                    gate_frac_coarse=frac_c,
+                    gate_frac_fine=gate_share(gates,
+                                              use_rays and fb is not None)))
         return rgb_frame.reshape(H, W, 3), disp_frame.reshape(H, W)
 
     def set_support(packed, module: str, bounds) -> None:

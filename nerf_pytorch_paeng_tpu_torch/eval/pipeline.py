@@ -10,12 +10,16 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable
 
+from ..utils.spans import span
+
 
 def pipelined_frames(items: Iterable, render_one: Callable,
                      drain_one: Callable, io_workers: int = 2) -> None:
     """Run ``render_one(i, item)`` one frame ahead of
     ``drain_one(i, outputs, submit)``; queued IO errors surface after the
-    loop, and the pool always shuts down (waiting for queued writes)."""
+    loop, and the pool always shuts down (waiting for queued writes).
+    Spans ``pipeline.issue`` and ``pipeline.drain``: the k-th drain is the
+    k-th frame issued."""
     io_pool = ThreadPoolExecutor(max_workers=io_workers)
     io_futs = []
 
@@ -25,12 +29,15 @@ def pipelined_frames(items: Iterable, render_one: Callable,
     try:
         pending = None
         for i, item in enumerate(items):
-            out = render_one(i, item)
+            with span("pipeline.issue"):
+                out = render_one(i, item)
             if pending is not None:
-                drain_one(*pending, submit)
+                with span("pipeline.drain"):
+                    drain_one(*pending, submit)
             pending = (i, out)
         if pending is not None:
-            drain_one(*pending, submit)
+            with span("pipeline.drain"):
+                drain_one(*pending, submit)
         for f in io_futs:
             f.result()                    # surface any IO error
     finally:

@@ -31,6 +31,7 @@ from .. import parallel
 from ..data.render_pose import get_render_pose
 from ..utils.image import imwrite
 from ..utils.metrics import to8b
+from ..utils.spans import setup_table
 from .frame import make_frame_renderer
 from .pipeline import pipelined_frames
 
@@ -71,7 +72,8 @@ def run_render(idx: int, packed, K, hw, cfg, device,
     numpy frames; "frame_s": each frame's render time (on the card the
     device time between CUDA events around the frame, on the CPU the host
     clock); "stats": the culled renderer's per-frame records (empty for
-    the dense one); "save_dir"}``."""
+    the dense one); "save_dir"; "spans": the process's set-up spans,
+    ``utils/spans.setup_table``}``."""
     H, W = hw
     device = torch.device(device)
     if cfg.data_type in ("blender", "custom"):
@@ -147,4 +149,4 @@ def run_render(idx: int, packed, K, hw, cfg, device,
                   to8b(frames))
     return dict(rgbs=rgbs, disps=disps, frame_s=frame_s,
                 stats=list(getattr(renderer, "stats", [])),
-                save_dir=save_dir)
+                save_dir=save_dir, spans=setup_table())

@@ -23,6 +23,8 @@ import tempfile
 from pathlib import Path
 from typing import Iterable, List
 
+from ..utils.spans import setup_span
+
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 BUILD_DIR = DEFAULT_BUILD_DIR
@@ -118,5 +120,7 @@ def build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Load the library for ``csrc/<name>.cu``, building it if needed."""
-    return ctypes.CDLL(str(build(name)))
+    """Load the library for ``csrc/<name>.cu``, building it if needed
+    (set-up span ``setup.kernels``)."""
+    with setup_span("setup.kernels"):
+        return ctypes.CDLL(str(build(name)))

@@ -59,6 +59,7 @@ import torch
 
 from ..ops.posenc import build_emb
 from ..ops.render import GATE_ROWS, GATE_TILE, supports_kernels
+from ..utils.spans import setup_span
 
 EMBX_ROWS = 64   # kernel embedding rows for positions (63 used at L_x=10)
 EMBD_ROWS = 32   # ... for view directions (27 used at L_d=4)
@@ -275,19 +276,21 @@ def pack_nerf(model, cfg, device=None) -> Dict[str, Dict]:
     for the frame renderers: inside the kernels' domain packed in
     ``kernel_weight_dtype`` for the device they are packed onto; on the
     plain route (``ops/render.plain_route_reason``) a copy of the two
-    modules on that device, tagged ``"route": "plain"``."""
+    modules on that device, tagged ``"route": "plain"``.  Set-up span
+    ``setup.pack``."""
     if device is None:
         device = next(model.parameters()).device
-    if not supports_kernels(cfg):
-        return {"route": "plain",
-                "coarse": copy.deepcopy(model.model_coarse).to(device),
-                "fine": copy.deepcopy(model.model_fine).to(device)}
-    dtype = kernel_weight_dtype(cfg.compute_dtype, device)
-    return {
-        "coarse": pack_nerf_mlp_params(model.model_coarse, cfg.L_x, cfg.L_d,
-                                       dtype, device),
-        "fine": pack_nerf_mlp_params(model.model_fine, cfg.L_x, cfg.L_d,
-                                     dtype, device)}
+    with setup_span("setup.pack"):
+        if not supports_kernels(cfg):
+            return {"route": "plain",
+                    "coarse": copy.deepcopy(model.model_coarse).to(device),
+                    "fine": copy.deepcopy(model.model_fine).to(device)}
+        dtype = kernel_weight_dtype(cfg.compute_dtype, device)
+        return {
+            "coarse": pack_nerf_mlp_params(model.model_coarse, cfg.L_x,
+                                           cfg.L_d, dtype, device),
+            "fine": pack_nerf_mlp_params(model.model_fine, cfg.L_x, cfg.L_d,
+                                         dtype, device)}
 
 
 # ------------------------------------------------------------ plain versions

@@ -18,6 +18,7 @@ import torch
 
 from .. import parallel
 from ..ops.rays import get_rays_batched
+from ..utils.spans import setup_span, span
 
 
 def _permutation(n: int, generator: torch.Generator, device) -> torch.Tensor:
@@ -33,15 +34,17 @@ def build_ray_pool(images: np.ndarray, K, poses: np.ndarray,
                    device) -> torch.Tensor:
     """[M, 3, 3] pool of (ray_o, ray_d, rgb) for all train pixels, shuffled
     by ``generator`` (on ``device``).  images [N, H, W, 3]; poses
-    [N, 3or4, 4]."""
+    [N, 3or4, 4].  Set-up span ``setup.pool``."""
     H, W = images.shape[1:3]
     idx = np.asarray(i_train)
-    poses_train = torch.as_tensor(np.asarray(poses)[idx, :3, :4],
-                                  dtype=torch.float32, device=device)
-    rays_o, rays_d = get_rays_batched(H, W, K, poses_train)   # [T, H, W, 3]
-    rgb = torch.as_tensor(np.asarray(images, np.float32)[idx], device=device)
-    pool = torch.stack([rays_o, rays_d, rgb], 3).reshape(-1, 3, 3)
-    return pool[_permutation(len(pool), generator, device)]
+    with setup_span("setup.pool"):
+        poses_train = torch.as_tensor(np.asarray(poses)[idx, :3, :4],
+                                      dtype=torch.float32, device=device)
+        rays_o, rays_d = get_rays_batched(H, W, K, poses_train)  # [T,H,W,3]
+        rgb = torch.as_tensor(np.asarray(images, np.float32)[idx],
+                              device=device)
+        pool = torch.stack([rays_o, rays_d, rgb], 3).reshape(-1, 3, 3)
+        return pool[_permutation(len(pool), generator, device)]
 
 
 class RayPool:
@@ -55,8 +58,10 @@ class RayPool:
         self.epoch = 0
 
     def _reshuffle(self) -> None:
-        self.pool = self.pool[_permutation(len(self.pool), self.generator,
-                                           self.pool.device)]
+        with span("pool.reshuffle"):
+            self.pool = self.pool[_permutation(len(self.pool),
+                                               self.generator,
+                                               self.pool.device)]
         self.epoch += 1
 
     def next_start(self, n: int) -> int:

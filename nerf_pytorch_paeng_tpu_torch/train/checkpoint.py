@@ -22,6 +22,7 @@ import torch
 
 from .. import parallel
 from ..parallel.tensor import ShardedNeRF, shard_state_dict, shard_tensor
+from ..utils.spans import setup_span
 from .state import TrainState
 
 _MOMENTS = ("exp_avg", "exp_avg_sq")
@@ -71,16 +72,18 @@ def latest_checkpoint_step(logdir: str, exp_name: str) -> Optional[int]:
 
 def save_checkpoint(logdir: str, exp_name: str, state: TrainState) -> str:
     """Write ``state`` (rank 0 only; every rank of a width-sharded model
-    calls it, for the gather); returns the checkpoint's path."""
+    calls it, for the gather); returns the checkpoint's path.  Set-up
+    span ``checkpoint.save``."""
     path = checkpoint_path(logdir, exp_name, state.step)
-    model_sd, optim_sd = full_states(state)
-    if not parallel.is_main():
-        return path
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save({"idx": state.step, "model_state_dict": model_sd,
-                "optimizer_state_dict": optim_sd}, tmp)
-    os.replace(tmp, path)        # a reader sees the old file or the new one
+    with setup_span("checkpoint.save"):
+        model_sd, optim_sd = full_states(state)
+        if not parallel.is_main():
+            return path
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save({"idx": state.step, "model_state_dict": model_sd,
+                    "optimizer_state_dict": optim_sd}, tmp)
+        os.replace(tmp, path)    # a reader sees the old file or the new one
     return path
 
 

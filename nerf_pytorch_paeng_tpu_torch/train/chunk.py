@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils.spans import setup_span, span
 from .state import TrainState
 from .step import (_rank_slice, batch_draws, image_draws,
                    make_image_train_body, make_train_body, scheduled_update)
@@ -169,34 +170,39 @@ class StagedSteps:
                  schedule: Callable[[int], float], device: torch.device,
                  H: int, W: int, K, pool=None, images=None, poses=None,
                  graphs: bool = False):
-        self.cfg, self.state, self.schedule = cfg, state, schedule
-        self.device = torch.device(device)
-        self.H, self.W = H, W
-        self.pool, self.images, self.poses = pool, images, poses
-        n = int(cfg.N_rays)
-        lo, hi, _, _ = _rank_slice(n)
-        dev = self.device
-        if pool is not None:
-            self.body = make_train_body(cfg, H, W, float(np.asarray(K)[0, 0]))
-            self.rays = [torch.empty((n, 3), device=dev) for _ in range(3)]
-        else:
-            self.body = make_image_train_body(cfg, H, W, K)
-            self.coords = torch.empty((n, 2), dtype=torch.long, device=dev)
-            self.index = torch.zeros(1, dtype=torch.long, device=dev)
-        self.u_c = torch.empty((hi - lo, cfg.N_samples_c), device=dev)
-        self.u_f = (torch.empty((hi - lo, cfg.N_samples_f), device=dev)
-                    if cfg.N_samples_f > 0 and float(cfg.perturb) != 0.0
-                    else None)
-        fine = ("loss_f", "psnr_f") if cfg.N_samples_f > 0 else ()
-        self.keys = ("loss_c", "psnr_c", *fine, "loss", "psnr", "gate_frac",
-                     *(("finite",) if cfg.check_nans else ()))
-        self.out = torch.zeros(len(self.keys), device=dev)
-        self.nan = torch.full((), math.nan, device=dev)
-        self.support = None          # static copies of the live bounds
-        self.use_graphs = bool(graphs) and dev.type == "cuda"
-        self.stream = torch.cuda.Stream(dev) if self.use_graphs else None
-        self.graphs = {}
-        self.captures = self.replays = 0
+        with setup_span("setup.state"):
+            self.cfg, self.state, self.schedule = cfg, state, schedule
+            self.device = torch.device(device)
+            self.H, self.W = H, W
+            self.pool, self.images, self.poses = pool, images, poses
+            n = int(cfg.N_rays)
+            lo, hi, _, _ = _rank_slice(n)
+            dev = self.device
+            if pool is not None:
+                self.body = make_train_body(cfg, H, W,
+                                            float(np.asarray(K)[0, 0]))
+                self.rays = [torch.empty((n, 3), device=dev)
+                             for _ in range(3)]
+            else:
+                self.body = make_image_train_body(cfg, H, W, K)
+                self.coords = torch.empty((n, 2), dtype=torch.long,
+                                          device=dev)
+                self.index = torch.zeros(1, dtype=torch.long, device=dev)
+            self.u_c = torch.empty((hi - lo, cfg.N_samples_c), device=dev)
+            self.u_f = (torch.empty((hi - lo, cfg.N_samples_f), device=dev)
+                        if cfg.N_samples_f > 0 and float(cfg.perturb) != 0.0
+                        else None)
+            fine = ("loss_f", "psnr_f") if cfg.N_samples_f > 0 else ()
+            self.keys = ("loss_c", "psnr_c", *fine, "loss", "psnr",
+                         "gate_frac", *(("finite",) if cfg.check_nans
+                                        else ()))
+            self.out = torch.zeros(len(self.keys), device=dev)
+            self.nan = torch.full((), math.nan, device=dev)
+            self.support = None      # static copies of the live bounds
+            self.use_graphs = bool(graphs) and dev.type == "cuda"
+            self.stream = torch.cuda.Stream(dev) if self.use_graphs else None
+            self.graphs = {}
+            self.captures = self.replays = 0
 
     def set_support(self, support) -> None:
         """The bounds that gated steps read from now on, copied into the
@@ -281,28 +287,32 @@ class StagedSteps:
         replay the kind's graph, captured here first if need be."""
         if gated and self.support is None:
             raise ValueError("a gated step needs set_support first")
-        slab = torch.empty((len(items), len(self.keys)), device=self.device)
-        body = self._body(gated)
-        done = 0
-        if replay and self.use_graphs:
-            graph = self.graphs.get(gated)
-            if graph is None:
-                # real steps of the trajectory before the capture, on the
-                # capture stream (lazy state: Adam's moments, handles)
-                done = min(WARMUP_STEPS, len(items) - 1)
-                cur = torch.cuda.current_stream(self.device)
-                self.stream.wait_stream(cur)
-                with torch.cuda.stream(self.stream):
-                    for j in range(done):
-                        self._step(body, items[j], precrop, slab[j])
-                cur.wait_stream(self.stream)
-                graph = self.graphs[gated] = self._capture(gated)
-            for j in range(done, len(items)):
-                self._step(graph.replay, items[j], precrop, slab[j])
-                self.replays += 1
-        else:
-            for j, item in enumerate(items):
-                self._step(body, item, precrop, slab[j])
+        with span("chunk"):
+            slab = torch.empty((len(items), len(self.keys)),
+                               device=self.device)
+            body = self._body(gated)
+            done = 0
+            if replay and self.use_graphs:
+                graph = self.graphs.get(gated)
+                if graph is None:
+                    # real steps of the trajectory before the capture, on
+                    # the capture stream (lazy state: Adam's moments,
+                    # handles)
+                    with setup_span("chunk.capture"):
+                        done = min(WARMUP_STEPS, len(items) - 1)
+                        cur = torch.cuda.current_stream(self.device)
+                        self.stream.wait_stream(cur)
+                        with torch.cuda.stream(self.stream):
+                            for j in range(done):
+                                self._step(body, items[j], precrop, slab[j])
+                        cur.wait_stream(self.stream)
+                        graph = self.graphs[gated] = self._capture(gated)
+                for j in range(done, len(items)):
+                    self._step(graph.replay, items[j], precrop, slab[j])
+                    self.replays += 1
+            else:
+                for j, item in enumerate(items):
+                    self._step(body, item, precrop, slab[j])
         return slab
 
     def _step(self, run: Callable[[], None], item: int, precrop: bool,
@@ -312,8 +322,10 @@ class StagedSteps:
         learning rate and advances ``state.step`` as for a single step;
         its metric row into ``row``."""
         def staged() -> None:
-            self._stage(item, precrop)
-            run()
+            with span("step.stage"):
+                self._stage(item, precrop)
+            with span("step.launch"):
+                run()
         scheduled_update(self.state, self.schedule, staged)
         row.copy_(self.out)
 

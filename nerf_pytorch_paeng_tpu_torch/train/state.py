@@ -7,6 +7,7 @@ from dataclasses import dataclass
 import torch
 
 from ..models.nerf import NeRF, init_nerf
+from ..utils.spans import setup_span
 
 
 @dataclass
@@ -49,7 +50,8 @@ def create_train_state(cfg, device=None) -> TrainState:
     """Fresh weights drawn from ``cfg.seed`` and a fresh optimizer; under a
     model group of more than one rank (``n_model_shards > 1``) the rank's
     parts of those weights (``parallel/tensor.shard_nerf``), so that
-    Adam's moments are split too."""
+    Adam's moments are split too.  Set-up span ``setup.state``."""
     from ..parallel.tensor import shard_nerf
-    model = shard_nerf(init_nerf(cfg, device=device))
-    return TrainState(model, make_optimizer(model, cfg), 0)
+    with setup_span("setup.state"):
+        model = shard_nerf(init_nerf(cfg, device=device))
+        return TrainState(model, make_optimizer(model, cfg), 0)
