@@ -59,11 +59,29 @@
 //     K-major operand, so no transposed copy of the weights is made.  Bias,
 //     ReLU, the bf16 rounding and the density cotangent term are applied to
 //     the accumulator in registers; each trunk layer's ReLU bits stay in
-//     shared memory (4 KB a layer for 128 points) for the backward.  Every bf16 activation and
-//     masked delta goes to a stash in device memory (4960 values per point,
-//     ~10 KB) with 16-byte stores.  Bias and head-weight gradients, cheap
-//     CUDA-core sums, accumulate in each warpgroup's partial in device
-//     memory over all its tiles.
+//     shared memory (4 KB a layer for 128 points) for the backward.  Every
+//     bf16 activation and masked delta that a weight gradient needs goes to
+//     a stash in device memory (4832 values per point, ~9.7 KB) by TMA
+//     store: once an epilogue's tile is in shared memory (fenced to the
+//     async proxy, behind the warpgroup's barrier), one thread of each
+//     warpgroup stores its 64 rows through the stash's own tensor maps (the
+//     weight-gradient launch's, 64 x 64 boxes in the tile's swizzle) and the
+//     warpgroup goes straight on to the next product, which only reads the
+//     same tile.  That thread waits for its stores to have read the tile
+//     (wait_group.read) only before the barrier that precedes the next
+//     write of the tile (an epilogue in place, the next embedding, the next
+//     tile), one product later, by when they have long been read; the block
+//     waits for the writes themselves before it exits, so the
+//     weight-gradient launch sees a complete stash.  The stores mark their
+//     L2 lines evict-first: a chunk's 1.27 GB stash only passes through L2,
+//     and as ordinary lines it pushed out the weights that every tile
+//     streams from L2 twice (~2.4 MB a tile) and stalled the products on
+//     them (the chain launch took a third longer).  So the stash costs the
+//     launch about a tenth of its time; the rest is the products and,
+//     between them, the epilogues and column sums that both warpgroups run
+//     in lockstep while the tensor cores idle (PERF.md has the split).
+//     Bias and head-weight gradients, cheap CUDA-core sums, accumulate in
+//     each warpgroup's partial in device memory over all its tiles.
 //  2. wgrad_kernel: every weight gradient dW = H^T G is a product over the
 //     points; a block owns a 128 x 128 tile of one dW and a contiguous range
 //     of points, keeps the tile in registers over the whole range and writes
@@ -73,12 +91,12 @@
 //     MN-major from the point-major stash, so H^T is never copied.  What
 //     bounds it: bytes.  Its products are 1.19 MFLOP a point (1.2 us of
 //     tensor-core time per 1000 points) against the 9.7 KB of stash a point
-//     it must read (2.9 us per 1000 points at 3.35 TB/s).
+//     it must read, all of the stash (2.9 us per 1000 points at 3.35 TB/s).
 //  3. reduce_kernel: the partials of every block and chunk are added in a
 //     fixed order.  No atomics anywhere: two launches on the same inputs
 //     give the same bits, which a bit-exact resume relies on.
 // Points go through in chunks of at most 1024 tiles (131072 points, a
-// 1.3 GB stash), the stash reused from chunk to chunk.
+// 1.27 GB stash), the stash reused from chunk to chunk.
 //
 // The gate (K6): int32 [ceil(N / 128) * (S / 8)], tile-major over (128-ray
 // block, 8-sample row), as the forward kernels read it.  The TPU kernel skips
@@ -93,25 +111,26 @@
 // S x ray tiles, so the host never reads the active count): a chunk past the
 // list's end runs blocks that write zero partials and exit.  An all-on gate
 // gives the identity list, hence K2's tile order, chunking and reduction, and
-// K2's bits.  The stash traffic (~10 KB a point, written by the chain
-// launch and read back by the weight-gradient launch) is this design's cost
-// beside the tensor-core rate; PERF.md has the times.
+// K2's bits.  The stash traffic (~9.7 KB a point, written by the chain
+// launch behind its products and read back by the weight-gradient launch)
+// is this design's cost beside the tensor-core rate; PERF.md has the times.
 
 #include "hopper_mlp.cuh"
 
 namespace {
 
 // stash: point-major bf16 arrays of a chunk of pc points; array X starts at
-// ST_X * pc, h_i at (ST_H0 + 256 i) * pc, g_i at (ST_G0 + 256 i) * pc
+// ST_X * pc, h_i at (ST_H0 + 256 i) * pc, g_i at (ST_G0 + 256 i) * pc.
+// Every array is read by the weight-gradient launch (hv, which no product
+// needs, is not stashed).
 constexpr long ST_EMBX = 0;
 constexpr long ST_H0 = 64;
 constexpr long ST_FEAT = 2112;
-constexpr long ST_HV = 2368;
-constexpr long ST_EMBD = 2496;
-constexpr long ST_G0 = 2528;
-constexpr long ST_DFEAT = 4576;
-constexpr long ST_DHV = 4832;
-constexpr long ST_PER_POINT = 4960;
+constexpr long ST_EMBD = 2368;
+constexpr long ST_G0 = 2400;
+constexpr long ST_DFEAT = 4448;
+constexpr long ST_DHV = 4704;
+constexpr long ST_PER_POINT = 4832;
 
 // per-warpgroup partial of the chain kernel, in device memory and added to in
 // place over the block's tiles: the bias gradients (packed b layout), then
@@ -156,6 +175,17 @@ struct CMaps {
 };
 constexpr int N_PRODS = 21;
 
+// The stash's tensor maps (wgrad_maps), in boxes of 64 columns x 64 points
+// with the 128-byte swizzle: the chain launch stores through them, the
+// weight-gradient launch loads.  h0..h7 and feat are 9 consecutive
+// [pc][256] arrays (WMAP_H), g0..g7 and dfeat another 9 (WMAP_G).
+enum { WMAP_H, WMAP_G, WMAP_EMBX, WMAP_EMBD, WMAP_DHV, N_WMAPS };
+struct WMaps {
+  CUtensorMap m[N_WMAPS];
+};
+static_assert(ST_FEAT == ST_H0 + 8 * WIDTH && ST_DFEAT == ST_G0 + 8 * WIDTH,
+              "the stash's 256-wide arrays are not evenly spaced");
+
 __device__ __forceinline__ Prod prod(int i) {
   if (i < N_FWD_PRODS) return fwd_prod(i);                                 // h0 .. hv
   if (i == 12) return {CMAP_W128B, 0, HALF};                               // dfeat
@@ -190,15 +220,33 @@ __device__ __forceinline__ void chain_epilogue_delta(const float (&acc)[128],
   }
 }
 
-// the warpgroup's 64 rows of columns [0, cols) of a swizzled tile -> the
-// stash rows g[r][0 .. cols) (r in the tile), 16-byte stores
-__device__ __forceinline__ void stash_wg(bf16* g, int cols, const unsigned char* t, int row0) {
-  const int vpr = cols / 8;
-  for (int v = threadIdx.x & 127; v < 64 * vpr; v += 128) {
-    const int r = row0 + v / vpr, ch = v % vpr;
-    *reinterpret_cast<uint4*>(g + (long)r * cols + ch * 8) =
-        *reinterpret_cast<const uint4*>(t + sw_off(r, ch * 8));
+// The warpgroup's 64 rows of `boxes` column blocks of a swizzled tile (t:
+// its rows of the first block, as TMA lays a 64 x 64 box out) -> stash
+// array `arr` of map `id`, rows q .. q + 63: one TMA store a block, issued
+// by the warpgroup's first thread and committed as one bulk group, its
+// lines first out of L2 (read back only by the weight-gradient launch,
+// after the chunk's 1.27 GB has passed through).  The tile must be visible
+// to the async proxy (fence_proxy_async, then the warpgroup's barrier), and
+// stays read until stash_drain.
+__device__ __forceinline__ void stash_wg(const WMaps& maps, int id, int arr,
+                                         const unsigned char* t, int boxes, int q) {
+  if ((threadIdx.x & 127) != 0) return;
+  const uint64_t policy = hopper::l2_evict_first();
+  for (int bx = 0; bx < boxes; ++bx) {
+    if (id <= WMAP_G)
+      hopper::tma_store_3d(&maps.m[id], t + bx * CB, 64 * bx, q, arr, policy);
+    else
+      hopper::tma_store_2d(&maps.m[id], t + bx * CB, 64 * bx, q, policy);
   }
+  hopper::bulk_commit();
+}
+
+// before the warpgroup's barrier that precedes an overwrite of a tile that
+// stash_wg may still read: its first thread waits until every store it
+// issued has read its source (after a product, long since the case), so no
+// thread passes the barrier before then
+__device__ __forceinline__ void stash_drain() {
+  if ((threadIdx.x & 127) == 0) hopper::bulk_wait_read<0>();
 }
 
 // dst[c] += sum over the warpgroup's 64 rows of t[r][c] (fixed order); dst is
@@ -264,19 +312,20 @@ __device__ __forceinline__ int chunk_tiles(const int* count, long tile0, int nti
 // memory; B: the weights from the ring, read by both warpgroups), applies
 // bias, ReLU, rounding and the density cotangent term to the accumulator
 // in registers, keeps each trunk layer's ReLU bits in shared memory for the
-// backward, and stashes every activation and delta with 16-byte stores.
-// The two warpgroups meet only at the ring's barriers.  Warpgroup 2
+// backward, and stashes every activation and delta by TMA store (stash_wg)
+// while its next product runs on the same tile.  The two warpgroups meet
+// only at the ring's barriers.  Warpgroup 2
 // produces: its first thread walks the same tiles and products and keeps
 // the ring full by TMA.  The bias and head-weight gradients of each warpgroup add up in
 // its own partial in device memory.
 __global__ void __launch_bounds__(CH_THREADS, 1)
-bwd_chain_kernel(__grid_constant__ const CMaps maps, const float* __restrict__ od,
-                 const float* __restrict__ z, const float* __restrict__ dplane,
-                 const float* __restrict__ gr, const float* __restrict__ gg,
-                 const float* __restrict__ gb, const float* __restrict__ gs,
-                 const bf16* __restrict__ w, const float* __restrict__ b, bf16* stash,
-                 float* part1, int n, int L_x, int L_d, long tile0, int ntiles, long pc,
-                 const int* __restrict__ list, const int* __restrict__ count) {
+bwd_chain_kernel(__grid_constant__ const CMaps maps, __grid_constant__ const WMaps smaps,
+                 const float* __restrict__ od, const float* __restrict__ z,
+                 const float* __restrict__ dplane, const float* __restrict__ gr,
+                 const float* __restrict__ gg, const float* __restrict__ gb,
+                 const float* __restrict__ gs, const bf16* __restrict__ w,
+                 const float* __restrict__ b, float* part1, int n, int L_x, int L_d, long tile0,
+                 int ntiles, const int* __restrict__ list, const int* __restrict__ count) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* const act = hopper::align1024(smem_raw);
   unsigned char* const emb = act + SM_ACT;
@@ -339,22 +388,14 @@ bwd_chain_kernel(__grid_constant__ const CMaps maps, const float* __restrict__ o
   float* const pw = part1 + ((long)blockIdx.x * 2 + wg) * PART1;
   for (int i = tid & 127; i < PART1; i += 128) pw[i] = 0.0f;
 
-  bf16* const s_embx = stash + ST_EMBX * pc;
-  bf16* const s_feat = stash + ST_FEAT * pc;
-  bf16* const s_hv = stash + ST_HV * pc;
-  bf16* const s_embd = stash + ST_EMBD * pc;
-  bf16* const s_dfeat = stash + ST_DFEAT * pc;
-  bf16* const s_dhv = stash + ST_DHV * pc;
-  auto s_h = [&](int i) { return stash + (ST_H0 + (long)WIDTH * i) * pc; };
-  auto s_g = [&](int i) { return stash + (ST_G0 + (long)WIDTH * i) * pc; };
-
   uint32_t it = 0;
   float acc[128];
 #pragma unroll 1
   for (int t = t_begin; t < t_end; ++t) {
     const long tg = list ? (long)list[tile0 + t] : tile0 + t;
     const int k = (int)(tg / ray_tiles), ray0 = (int)(tg % ray_tiles) * TILE;
-    const long q0 = (long)t * TILE;   // first stash row of this tile
+    const int q = t * TILE + row0;    // the stash row of our first row
+    stash_drain();                    // the previous tile's last stores
     hopper::named_barrier(bar, 128);  // the previous tile is done with our rows
     load_wg(rays, zrow, gout, od, z, dplane, gr, gg, gb, gs, n, k, ray0, row0);
     hopper::named_barrier(bar, 128);
@@ -364,7 +405,7 @@ bwd_chain_kernel(__grid_constant__ const CMaps maps, const float* __restrict__ o
       emb_wg(emb, rays, zrow, L_x, EMBX, 0, true, row0);
     hopper::fence_proxy_async();
     hopper::named_barrier(bar, 128);
-    stash_wg(s_embx + q0 * EMBX, EMBX, emb, row0);
+    stash_wg(smaps, WMAP_EMBX, 0, a_emb, 1, q);
 
     // ---- forward recompute, every activation to the stash -------------
     zero_acc(acc);
@@ -372,17 +413,18 @@ bwd_chain_kernel(__grid_constant__ const CMaps maps, const float* __restrict__ o
     chain_epilogue<WIDTH>(acc, b + OFF_B0, true, act, row0, maskbuf);
     hopper::fence_proxy_async();
     hopper::named_barrier(bar, 128);
-    stash_wg(s_h(0) + q0 * WIDTH, WIDTH, act, row0);
+    stash_wg(smaps, WMAP_H, 0, a_act, 4, q);
 #pragma unroll 1
     for (int i = 1; i <= 7; ++i) {
       zero_acc(acc);
       if (i == 5) chain_gemm<WIDTH, true>(acc, a_emb, EMBX, ring, full, empty, it);  // skip
       chain_gemm<WIDTH, true>(acc, a_act, WIDTH, ring, full, empty, it);
+      stash_drain();  // h_{i-1}'s store; at i = 1 embx's too, before embd below
       hopper::named_barrier(bar, 128);   // every warp is done reading h_{i-1}
       chain_epilogue<WIDTH>(acc, b + OFF_B0 + WIDTH * i, true, act, row0, maskbuf + i * 1024);
       hopper::fence_proxy_async();
       hopper::named_barrier(bar, 128);
-      stash_wg(s_h(i) + q0 * WIDTH, WIDTH, act, row0);
+      stash_wg(smaps, WMAP_H, i, a_act, 4, q);
     }
     {  // density head: dwdens[c] += sum_p h7[p][c] g_sigma[p]
       for (int c = tid & 127; c < WIDTH; c += 128) {
@@ -396,22 +438,23 @@ bwd_chain_kernel(__grid_constant__ const CMaps maps, const float* __restrict__ o
     hopper::fence_proxy_async();
     zero_acc(acc);  // feature layer (no activation), in place
     chain_gemm<WIDTH, true>(acc, a_act, WIDTH, ring, full, empty, it);
+    stash_drain();  // h7's store
     hopper::named_barrier(bar, 128);
     chain_epilogue<WIDTH>(acc, b + OFF_BFEAT, false, act, row0, nullptr);
     hopper::fence_proxy_async();
     hopper::named_barrier(bar, 128);
-    stash_wg(s_feat + q0 * WIDTH, WIDTH, act, row0);
-    stash_wg(s_embd + q0 * EMBD, EMBD, emb, row0);
+    stash_wg(smaps, WMAP_H, 8, a_act, 4, q);  // feat
+    stash_wg(smaps, WMAP_EMBD, 0, a_emb, 1, q);
     {  // view layer: relu(embd @ wvd + feat @ wvf + bv) -> columns 0-127
       float acc2[64];
       zero_acc(acc2);
       chain_gemm<HALF, true>(acc2, a_emb, EMBD, ring, full, empty, it);
       chain_gemm<HALF, true>(acc2, a_act, WIDTH, ring, full, empty, it);
+      stash_drain();  // feat's and embd's stores
       hopper::named_barrier(bar, 128);
       chain_epilogue<HALF>(acc2, b + OFF_BV, true, act, row0, nullptr);
     }
-    hopper::named_barrier(bar, 128);  // hv visible
-    stash_wg(s_hv + q0 * HALF, HALF, act, row0);
+    hopper::named_barrier(bar, 128);  // hv visible (no store is pending)
 
     // ---- backward -------------------------------------------------------
     for (int idx = tid & 127; idx < HALF * 3; idx += 128) {  // dwcol[k][c]
@@ -439,51 +482,51 @@ bwd_chain_kernel(__grid_constant__ const CMaps maps, const float* __restrict__ o
     }
     hopper::fence_proxy_async();
     hopper::named_barrier(bar, 128);
-    stash_wg(s_dhv + q0 * HALF, HALF, act, row0);
+    stash_wg(smaps, WMAP_DHV, 0, a_act, 2, q);
     colsum_wg(act, row0, HALF, pw + OFF_BV);
     zero_acc(acc);  // dfeat = dhv @ wvf^T, bf16
     chain_gemm<WIDTH, false>(acc, a_act, HALF, ring, full, empty, it);
+    stash_drain();
     hopper::named_barrier(bar, 128);
     chain_epilogue_delta(acc, nullptr, nullptr, heads, act, row0);
     hopper::fence_proxy_async();
     hopper::named_barrier(bar, 128);
-    stash_wg(s_dfeat + q0 * WIDTH, WIDTH, act, row0);
+    stash_wg(smaps, WMAP_G, 8, a_act, 4, q);  // dfeat
     colsum_wg(act, row0, WIDTH, pw + OFF_BFEAT);
     zero_acc(acc);  // g7 = mask(h7, dfeat @ wfeat^T + g_sigma wdens)
     chain_gemm<WIDTH, false>(acc, a_act, WIDTH, ring, full, empty, it);
+    stash_drain();
     hopper::named_barrier(bar, 128);
     chain_epilogue_delta(acc, maskbuf + 7 * 1024, gout, heads, act, row0);
     hopper::fence_proxy_async();
     hopper::named_barrier(bar, 128);
-    stash_wg(s_g(7) + q0 * WIDTH, WIDTH, act, row0);
+    stash_wg(smaps, WMAP_G, 7, a_act, 4, q);
     colsum_wg(act, row0, WIDTH, pw + OFF_B0 + WIDTH * 7);
 #pragma unroll 1
     for (int j = 7; j >= 1; --j) {  // g_{j-1} = mask(h_{j-1}, g_j @ W_j^T)
       zero_acc(acc);
       chain_gemm<WIDTH, false>(acc, a_act, WIDTH, ring, full, empty, it);
+      stash_drain();
       hopper::named_barrier(bar, 128);
       chain_epilogue_delta(acc, maskbuf + (j - 1) * 1024, nullptr, heads, act, row0);
       hopper::fence_proxy_async();
       hopper::named_barrier(bar, 128);
-      stash_wg(s_g(j - 1) + q0 * WIDTH, WIDTH, act, row0);
+      stash_wg(smaps, WMAP_G, j - 1, a_act, 4, q);
       colsum_wg(act, row0, WIDTH, pw + OFF_B0 + WIDTH * (j - 1));
     }
   }
+  // the stash is complete before the block exits (the weight-gradient
+  // launch that follows reads it)
+  if ((tid & 127) == 0) hopper::bulk_wait<0>();
 }
 
 // the weight gradients dW = A^T G of wgrad_kernel: A and G are stash arrays,
 // each named by a tensor map (WMAP_*) and an array index within it
-enum { WMAP_H, WMAP_G, WMAP_EMBX, WMAP_EMBD, WMAP_DHV, N_WMAPS };
 struct WJob {
   int amap, aarr, gmap, garr;
   long out;   // packed offset of dW
   int kin, nout;
 };
-
-// h0..h7 and feat are 9 consecutive [pc][256] arrays (WMAP_H), g0..g7 and
-// dfeat another 9 (WMAP_G)
-static_assert(ST_FEAT == ST_H0 + 8 * WIDTH && ST_DFEAT == ST_G0 + 8 * WIDTH,
-              "the stash's 256-wide arrays are not evenly spaced");
 
 __host__ __device__ WJob wjob(int j) {
   if (j == 0) return {WMAP_EMBX, 0, WMAP_G, 0, OFF_W0, EMBX, WIDTH};
@@ -496,10 +539,6 @@ __host__ __device__ WJob wjob(int j) {
 }
 constexpr int N_WJOBS = 12;
 constexpr int N_WTILES = 39;   // sum over the jobs of ceil(kin/TM) * ceil(nout/TN)
-
-struct WMaps {
-  CUtensorMap m[N_WMAPS];
-};
 
 // one 64-column x PK-point box of map `id` (array arr) into dst
 __device__ __forceinline__ void wload(const WMaps& maps, int id, int arr, void* dst, uint64_t* bar,
@@ -614,7 +653,8 @@ wgrad_kernel(__grid_constant__ const WMaps maps, int ntiles, float* __restrict__
   }
 }
 
-// the tensor maps of the stash of a chunk of pc points (base sb)
+// the tensor maps of the stash of a chunk of pc points (base sb): the chain
+// launch stores through them, the weight-gradient launch loads
 int wgrad_maps(WMaps* maps, const bf16* sb, long pc) {
   using hopper::encode_bf16_map;
   const long span = (long)WIDTH * pc;
@@ -707,8 +747,8 @@ int bwd_run(const float* od, const float* z, const float* dplane, const float* g
     const long t0 = (long)c * p.chunk;
     const int ntc = (int)(p.tiles - t0 < p.chunk ? p.tiles - t0 : p.chunk);
     bwd_chain_kernel<<<p.g1, CH_THREADS, SMEM_CHAIN, st>>>(
-        cmaps, od, z, dplane, gr, gg, gb, gs, wb, b, sb, part1 + (long)c * p.g1 * 2 * PART1, n,
-        L_x, L_d, t0, ntc, pc, list, count);
+        cmaps, wmaps, od, z, dplane, gr, gg, gb, gs, wb, b, part1 + (long)c * p.g1 * 2 * PART1,
+        n, L_x, L_d, t0, ntc, list, count);
     if ((rc = (int)cudaGetLastError())) return rc;
     wgrad_kernel<<<dim3(N_WTILES, p.nsplit), WGRAD_THREADS, SMEM_WGRAD, st>>>(
         wmaps, ntc, part2 + (long)c * p.nsplit * WG_TOTAL, count, t0);
@@ -738,7 +778,7 @@ extern "C" void nerf_bwd_rays_workspace(int n, int s, long* sizes) {
 // accounts for each launch's work: out[0] chunks, [1] points a chunk, [2]
 // weight-gradient splits a chunk, [3] chain blocks a chunk, [4] bf16 values
 // the chain launch stashes a point, [5] of them the values the
-// weight-gradient launch reads a point (all but hv), [6] its products' count
+// weight-gradient launch reads a point (all of them), [6] its products' count
 // J, then J pairs (rows, columns) of dW = A^T G in launch order.  Writes
 // nothing unless cap holds them all; returns how many there are.
 extern "C" int nerf_bwd_plan(int n, int s, long* out, int cap) {
@@ -750,7 +790,7 @@ extern "C" int nerf_bwd_plan(int n, int s, long* out, int cap) {
   out[2] = p.nsplit;
   out[3] = p.g1;
   out[4] = ST_PER_POINT;
-  out[5] = ST_PER_POINT - (ST_EMBD - ST_HV);
+  out[5] = ST_PER_POINT;
   out[6] = N_WJOBS;
   for (int j = 0; j < N_WJOBS; ++j) {
     const WJob job = wjob(j);

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for hand-written tensor-core kernels:
-// mbarriers, TMA tensor loads, wgmma shared-memory descriptors and the
+// mbarriers, TMA tensor loads and stores, wgmma shared-memory descriptors and the
 // wgmma instruction itself (m64n128k16 and m64n256k16, bf16 -> f32), named
 // barriers, setmaxnreg, the async-proxy fence, and the host-side encoding of
 // TMA tensor maps.  Every kernel of the port is built on them: the forward
@@ -93,6 +93,55 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// An L2 policy under which the lines an access brings in are the first
+// evicted: for a stream written once and read back only after it has left
+// L2, so that it does not push out what the kernel reads again and again.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// stores: the box at src (shared memory, written before a fence_proxy_async
+// and a barrier) to the tensor at the given coordinates, with the L2 cache
+// policy given (l2_evict_first); elements past the tensor's edge are not
+// written.  Tracked by bulk groups of the issuing thread, not by an
+// mbarrier.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3}], [%1], %4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3, %4}], [%1], %5;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+// close this thread's stores issued so far into one bulk group
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups are pending: with
+// .read until their shared-memory sources have been read (the source may be
+// overwritten), without it until their writes are done
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------

@@ -269,19 +269,20 @@ def test_bwd_kernel_is_deterministic(dev):
 def test_bwd_workspace_holds_no_transposed_weights(dev):
     """The chain launch reads the packed weights as they are (TMA boxes,
     K-major wgmma operands for g W^T): the workspace is the stash of one
-    chunk (131,072 points x 4960 values), the two float32 partials and the
+    chunk (131,072 points x 4832 values), the two float32 partials and the
     gate's list, and the stash is its only bf16 buffer."""
     ws = fv._workspace(fv._library(), 4096, 64, dev)
     assert len(ws) == 4
     bf16 = [t for t in ws[:3] if t.dtype == torch.bfloat16]
-    assert len(bf16) == 1 and bf16[0].numel() == 131072 * 4960
+    assert len(bf16) == 1 and bf16[0].numel() == 131072 * 4832
 
 
 def test_bwd_plan_matches_workspace_and_weights(dev):
     """``bwd_plan`` reports the kernel's own chunking and layout: the
     stash of one chunk is the workspace's bf16 buffer, the partials match
-    its chunks and splits, and the weight-gradient products are the packed
-    weights below wdens in their packed order."""
+    its chunks and splits, the weight-gradient products are the packed
+    weights below wdens in their packed order, and the weight-gradient
+    launch reads every stashed value."""
     lib = fv._library()
     for n, s in ((4096, 64), (1000, 8), (4096, 192)):
         plan = fv.bwd_plan(n, s)
@@ -295,7 +296,51 @@ def test_bwd_plan_matches_workspace_and_weights(dev):
     order = ("w0", "w1", "w2", "w3", "w4", "w5e", "w5h", "w6", "w7",
              "wfeat", "wvf", "wvd")
     assert plan["wgrad_jobs"] == tuple(layout[k] for k in order)
-    assert plan["wgrad_read_per_point"] < plan["stash_per_point"]
+    assert plan["wgrad_read_per_point"] == plan["stash_per_point"]
+
+
+@pytest.mark.parametrize("route,n,s", [("rays", 4096, 64), ("rays", 1000, 8),
+                                       ("points", 4096, 1)])
+def test_bwd_stash_is_written_whole(dev, monkeypatch, route, n, s):
+    """The chain launch's TMA stores fill every stash value the weight-
+    gradient launch reads: a stash filled with NaN before each launch holds
+    none after it (a store box that missed rows, or the 32-column embd
+    array, would leave NaN there and in dw), and two launches give the
+    same bits.  At these shapes the last chunk is full, so every row of
+    the stash is read."""
+    plan = fv.bwd_plan(n, s)
+    assert plan["wgrad_read_per_point"] == plan["stash_per_point"]
+    tiles = -(-n // 128) * s
+    assert tiles * 128 == plan["chunks"] * plan["chunk_points"]
+    stashes = []
+    workspace = fv._workspace
+
+    def nan_workspace(lib, n_, s_, dev_):
+        ws = workspace(lib, n_, s_, dev_)
+        ws[0].fill_(float("nan"))
+        stashes.append(ws[0])
+        return ws
+
+    monkeypatch.setattr(fv, "_workspace", nan_workspace)
+    p = _packed(50, dev)
+    if route == "rays":
+        od, z = _inputs(51, n, s, dev)
+        gout = _cotangents(52, s, n, dev)
+        run = lambda: fv.fused_mlp_bwd_rays(od, z, *gout, p)  # noqa: E731
+    else:
+        g = torch.Generator(dev).manual_seed(51)
+        x = torch.randn(3, n, generator=g, device=dev)
+        d = torch.randn(3, n, generator=g, device=dev)
+        g4 = torch.randn(4, n, generator=g, device=dev) * 1e-3
+        run = lambda: fv.fused_mlp_bwd(x, d, g4, p)  # noqa: E731
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    assert len(stashes) == 2
+    for stash in stashes:
+        assert stash.numel() == plan["chunk_points"] * plan["stash_per_point"]
+        assert bool(torch.isfinite(stash).all())
+    assert bool(torch.isfinite(a[0]).all()) and bool(torch.isfinite(a[1]).all())
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_bwd_launch_counter(dev):
