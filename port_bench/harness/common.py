@@ -91,6 +91,15 @@ def device_record(device: torch.device, count: int, peak: int) -> dict:
             "count": count, "memory_peak_bytes": int(peak)}
 
 
+def splitmix64(x: int) -> int:
+    """SplitMix64's finaliser: a 64-bit hash of ``x`` (the frames'
+    seeds)."""
+    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return x ^ (x >> 31)
+
+
 def relative_gap(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 

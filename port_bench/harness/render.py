@@ -2,11 +2,15 @@
 renderer, one frame ahead, and the check of sampled frames against the
 reference's exact frames.
 
-Set-up makes the path (the blender orbit, or the forward-facing capture's
-spiral) and the field from the seed, packs it once (``pack_nerf``) and
-builds the renderer that ``eval/frame.make_frame_renderer`` returns for
-the configuration.  It renders the cell's warm-up frames (the first
-builds the support grids).  The window renders the path's poses in order
+The cell's architecture (``arch/<name>.py``, named by its configuration)
+gives what runs: the field drawn from the seed, the program's frame
+renderer on it (the field prepared once, and the renderer that
+``eval/frame.make_frame_renderer`` returns for the configuration), the
+reference's exact frames and the counts the metric readers take.  This
+module gives how it is measured.  Set-up makes the path (the blender
+orbit, or the forward-facing capture's spiral), the field and the
+renderer, and renders the cell's warm-up frames (the first builds the
+support grids).  The window renders the path's poses in order
 from pose 0, through ``eval/pipeline.pipelined_frames``: frame i + 1 is
 issued before frame i's pixels are taken, as ``eval/render.run_render``
 does, without its PNG and video writes.  A frame's pixels go to pinned
@@ -31,21 +35,31 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..reference import nerf as ref
-from . import fields
-from .common import Checks, quantile, sync
+from .. import arch
+from .common import Checks, quantile, splitmix64, sync
 from .scenes import SCENES, intrinsics, render_orbit
 from .trace import Trace
 
 FINE_STREAM = 0x5EED        # the reference's fine uniforms: another stream
-MLP_KERNELS = ("sigma_rays_wgmma_kernel", "eval_rays_wgmma_kernel")
-REF_BLOCK = 8192            # rays a block in the reference frames
 WARMUP_FRAMES = 2           # the first builds the support grids
+# the numbers ``compare`` gives that a cell's limits may hold
+LIMIT_KEYS = ("rgb_rmse", "rgb_max", "active_gap")
+ARCH_NEEDS = ("render_field", "frame_renderer", "reference_frame",
+              "render_counts", "ROUND_CONTROL")
+# the default architecture's ray kernels, which the glue readers
+# (``metrics/*_glue_ms.render.py``) leave out of a phase's device time
+MLP_KERNELS = arch.load(arch.DEFAULT).MLP_KERNELS
 
 
 def frame_seed(seed: int, i: int, stream: int = 0) -> int:
-    return ref.splitmix64(((seed & 0xFFFFFFFF) << 32)
-                          ^ (stream << 20) ^ (i & 0xFFFFF))
+    return splitmix64(((seed & 0xFFFFFFFF) << 32)
+                      ^ (stream << 20) ^ (i & 0xFFFFF))
+
+
+def frame_seeds(seed: int, i: int, fine_stream: int = FINE_STREAM):
+    """Frame ``i``'s coarse seed (the program's generator) and the
+    reference's fine one."""
+    return frame_seed(seed, i), frame_seed(seed, i, fine_stream)
 
 
 def make_path(ctx) -> Dict:
@@ -63,27 +77,20 @@ def make_path(ctx) -> Dict:
 
 
 def _program(ctx, path, sd) -> dict:
-    from nerf_pytorch_paeng_tpu_torch.eval.frame import make_frame_renderer
     from nerf_pytorch_paeng_tpu_torch.eval.pipeline import pipelined_frames
-    from nerf_pytorch_paeng_tpu_torch.kernels.fused_mlp import pack_nerf
-    from nerf_pytorch_paeng_tpu_torch.models.nerf import NeRF
 
-    cfg, dev = ctx.cfg, ctx.device
+    a, dev = arch.of(ctx.config), ctx.device
     H, W = path["hw"]
     poses = path["poses"]
-    model = NeRF(depth=cfg.netDepth, width=cfg.netWidth, L_x=cfg.L_x,
-                 L_d=cfg.L_d).to(dev)
-    model.load_state_dict(sd)
-    packed = pack_nerf(model, cfg, device=dev)
-    del model
-    renderer = make_frame_renderer(cfg, H, W, path["K"], dev)
+    renderer, field = a.frame_renderer(ctx.cfg, path["hw"], path["K"], sd,
+                                       dev)
     frames: Dict[int, dict] = {}
     want_stats = bool(ctx.trace)
 
     def render_one(i, pose):
         gen = torch.Generator(device=dev).manual_seed(frame_seed(ctx.seed, i))
         t_call = time.perf_counter()
-        rgb, disp = renderer(packed, torch.as_tensor(pose[:3, :4]), gen)
+        rgb, disp = renderer(field, torch.as_tensor(pose[:3, :4]), gen)
         # the culled renderer's count of the rays it rendered (a host
         # number: the frame's own host read gave it)
         stats = getattr(renderer, "stats", None)
@@ -164,45 +171,13 @@ def _program(ctx, path, sd) -> dict:
         with Trace(dev) as tr:
             traced = run_frames(2 * 10 ** 6,
                                 count=int(ctx.workload["trace_frames"]))
-        rec.update(trace=tr, trace_frames=len(traced), mlp_kernels=MLP_KERNELS)
+        rec.update(trace=tr, trace_frames=len(traced),
+                   **a.render_counts(ctx.cfg))
     rec["memory_peak_bytes"] = (int(torch.cuda.max_memory_allocated(dev))
                                 if dev.type == "cuda" else 0)
     kept = {i: (frames[i]["rgb"], frames[i]["n_act"]) for i in counted}
     return dict(setup_s=setup_s, rec=rec, lat=lat, kept=kept,
                 n_poses=len(poses))
-
-
-@torch.no_grad()
-def reference_frame(sd, cfg, K, hw, c2w, seed: int, i: int, device,
-                    rnd=ref.identity, fine_stream: int = FINE_STREAM
-                    ):
-    """The exact frame (every ray, every sample) of pose ``c2w`` at frame
-    ``i``'s coarse jitter -> (rgb [H, W, 3], the count of rays whose
-    coarse occupancy is above ``render_cull_tau``, those that the culled
-    renderer has to render)."""
-    H, W = hw
-    Kt = torch.as_tensor(K, dtype=torch.float32, device=device)
-    c2w = torch.as_tensor(np.asarray(c2w)[:3, :4], dtype=torch.float32,
-                          device=device)
-    o, d = ref.rays(ref.pixel_dirs(H, W, Kt).reshape(-1, 3), c2w)
-    if cfg.data_type == "llff":
-        o, d = ref.ndc(H, W, float(np.float32(K[0, 0])), o, d)
-    n = H * W
-    g = torch.Generator(device=device).manual_seed(frame_seed(seed, i))
-    u_c = torch.rand((n, cfg.N_samples_c), generator=g, device=device)
-    gf = torch.Generator(device=device).manual_seed(
-        frame_seed(seed, i, fine_stream))
-    u_f = torch.rand((n, cfg.N_samples_f), generator=gf, device=device)
-    out = torch.empty((n, 3), device=device)
-    n_active = 0
-    for a in range(0, n, REF_BLOCK):
-        s = slice(a, a + REF_BLOCK)
-        _, rgb, _, acc = ref.render(sd, o[s].contiguous(), d[s].contiguous(),
-                                    u_c[s], u_f[s], float(cfg.near),
-                                    float(cfg.far), cfg.L_x, cfg.L_d, rnd)
-        out[s] = rgb
-        n_active += int((acc > float(cfg.render_cull_tau)).sum())
-    return out.reshape(H, W, 3), n_active
 
 
 def compare(prog: torch.Tensor, refr: torch.Tensor, n_prog: int,
@@ -220,16 +195,16 @@ def compare(prog: torch.Tensor, refr: torch.Tensor, n_prog: int,
 
 
 def field_state_dict(ctx) -> Dict[str, torch.Tensor]:
-    """The cell's field (``fields.ball_state_dict`` of its ``field``),
-    drawn on the device from the run's seed."""
-    return fields.ball_state_dict(
+    """The cell's field, drawn on the device from the run's seed."""
+    return arch.of(ctx.config).render_field(
         ctx.workload["field"],
         torch.Generator(device=ctx.device).manual_seed(ctx.seed),
-        ctx.device, ctx.cfg.L_x, ctx.cfg.L_d)
+        ctx.device, ctx.cfg)
 
 
 def run(ctx) -> dict:
     cfg, dev = ctx.cfg, ctx.device
+    a = arch.of(ctx.config)
     path = make_path(ctx)
     sd = field_state_dict(ctx)
     out = _program(ctx, path, sd)
@@ -238,7 +213,6 @@ def run(ctx) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     # the check: sampled frames of the window against the exact frames
-    ref.strict_float32()
     check = ctx.workload["check"]
     counted = sorted(out["kept"])
     pick = np.random.default_rng(ctx.seed).choice(
@@ -246,8 +220,8 @@ def run(ctx) -> dict:
     progs, refs, n_prog, n_ref = [], [], 0, 0
     for i in sorted(int(j) for j in pick):
         pose = path["poses"][i % out["n_poses"]]
-        rgb, n = reference_frame(sd, cfg, path["K"], path["hw"], pose,
-                                 ctx.seed, i, dev)
+        rgb, n = a.reference_frame(sd, cfg, path["K"], path["hw"], pose,
+                                   frame_seeds(ctx.seed, i), dev)
         refs.append(rgb)
         n_ref += n
         progs.append(out["kept"][i][0].to(dev))

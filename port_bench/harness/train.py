@@ -1,29 +1,28 @@
-"""Cells of kind ``train``: the program's staged, graph-replayed train
-steps over a time window, and the check of its first three steps against
-the reference.
+"""Cells of kind ``train``: the program's train loop over a time window,
+and the check of its first three steps against the reference.
 
-Set-up builds the scene and the fresh weights from the seed, one
-``TrainState`` and one ``StagedSteps`` (``train/chunk.py``), and drives
-the first chunks through ``StagedSteps.run`` exactly as the window will:
-the first chunk's two eager steps, its graph capture and its replays.
-The loop is ``driver.train``'s (chunks from ``ChunkSchedule``, image
-choice or pool cursor, the occupancy policy ``driver._SupportPolicy``
-refreshing on its cadence) without its hooks and logging.  The window
-runs a fixed amount of work, the steps that the last warm-up chunk's
-pace fits into ``seconds`` rounded to whole chunks of 16 (a window that
-stopped on the clock would end a chunk early in some runs and not in
-others: 1.4% of the work, which moved the rate by 0.9%), and ends at a
-device synchronisation: the steps are dispatched ahead, so the rate is
-every step's rays over the host clock's time until the last one
-finished.
+The cell's architecture (``arch/<name>.py``, named by its configuration)
+gives what runs: the fresh weights from the seed, the program's train
+loop (``TrainLoop``: ``driver.train``'s loop without its hooks and
+logging, on one ``TrainState`` and one ``StagedSteps``), the reference's
+steps and the counts the metric readers take.  This module gives how it
+is measured.  Set-up builds the scene and the loop and drives the first
+chunks through the loop exactly as the window will: the first chunk's
+two eager steps, its graph capture and its replays.  The window runs a
+fixed amount of work, the steps that the last warm-up chunk's pace fits
+into ``seconds`` rounded to whole chunks of 16 (a window that stopped on
+the clock would end a chunk early in some runs and not in others: 1.4%
+of the work, which moved the rate by 0.9%), and ends at a device
+synchronisation: the steps are dispatched ahead, so the rate is every
+step's rays over the host clock's time until the last one finished.
 
-The check: the learning-rate schedule handed to ``StagedSteps`` is
-wrapped (``_Probe``), so that at the start of update 2 it keeps Adam's
-first moment (the first gradient times 0.1) and at the start of update 4
-the weights; the slab gives the first three losses.  After the window
-and the program's state are gone, the reference repeats the three
-updates from the same weights, pixels, rays and uniforms, worked out
-again from the seeds (``reference/nerf.py``).
+The check: the learning-rate schedule handed to the loop is wrapped
+(``_Probe``), so that at the start of update 2 it keeps Adam's first
+moment (the first gradient times 0.1) and at the start of update 4 the
+weights; the slab gives the first three losses.  After the window and
+the program's state are gone, the reference repeats the three updates
+from the same weights, pixels, rays and uniforms, worked out again from
+the seeds.
 """
 from __future__ import annotations
 
@@ -36,8 +35,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..reference import nerf as ref
-from . import fields, flops
+from .. import arch
 from .common import Checks, leaf_norm_gaps, relative_gap, sync
 from .scenes import SCENES
 from .trace import Trace
@@ -46,8 +44,11 @@ BETA1 = 0.9                     # the program's Adam, as the reference's
 CHUNK = 16                      # the window's work is whole chunks of steps
 WARMUP_CHUNKS = 2               # the first captures the graph
 TRACE_CHUNKS = 2                # profiled after the window
-K1_KERNELS = ("eval_rays_wgmma_kernel",)
-K2_KERNELS = ("bwd_chain_kernel", "wgrad_kernel", "reduce_kernel")
+# the numbers ``compare`` gives that a cell's limits may hold
+LIMIT_KEYS = ("loss_gap", "grad_gap", "grad_gap_median", "grad_noise_ratio",
+              "change_gap", "change_gap_median")
+ARCH_NEEDS = ("train_weights", "TrainLoop", "first_items", "reference_steps",
+              "train_counts", "ROUND_CONTROL", "ROUND_OWN")
 
 
 class _Probe:
@@ -89,110 +90,48 @@ def _program(ctx, scene, sd) -> dict:
     """Set-up, window and (with ``ctx.trace``) the profiled chunks of the
     program; returns what the metrics and the check read."""
     from nerf_pytorch_paeng_tpu_torch import kernels
-    from nerf_pytorch_paeng_tpu_torch.driver import _SupportPolicy
-    from nerf_pytorch_paeng_tpu_torch.models.nerf import NeRF
-    from nerf_pytorch_paeng_tpu_torch.train.batching import (RayPool,
-                                                             build_ray_pool)
-    from nerf_pytorch_paeng_tpu_torch.train.chunk import (ChunkSchedule,
-                                                          StagedSteps)
-    from nerf_pytorch_paeng_tpu_torch.train.precull import \
-        train_precull_active
-    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
-    from nerf_pytorch_paeng_tpu_torch.train.state import (TrainState,
-                                                          make_optimizer)
 
-    cfg, dev = ctx.cfg, ctx.device
-    H, W = scene["hw"]
-    K, poses, i_train = scene["K"], scene["poses"], scene["i_train"]
-    model = NeRF(depth=cfg.netDepth, width=cfg.netWidth, L_x=cfg.L_x,
-                 L_d=cfg.L_d).to(dev)
-    model.load_state_dict(sd)
-    state = TrainState(model, make_optimizer(model, cfg), 0)
-    probe = _Probe(schedule_from_cfg(cfg), state)
-    if cfg.global_batch:
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
-        pool = RayPool(build_ray_pool(scene["images"].cpu().numpy(), K,
-                                      poses, i_train, gen, dev), gen)
-        data = dict(pool=pool)
-    else:
-        pool = None
-        data = dict(images=scene["images"][torch.as_tensor(i_train)],
-                    poses=torch.as_tensor(poses[i_train][:, :3, :4],
-                                          device=dev))
-    policy = (_SupportPolicy(cfg, K, poses, (H, W), i_train, dev,
-                             n_est=cfg.N_rays)
-              if train_precull_active(cfg, 1) else None)
-    chunks = ChunkSchedule.from_cfg(cfg, False, False, None)
-    steps = StagedSteps(cfg, state, probe, dev, H, W, K,
-                        graphs=chunks.k > 1, **data)
-    rng = np.random.default_rng(cfg.seed + 2)
-    loop = dict(i=1, support=None, next_refresh=1, backoff=1, gated=0)
-
-    def chunk():
-        """One chunk of ``driver.train``'s loop; returns (steps, slab,
-        items)."""
-        i = loop["i"]
-        if policy is not None and i >= loop["next_refresh"]:
-            loop["support"] = policy.refresh(state.model, i)
-            steps.set_support(loop["support"])
-            on = loop["support"] is not None
-            loop["backoff"] = 1 if on else min(
-                loop["backoff"] * 2, max(int(cfg.train_precull_backoff_max),
-                                         1))
-            loop["next_refresh"] = i + max(int(cfg.train_precull_every),
-                                           1) * loop["backoff"]
-        refresh = loop["next_refresh"] if policy is not None else None
-        if pool is not None:
-            k = chunks.length(i, pool.i_batch, len(pool.pool), refresh)
-            items = [pool.next_start(cfg.N_rays) for _ in range(k)]
-        else:
-            k = chunks.length(i, next_refresh=refresh)
-            items = [int(rng.choice(len(i_train))) for _ in range(k)]
-        gated = loop["support"] is not None
-        slab = steps.run(items, precrop=i < cfg.precrop_iters, gated=gated,
-                         replay=k == chunks.k and k > 1)
-        loop["i"] += k
-        loop["gated"] += k if gated else 0
-        return k, slab, items
-
+    dev = ctx.device
+    loop = arch.of(ctx.config).TrainLoop(ctx.cfg, scene, sd, dev, _Probe)
+    probe = loop.schedule
     try:
         # set-up: the first chunks (the first full one captures the
         # graph), at least the check's four updates
-        loss_col = steps.keys.index("loss")
         first = dict(losses=[], items=[])
-        warm = 0
-        while warm < WARMUP_CHUNKS or loop["i"] <= 4:
+        warm = done = 0
+        while warm < WARMUP_CHUNKS or done < 4:
             sync(dev)
             t_chunk = time.perf_counter()
-            k, slab, items = chunk()
+            k, slab, items = loop.chunk()
             if len(first["items"]) < 3:
-                first["losses"] += slab[:, loss_col].tolist()
+                first["losses"] += slab[:, loop.loss_col].tolist()
                 first["items"] += items
             sync(dev)
             t_step = (time.perf_counter() - t_chunk) / k
             warm += 1
+            done += k
         del first["losses"][3:], first["items"][3:]
         # the window's work: the whole chunks that the last warm-up chunk's
         # pace fits into ``seconds``, the same in every run at that pace
         n_target = CHUNK * max(1, round(ctx.seconds / (CHUNK * t_step)))
         t0 = time.perf_counter()
         setup_s = t0 - ctx.t_start
-        replays0, gated0 = steps.replays, loop["gated"]
+        replays0, gated0 = loop.replays, loop.gated
         n_steps = 0
         while n_steps < n_target:
-            n_steps += chunk()[0]
+            n_steps += loop.chunk()[0]
         sync(dev)
         window_s = time.perf_counter() - t0
         rec = dict(kind="train", steps=n_steps, window_s=window_s,
-                   replays=steps.replays - replays0,
-                   gated_steps=loop["gated"] - gated0)
+                   replays=loop.replays - replays0,
+                   gated_steps=loop.gated - gated0)
         if ctx.trace:
-            before = steps.replays
+            before = loop.replays
             launches0 = kernels.launch_counts()
             with Trace(dev) as tr:
-                n_traced = sum(chunk()[0] for _ in range(TRACE_CHUNKS))
+                n_traced = sum(loop.chunk()[0] for _ in range(TRACE_CHUNKS))
             rec.update(trace=tr, trace_steps=n_traced,
-                       trace_replays=steps.replays - before,
+                       trace_replays=loop.replays - before,
                        trace_launches=[b - a for a, b in zip(
                            launches0, kernels.launch_counts())])
         rec["memory_peak_bytes"] = (int(torch.cuda.max_memory_allocated(dev))
@@ -201,65 +140,8 @@ def _program(ctx, scene, sd) -> dict:
             raise RuntimeError("set-up ran fewer than 4 updates")
         first.update(grads=probe.grads(), theta3=probe.theta3)
     finally:
-        steps.close()
+        loop.close()
     return dict(setup_s=setup_s, rec=rec, first=first)
-
-
-def reference_steps(sd, scene, cfg, items: List[int], device,
-                    rnd=ref.identity, n: int = 3, keep: int = 0) -> dict:
-    """The reference's first ``n`` updates from ``sd``: per image (the
-    items are image slots) or from the pool (the items are the batches'
-    offsets in the first shuffle) -> losses, gradients, the difference of
-    the gradients of each batch's two halves, and the weights' change.
-    ``keep`` > 0 trains on the batch's first ``keep`` rays alone (a
-    fault's reading)."""
-    H, W = scene["hw"]
-    Kt = torch.as_tensor(scene["K"], dtype=torch.float32, device=device)
-    dirs = ref.pixel_dirs(H, W, Kt).reshape(-1, 3)
-    poses = torch.as_tensor(scene["poses"][scene["i_train"]][:, :3, :4],
-                            dtype=torch.float32, device=device)
-    images = scene["images"][torch.as_tensor(scene["i_train"])].reshape(
-        len(scene["i_train"]), H * W, 3)
-    N, s_c, s_f = cfg.N_rays, cfg.N_samples_c, cfg.N_samples_f
-    if cfg.global_batch:
-        order = ref.pool_order(cfg.seed + 1, len(scene["i_train"]) * H * W,
-                               device)
-    params = {k: v.detach().clone().float() for k, v in sd.items()}
-    adam = ref.Adam(params)
-    losses, grads_k, noise_k = [], [], []
-    for k in range(n):
-        if cfg.global_batch:
-            u_c, u_f = ref.pool_step_draws(cfg.seed + 3, k, N, s_c, s_f,
-                                           device)
-            idx = order[items[k]:items[k] + N]
-            view, pix = idx // (H * W), idx % (H * W)
-        else:
-            pix, u_c, u_f = ref.image_step_draws(cfg.seed + 3, k, H, W, N,
-                                                 s_c, s_f, device)
-            view = torch.full_like(pix, items[k])
-        o, d = ref.camera_rays(dirs[pix], poses[view])
-        if cfg.data_type == "llff":
-            o, d = ref.ndc(H, W, float(scene["K"][0, 0]), o, d)
-        target = images[view, pix]
-        if keep:
-            o, d, target, u_c, u_f = (t[:keep] for t in (o, d, target, u_c,
-                                                         u_f))
-        # the batch's two halves apart (its loss is their mean): their
-        # gradients' difference is the batch's own sampling noise
-        h = o.shape[0] // 2
-        (l1, g1), (l2, g2) = (ref.loss_and_grads(
-            params, *(t[part] for t in (o, d, target, u_c, u_f)),
-            float(cfg.near), float(cfg.far), cfg.L_x, cfg.L_d, rnd)
-            for part in (slice(0, h), slice(h, None)))
-        loss = 0.5 * (l1 + l2)
-        grads = {k: 0.5 * (g1[k] + g2[k]) for k in g1}
-        losses.append(float(loss))
-        grads_k.append(grads)
-        noise_k.append({k: g1[k] - g2[k] for k in g1})
-        adam.step(params, grads, ref.lr_at(k, cfg.iter_N + 1, cfg.iter_warmup,
-                                           cfg.lr, cfg.lr_min))
-    return dict(losses=losses, grads=grads_k, noise=noise_k,
-                change={k: params[k] - sd[k].float() for k in params})
 
 
 def compare(prog: dict, refr: dict, sd) -> Dict[str, float]:
@@ -376,11 +258,11 @@ def _leaf_look(d_prog, d_ref, g_prog, g_ref, gap) -> dict:
 
 def run(ctx) -> dict:
     cfg, dev = ctx.cfg, ctx.device
+    a = arch.of(ctx.config)
     spec = {**ctx.config["scene"], **(ctx.scene_overrides or {})}
     scene = SCENES[spec["kind"]](spec, ctx.seed, dev)
-    sd = fields.init_state_dict(
-        torch.Generator(device=dev).manual_seed(ctx.seed), dev, cfg.L_x,
-        cfg.L_d)
+    sd = a.train_weights(cfg, torch.Generator(device=dev).manual_seed(
+        ctx.seed), dev)
     with tempfile.TemporaryDirectory() as logs:
         ctx.cfg = cfg = dataclasses.replace(cfg, log_dir=logs)
         out = _program(ctx, scene, sd)
@@ -389,8 +271,7 @@ def run(ctx) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     # the check: after the window, with the program's state freed
-    ref.strict_float32()
-    refr = reference_steps(sd, scene, cfg, first["items"], dev)
+    refr = a.reference_steps(sd, scene, cfg, first["items"], dev)
     checks = Checks()
     limits = ctx.workload["check"]["limits"]
     numbers = compare(first, refr, sd)
@@ -399,15 +280,8 @@ def run(ctx) -> dict:
     for name, value in numbers.items():
         if name in limits:
             checks.add(name, value, limits[name])
-    n, s_c, s_f = cfg.N_rays, cfg.N_samples_c, cfg.N_samples_f
-    rec.update(n_rays=n, s_c=s_c, s_f=s_f,
-               flop_per_step=flops.train_step_flop(n, s_c, s_f, cfg.L_x,
-                                                   cfg.L_d),
-               k1_launches=[flops.k1_train_launch(n, s, cfg.L_x, cfg.L_d)
-                            for s in (s_c, s_c + s_f)],
-               k2_launches=[flops.k2_train_launch(n, s, cfg.L_x, cfg.L_d)
-                            for s in (s_c, s_c + s_f)],
-               k1_kernels=K1_KERNELS, k2_kernels=K2_KERNELS)
+    n = cfg.N_rays
+    rec.update(n_rays=n, **a.train_counts(cfg))
     return dict(
         e2e={"train_rays_per_s": rec["steps"] * n / rec["window_s"],
              "setup_s": out["setup_s"]},

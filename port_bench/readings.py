@@ -11,15 +11,16 @@ process (the benchmark's own runs do not run this):
   the lower reading's material;
 - for every ``--control-seeds`` seed, the control: the reference put in
   the program's place at the operand precision below the configuration's
-  bfloat16 (scaled float8 e4m3, ``reference/nerf.round_fp8``), compared
-  with the float32 reference as the program is: the upper reading;
+  (the architecture's ``ROUND_CONTROL``; NeRF's bfloat16 gives scaled
+  float8 e4m3), compared with the float32 reference as the program is:
+  the upper reading;
 - for every ``--fault-seeds`` seed of a training cell, half of the
   batch left out (the mean over the other half), planted in the
   reference put in the program's place;
 - for every ``--bf16-seeds`` seed of a training cell, the reference at
-  the configuration's own bfloat16 operands in the program's place: a
-  second witness of what rounding alone does to a number.  A state left unchanged needs
-  no run: its change reads 1.
+  the configuration's own operand precision (``ROUND_OWN``) in the
+  program's place: a second witness of what rounding alone does to a
+  number.  A state left unchanged needs no run: its change reads 1.
 
 One JSON line per reading on standard output.
 """
@@ -35,55 +36,48 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 def train_control(ctx, rnd=None, keep: int = 0) -> dict:
     """The reference at ``rnd`` (or on ``keep`` rays) in the program's
     place for the cell's first three updates, compared as the program's
-    are."""
-    import numpy as np
+    are; the reference is the cell's architecture's."""
     import torch
 
-    from port_bench.harness import fields, train
+    from port_bench import arch
+    from port_bench.harness import train
     from port_bench.harness.scenes import SCENES
-    from port_bench.reference import nerf as ref
 
-    cfg, dev = ctx.cfg, ctx.device
+    a, cfg, dev = arch.of(ctx.config), ctx.cfg, ctx.device
     spec = {**ctx.config["scene"], **(ctx.scene_overrides or {})}
     scene = SCENES[spec["kind"]](spec, ctx.seed, dev)
-    sd = fields.init_state_dict(
-        torch.Generator(device=dev).manual_seed(ctx.seed), dev, cfg.L_x,
-        cfg.L_d)
-    if cfg.global_batch:
-        items = [k * cfg.N_rays for k in range(3)]
-    else:
-        rng = np.random.default_rng(cfg.seed + 2)
-        items = [int(rng.choice(len(scene["i_train"]))) for _ in range(3)]
-    ref.strict_float32()
-    exact = train.reference_steps(sd, scene, cfg, items, dev)
-    other = train.reference_steps(sd, scene, cfg, items, dev,
-                                  rnd=rnd or ref.identity, keep=keep)
+    sd = a.train_weights(cfg, torch.Generator(device=dev).manual_seed(
+        ctx.seed), dev)
+    items = a.first_items(cfg, scene)
+    exact = a.reference_steps(sd, scene, cfg, items, dev)
+    other = a.reference_steps(sd, scene, cfg, items, dev, rnd=rnd, keep=keep)
     return train.compare(other, exact, sd)
 
 
 def render_control(ctx, frames=(0, 37)) -> dict:
-    """The control's frames (float8 operands, its own fine uniforms, as
-    the program's are its own) against the float32 reference's; the
-    control's rendered rays are those its own coarse pass keeps."""
+    """The control's frames (the architecture's ``ROUND_CONTROL``
+    operands, its own fine uniforms, as the program's are its own)
+    against the float32 reference's; the control's rendered rays are
+    those its own coarse pass keeps."""
     import torch
 
+    from port_bench import arch
     from port_bench.harness import render
-    from port_bench.reference import nerf as ref
 
-    cfg, dev = ctx.cfg, ctx.device
+    a, cfg, dev = arch.of(ctx.config), ctx.cfg, ctx.device
     path = render.make_path(ctx)
     sd = render.field_state_dict(ctx)
-    ref.strict_float32()
     progs, refs, n_prog, n_ref = [], [], 0, 0
     for i in frames:
         pose = path["poses"][i % len(path["poses"])]
-        rgb, n = render.reference_frame(sd, cfg, path["K"], path["hw"],
-                                        pose, ctx.seed, i, dev)
+        rgb, n = a.reference_frame(sd, cfg, path["K"], path["hw"], pose,
+                                   render.frame_seeds(ctx.seed, i), dev)
         refs.append(rgb)
         n_ref += n
-        rgb, n = render.reference_frame(
-            sd, cfg, path["K"], path["hw"], pose, ctx.seed, i, dev,
-            rnd=ref.round_fp8, fine_stream=render.FINE_STREAM + 1)
+        rgb, n = a.reference_frame(
+            sd, cfg, path["K"], path["hw"], pose,
+            render.frame_seeds(ctx.seed, i, render.FINE_STREAM + 1), dev,
+            rnd=a.ROUND_CONTROL)
         progs.append(rgb)
         n_prog += n
     return render.compare(torch.stack(progs), torch.stack(refs), n_prog,
@@ -93,8 +87,8 @@ def render_control(ctx, frames=(0, 37)) -> dict:
 def main(argv=None) -> int:
     import torch
 
+    from port_bench import arch
     from port_bench.harness.common import load_json
-    from port_bench.reference import nerf as ref
     from port_bench.run import make_ctx, run_cell
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -106,7 +100,9 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, default=2.0)
     args = p.parse_args(argv)
     dev = torch.device("cuda", 0)
-    kind = load_json("workloads", args.workload)["kind"]
+    workload = load_json("workloads", args.workload)
+    kind = workload["kind"]
+    a = arch.of(load_json("configs", workload["config"]))
 
     def emit(what, seed, numbers, **extra):
         print(json.dumps({"workload": args.workload, "reading": what,
@@ -121,12 +117,12 @@ def main(argv=None) -> int:
              notes=out.get("notes", {}))
     for seed in args.control_seeds:
         ctx = make_ctx(args.workload, seed, 0, False, dev, 0.0)
-        numbers = (train_control(ctx, rnd=ref.round_fp8) if kind == "train"
+        numbers = (train_control(ctx, rnd=a.ROUND_CONTROL) if kind == "train"
                    else render_control(ctx))
         emit("control_fp8", seed, numbers)
     for seed in args.bf16_seeds:
         ctx = make_ctx(args.workload, seed, 0, False, dev, 0.0)
-        emit("reference_bf16", seed, train_control(ctx, rnd=ref.round_bf16))
+        emit("reference_bf16", seed, train_control(ctx, rnd=a.ROUND_OWN))
     for seed in args.fault_seeds:
         ctx = make_ctx(args.workload, seed, 0, False, dev, 0.0)
         emit("fault_half_batch", seed,
