@@ -235,6 +235,23 @@
    off within 1e-5 rgb and 1e-4 disp (plane) or 50 dB (plain), on against
    dense >= 40 dB, a missed share above 0.
 
+NGP phase (Instant-NGP's kernels, ``kernels/hash_grid.py`` and
+``kernels/ngp_march.py``), at the training step's shapes (4,096 rays, a
+budget of 2^18 samples, the published 16 levels of 2^19 entries and
+128^3 grid) on a grid after two updates of a field whose density spans
+many decades: the marcher (count, scan, compact) bit-equal to
+``march_plain``; the hash encoding's forward within 1e-5 of
+``hash_encode_plain`` and its atomic backward within 1e-5 relative L2 a
+table (the atomics add in another order); the compositing forward within
+2e-5 of ``composite_plain`` and its backward within 1e-4 relative L2;
+each timed beside its plain twin and the least time of its streamed
+bytes or its FP32 operations.  Then ``driver.main_worker`` trains the
+NGP config (``configs/blender_lego_ngp.txt``) for three chunks of 16 on
+a synthetic scene, the NGP counters at 0 before: one launch of each
+kernel a step, and the encoding's forward eight times more in each of
+the two grid updates.  ``python3 chip_smoke.py --ngp`` runs this phase
+alone.
+
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -372,6 +389,13 @@ PHASE0_RGB_MAX = 1e-5
 PHASE0_DISP_MAX = 1e-4
 PHASE0_PLAIN_PSNR_MIN = 50.0
 PHASE0_PLAIN_SCENES = ("std", "hard")
+# the NGP phase: the kernels' tolerances against their plain twins (the
+# card tests' own), the peaks of their bounds, the trained chunks
+NGP_HASH_TOL = 1e-5               # forward abs/rel; backward rel L2 a table
+NGP_COMPOSITE_TOL = dict(atol=2e-5, rtol=1e-5, bwd_rel_l2=1e-4)
+PEAK_FP32_FLOPS = 67e12           # H100 SXM, outside the tensor cores
+NGP_CHUNKS = 3
+NGP_SCENE_HW = 200
 
 
 def log(*a):
@@ -1206,6 +1230,190 @@ def zero_launches() -> None:
 def read_launches() -> dict:
     return {name: getattr(fn, attr)
             for name, (fn, attr) in launch_counters().items()}
+
+
+def ngp_launch_counters() -> dict:
+    """The NGP kernels' launch counters, by row name."""
+    from nerf_pytorch_paeng_tpu_torch.kernels import hash_grid as hg
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_march as nm
+    return {"hash_encode_fwd": (hg.hash_encode, "launches"),
+            "hash_encode_bwd": (hg.hash_encode_bwd, "launches"),
+            "ngp_march": (nm.march, "launches"),
+            "ngp_composite_fwd": (nm.composite_fwd, "launches"),
+            "ngp_composite_bwd": (nm.composite_bwd, "launches")}
+
+
+def ngp_field(cfg, device):
+    """An NGP model whose density spans many decades (tables drawn wide,
+    the density head scaled), its grid after an update of every cell and
+    one of half of them; 4,096 orbit rays towards the cube and their
+    uniforms."""
+    from nerf_pytorch_paeng_tpu_torch.models.ngp import (
+        GRID_WARMUP, init_ngp, update_occupancy_grid)
+    model = init_ngp(cfg, device, seed=1)
+    g = torch.Generator(device).manual_seed(2)
+    with torch.no_grad():
+        for t in model.tables:
+            t.copy_(torch.randn(t.shape, generator=g, device=device) * 2.0)
+        model.sigma_w1[0].mul_(5.0)
+    for step in (0, GRID_WARMUP):
+        update_occupancy_grid(model, cfg, step,
+                              torch.Generator(device).manual_seed(3 + step))
+    c = torch.randn(TRAIN_RAYS, 3, generator=g, device=device)
+    o = 4.0 * c / c.norm(dim=1, keepdim=True)
+    d = -o + 0.9 * torch.randn(TRAIN_RAYS, 3, generator=g, device=device)
+    u = torch.rand(TRAIN_RAYS, generator=g, device=device)
+    return model, o, d, u
+
+
+def ngp_kernel_rows(device) -> dict:
+    """The NGP kernels against their plain twins at the training step's
+    shapes, each timed beside its twin and its bound."""
+    from nerf_pytorch_paeng_tpu_torch.config import NerfConfig
+    from nerf_pytorch_paeng_tpu_torch.kernels import hash_grid as hg
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_march as nm
+
+    cfg = NerfConfig(arch="ngp", compute_dtype="bfloat16").validate()
+    model, o, d, u = ngp_field(cfg, device)
+    p = nm.MarchParams.from_cfg(cfg)
+    L = len(model.levels)
+    rows = {}
+
+    def row(name, src, ms, plain_ms, nbytes, flop, err, tol, **extra):
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flop / PEAK_FP32_FLOPS * 1e3
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": f"nerf_pytorch_paeng_tpu_torch/kernels/csrc/{src}",
+            "replaces": None, "launches": None, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "error": err, "tolerance": tol, **extra}
+        log(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.3f} "
+            f"bound_ms={rows[name]['bound_ms']:.4f} error={err:.3e} "
+            f"(tolerance {tol}) {extra}")
+
+    # the marcher: bit-equal to its twin
+    k_ms, m = cuda_ms(lambda: nm.march(o, d, u, model.grid_bits, p), 20, 3)
+    p_ms, w = cuda_ms(lambda: nm.march_plain(o, d, u, model.grid_bits, p), 3)
+    n = int(w.stats[1])
+    same = all(torch.equal(getattr(m, f), getattr(w, f))
+               for f in ("counts", "offsets", "stats")) and all(
+        torch.equal(getattr(m, f)[:n], getattr(w, f)[:n])
+        for f in ("ray_idx", "pos", "ts"))
+    sh_err = float((m.sh[:n] - w.sh[:n]).abs().max())
+    check(same and sh_err <= 1e-7 and 0 < int(w.stats[0]) < TRAIN_RAYS,
+          f"ngp_march differs from march_plain (sh {sh_err})")
+    occupied = float(model.grid_bits.double().mean())
+    row("ngp_march", "ngp_march.cu", k_ms, p_ms,
+        TRAIN_RAYS * 36 + n * 84, 0.0, sh_err, "bit-equal; sh 1e-7",
+        rays_kept=int(w.stats[0]), samples=n, occupied_share=occupied)
+    # the encoding at the marched samples, forward and atomic backward
+    tables, n_valid = list(model.tables), m.stats[1:]
+    x = m.pos
+    k_ms, got = cuda_ms(lambda: hg.hash_encode(x, tables, model.levels,
+                                               n_valid), 20, 3)
+    p_ms, want = cuda_ms(lambda: hg.hash_encode_plain(
+        x, tables, model.levels, n_valid), 3)
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, atol=NGP_HASH_TOL, rtol=NGP_HASH_TOL),
+          f"hash_encode differs from hash_encode_plain ({err})")
+    flop = 8 * (2 + 2 * 2) * L * p.budget
+    row("hash_encode_fwd", "hash_grid.cu", k_ms, p_ms,
+        p.budget * (12 + 8 * L), flop, err, NGP_HASH_TOL, points=p.budget)
+    gout = torch.randn(got.shape, generator=torch.Generator(
+        device).manual_seed(4), device=device)
+    feat = hg.hash_encode(x, tables, model.levels, n_valid)
+    k_ms, gk = cuda_ms(lambda: torch.autograd.grad(
+        feat, tables, gout, retain_graph=True), 20, 3)
+    plain = hg.hash_encode_plain(x, tables, model.levels, n_valid)
+    p_ms, gp = cuda_ms(lambda: torch.autograd.grad(
+        plain, tables, gout, retain_graph=True), 3)
+    err = max(float((a - b).norm() / b.norm().clamp(min=1e-30))
+              for a, b in zip(gk, gp))
+    check(err <= NGP_HASH_TOL, f"hash_encode's backward differs from "
+          f"hash_encode_plain's ({err}; the atomics' order)")
+    row("hash_encode_bwd", "hash_grid.cu", k_ms, p_ms,
+        p.budget * (12 + 8 * L), flop, err, f"{NGP_HASH_TOL} rel L2 a table",
+        points=p.budget)
+    # the compositing of the marched samples, forward and backward
+    g = torch.Generator(device).manual_seed(5)
+    sigma = (torch.rand(p.budget, generator=g, device=device) * 200.0
+             ).requires_grad_(True)
+    rgb = torch.rand((p.budget, 3), generator=g, device=device
+                     ).requires_grad_(True)
+    k_ms, out = cuda_ms(lambda: nm.composite_fwd(sigma, rgb, m.counts,
+                                                 m.offsets, p)[0], 20, 3)
+    p_ms, ref = cuda_ms(lambda: nm.composite_plain(sigma, rgb, m.counts,
+                                                   m.offsets, p)[0], 3)
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, atol=NGP_COMPOSITE_TOL["atol"],
+                         rtol=NGP_COMPOSITE_TOL["rtol"]),
+          f"composite_fwd differs from composite_plain ({err})")
+    row("ngp_composite_fwd", "ngp_march.cu", k_ms, p_ms,
+        p.budget * 16 + TRAIN_RAYS * 20, 0.0, err,
+        {k: NGP_COMPOSITE_TOL[k] for k in ("atol", "rtol")})
+    g3 = torch.randn((TRAIN_RAYS, 3), generator=g, device=device)
+    k_ms, gk = cuda_ms(lambda: nm.composite_bwd(
+        sigma.detach(), rgb.detach(), m.counts, m.offsets, p, out, g3), 20, 3)
+    p_ms, gp = cuda_ms(lambda: torch.autograd.grad(
+        ref, (sigma, rgb), g3, retain_graph=True), 1)
+    err = max(float((a - b).norm() / b.norm()) for a, b in zip(gk, gp))
+    check(err <= NGP_COMPOSITE_TOL["bwd_rel_l2"],
+          f"composite_bwd differs from composite_plain's backward ({err})")
+    row("ngp_composite_bwd", "ngp_march.cu", k_ms, p_ms,
+        p.budget * 32 + TRAIN_RAYS * 32, 0.0, err,
+        f"{NGP_COMPOSITE_TOL['bwd_rel_l2']} rel L2")
+    return rows
+
+
+def ngp_phase(work: str, device) -> tuple:
+    """The NGP kernel rows, then the launches of ``driver.main_worker`` on
+    the NGP config: (rows with ``launches``, stats)."""
+    from nerf_pytorch_paeng_tpu_torch import driver
+    from nerf_pytorch_paeng_tpu_torch.config import load_config
+    from nerf_pytorch_paeng_tpu_torch.models.ngp import GRID_CHUNK, GRID_EVERY
+    from nerf_pytorch_paeng_tpu_torch.utils.synth import \
+        save_as_blender_dataset
+
+    rows = ngp_kernel_rows(device)
+    root = os.path.join(work, "ngp_synth")
+    save_as_blender_dataset(root, n_train=4, n_val=1, n_test=1,
+                            H=NGP_SCENE_HW, W=NGP_SCENE_HW,
+                            camera_angle_x=LEGO_CAMERA_ANGLE_X)
+    steps = NGP_CHUNKS * CHUNK
+    cfg = load_config([
+        "--config", os.path.join(HERE, "nerf_pytorch_paeng_tpu_torch",
+                                 "configs", "blender_lego_ngp.txt"),
+        "--data_root", root, "--log_dir", os.path.join(work, "ngp_logs"),
+        "--iter_N", str(steps), "--scan_chunk", str(CHUNK),
+        "--idx_print", "0", "--idx_vis", "0", "--idx_test", "0",
+        "--idx_render", "0", "--idx_save", "0"])
+    counters = ngp_launch_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    res = driver.main_worker(cfg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    updates = (steps - 1) // GRID_EVERY
+    per_update = -(-int(cfg.ngp_grid_res) ** 3 // GRID_CHUNK)
+    want = {k: steps for k in counters}
+    want["hash_encode_fwd"] = steps + updates * per_update
+    check(launches == want, f"NGP training launches {launches}, "
+          f"expected {want}")
+    losses = res["loss"]
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          "non-finite NGP training losses")
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+    stats = {"steps": steps, "chunks": res.get("chunks"),
+             "grid_updates": updates, "wall_s": wall,
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "launches": launches}
+    log(f"ngp: {steps} steps through driver.main_worker in {wall:.1f} s, "
+        f"launches {launches}")
+    return rows, stats
 
 
 def slice_phase(fm, work: str, data_root: str, device):
@@ -4376,8 +4584,10 @@ def main() -> int:
         t_lap[0] = now
         log(f"phase {name}: {laps[name]:.1f} s")
 
+    if sys.argv[1:2] == ["--ngp"]:
+        return ngp_main(device, card)
     t0 = time.perf_counter()
-    sources = ("fused_mlp", "fused_mlp_vjp")
+    sources = ("fused_mlp", "fused_mlp_vjp", "hash_grid", "ngp_march")
     libs = build.build_all(sources)
     log(f"build: {', '.join(s + '.cu' for s in sources)} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
@@ -4463,6 +4673,8 @@ def main() -> int:
             " s (budget 120 s)")
         phase0_launches, phase0_stats = phase0_phase(fm, fields, device)
         lap("phase0")
+        ngp_rows, ngp_stats = ngp_phase(work, device)
+        lap("ngp")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # each path's own run, counters at 0 before it: K3 and K1 on the eval
@@ -4571,12 +4783,39 @@ def main() -> int:
     log(json.dumps({"distilled": distilled_stats}))
     log(json.dumps({"dryrun": dryrun_stats}))
     log(json.dumps({"phase0": phase0_stats}))
+    log(json.dumps({"ngp": ngp_stats}))
     log(json.dumps({"phase_s": laps}))
+    rows.update(ngp_rows)           # their launches from the NGP path
     log(json.dumps({"kernels": list(rows.values())}))
     if FAILED_GATES:
         log(json.dumps({"failed_gates": FAILED_GATES}))
         log(card)
         return 1
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def ngp_main(device, card: str) -> int:
+    """``--ngp``: the NGP kernels' build and phase alone."""
+    from nerf_pytorch_paeng_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+    sources = ("hash_grid", "ngp_march")
+    libs = build.build_all(sources)
+    log(f"build: {', '.join(s + '.cu' for s in sources)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for src, lib in zip(sources, libs):
+        for kernel, line in ptxas_lines(lib.with_suffix(".log").read_text()):
+            log(f"  ptxas {src} {kernel}: {line}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        rows, stats = ngp_phase(work, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({"ngp": stats}))
+    log(json.dumps({"kernels": list(rows.values())}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,10 @@ extrinsics plots (``utils/visualize.py``, Pillow), the blob-field
 distillation that stands in for a trained field
 (``utils/synth.fit_field_to_blob``, through the points kernels) and the
 multi-rank dry run (``python -m nerf_pytorch_paeng_tpu_torch.dryrun N``).
+A second architecture, Instant-NGP's NeRF (``arch = ngp``,
+``models/ngp.py``), trains and renders on its own hash-grid, marching and
+compositing kernels (``kernels/csrc/hash_grid.cu``, ``ngp_march.cu``);
+the JAX package has no counterpart.
 """
 from .config import NerfConfig, config_from_file, load_config
 

@@ -4,9 +4,11 @@ Own copy of the JAX package's parser (``nerf_pytorch_paeng_tpu/config.py``):
 the same dialect (inline ``#`` comments, bare action flags such as
 ``bkg_white_true``, bracketed lists) and every option of the JAX package's
 ``NerfConfig`` under the same name, with the same default and parsing, so
-one config file or command line drives both packages.  It adds one knob,
-``device``.  ``use_pallas`` means "run the hand-written CUDA kernels where
-the architecture allows" (off: the plain-MLP route, ``ops/render.py``).
+one config file or command line drives both packages.  It adds the knob
+``device`` and the architecture's keys (``arch`` and the ``ngp_*`` keys of
+Instant-NGP; ``PORT_ONLY`` names them all).  ``use_pallas`` means "run
+the hand-written CUDA kernels where the architecture allows" (off: the
+plain-MLP route, ``ops/render.py``).
 The mesh knobs lay the launch's ranks out as ``n_data`` x ``n_model``
 (``parallel.check_data_shards``: the product must be the world size);
 ``sp_shards > 1`` needs ``n_model_shards == sp_shards`` and sample counts
@@ -29,7 +31,9 @@ The JAX package's four run knobs, as the port reads them:
   the frame renderers' ``nerf/frame``, ``nerf/frame.phase0``,
   ``nerf/frame.read_hits``, ``nerf/frame.phase1``, ``nerf/frame.read``,
   ``nerf/frame.phase2``, the render loop's ``nerf/pipeline.issue`` and
-  ``nerf/pipeline.drain``, and the set-up spans (``nerf/`` and
+  ``nerf/pipeline.drain``, Instant-NGP's ``nerf/ngp.march``,
+  ``nerf/ngp.encode``, ``nerf/ngp.mlp``, ``nerf/ngp.composite`` and
+  ``nerf/ngp.grid_update``, and the set-up spans (``nerf/`` and
   ``setup.kernels``, ``setup.pack``, ``setup.support_grid``,
   ``setup.pool``, ``setup.state``, ``chunk.capture``, ``data.load``,
   ``checkpoint.save``).
@@ -193,6 +197,19 @@ class NerfConfig:
     # ====== Port only: where tensors live ("cuda", "cuda:N" or "cpu")
     device: str = "cuda"
 
+    # ====== Port only: the architecture.  "nerf" the coarse and fine MLPs
+    # above; "ngp" Instant-NGP's NeRF (models/ngp.py, whose constants hold
+    # the rest of its published settings): a multiresolution hash encoding
+    # of ngp_levels levels (tables of 2^ngp_log2_table entries), points
+    # kept where the ngp_grid_res^3 occupancy grid says, at most ngp_budget
+    # samples a step.  The sizes the tests shrink; NGP trains on the
+    # global ray pool, in one process.
+    arch: str = "nerf"
+    ngp_levels: int = 16
+    ngp_log2_table: int = 19
+    ngp_budget: int = 262144
+    ngp_grid_res: int = 128
+
     @property
     def logdir(self) -> str:
         return self.log_dir or LOG_DIR
@@ -222,6 +239,10 @@ class NerfConfig:
         for name, ok in checks:
             if not ok:
                 raise ValueError(f"invalid {name}={getattr(self, name)!r}")
+        if self.arch not in ("nerf", "ngp"):
+            raise ValueError(f"invalid arch={self.arch!r}")
+        if self.arch == "ngp":
+            self._validate_ngp()
         n_sp = int(self.sp_shards)
         if n_sp > 1:
             # the JAX package's sample-sharded frame renderer's asserts
@@ -241,6 +262,27 @@ class NerfConfig:
                     f" = {self.N_samples_c + self.N_samples_f}")
         return self
 
+    def _validate_ngp(self) -> None:
+        """The NGP keys: what the hash and marching kernels take."""
+        checks = (
+            ("ngp_levels", 1 <= self.ngp_levels <= 16),
+            ("ngp_log2_table", 4 <= self.ngp_log2_table <= 24),
+            ("ngp_budget", 1 <= self.ngp_budget < 2 ** 31),
+            ("ngp_grid_res", 1 <= self.ngp_grid_res <= 1024),
+            ("global_batch", self.global_batch),
+            ("n_model_shards", self.n_model_shards == 1),
+            ("sp_shards", self.sp_shards <= 1),
+            ("data_type", self.data_type == "blender"),
+        )
+        for name, ok in checks:
+            if not ok:
+                raise ValueError(f"invalid {name}={getattr(self, name)!r} "
+                                 "for arch ngp")
+
+
+# the port's own fields: the JAX package's NerfConfig has none of them
+PORT_ONLY = tuple(f.name for f in dataclasses.fields(NerfConfig)
+                  if f.name in ("device", "arch") or f.name.startswith("ngp_"))
 
 _FIELDS = {f.name: f for f in dataclasses.fields(NerfConfig)}
 

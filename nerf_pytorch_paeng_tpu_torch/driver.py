@@ -13,7 +13,9 @@ training (``train_precull``) with its refresh policy; a run from step 0
 draws the training cameras into ``logs/<exp>/_ext_vis/`` first
 (``utils/visualize.py``).  Checkpoints are the
 reference format, ``logs/<exp>/<exp>_<step>.pth.tar``
-(``train/checkpoint.py``).  With ``eval_only`` and/or ``render_only`` it
+(``train/checkpoint.py``).  ``arch`` "ngp" trains and renders
+Instant-NGP (``models/ngp.py``) on the same loop, with its occupancy
+grid's update between chunks.  With ``eval_only`` and/or ``render_only`` it
 restores the weights saved at ``testing_idx``, packs them once for the
 fused kernels (on the plain route hands the renderers the modules) and
 runs the held-out-view evaluation and/or the novel-view render.  It prints
@@ -59,6 +61,7 @@ from .eval.test import run_test
 from .kernels import build
 from .kernels.fused_mlp import pack_nerf
 from .models.nerf import NeRF
+from .models.ngp import NGP, grid_update_due, next_grid_update
 from .ops.rays import get_rays
 from .ops.render import plain_route_reason
 from .train import RayPool, build_ray_pool, create_train_state
@@ -71,6 +74,7 @@ from .train.precull import (make_gate_frac_estimator,
 from .train.chunk import (PROFILE_START, PROFILE_STOP, ChunkSchedule,
                           StagedSteps, chunk_off_reason)
 from .train.schedule import schedule_from_cfg
+from .train.step import ngp_grid_update
 from .utils.logging import MetricLogger
 from .utils.spans import setup_span, setup_table, span
 from .utils.visualize import visualize_extrinsics
@@ -116,13 +120,27 @@ def _llff_render_poses_34(render_poses):
     return render_poses[:, :3, :4]
 
 
-def load_model(cfg: NerfConfig, step: int, device) -> NeRF:
-    model = NeRF(depth=cfg.netDepth, width=cfg.netWidth, L_x=cfg.L_x,
-                 L_d=cfg.L_d)
+def load_model(cfg: NerfConfig, step: int, device):
+    """The ``NeRF`` (or, for ``arch`` "ngp", the ``NGP`` with its
+    occupancy grid) saved at ``step``, on ``device``."""
+    if cfg.arch == "ngp":
+        model = NGP(cfg)
+    else:
+        model = NeRF(depth=cfg.netDepth, width=cfg.netWidth, L_x=cfg.L_x,
+                     L_d=cfg.L_d)
     state = torch.load(checkpoint_path(cfg, step), map_location="cpu",
                        weights_only=True)
     model.load_state_dict(state["model_state_dict"])
     return model.to(device).eval()
+
+
+def frame_weights(model, cfg: NerfConfig, device):
+    """What the frame renderers take: NeRF's weights packed for the
+    kernels (``pack_nerf``, gathered to full width first), or the NGP
+    model itself."""
+    if cfg.arch == "ngp":
+        return model
+    return pack_nerf(full_model(model), cfg, device=device)
 
 
 class _StepClock:
@@ -299,7 +317,14 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
     first bad step; ``profile`` traces steps ``iter_start + 10 .. + 14``.
     Under a gloo process group, an NCCL group of more than one rank or
     ``n_model_shards > 1`` chunks have length 1
-    (``chunk.chunk_off_reason``)."""
+    (``chunk.chunk_off_reason``).
+
+    Instant-NGP (``cfg.arch == "ngp"``, one process, the global pool):
+    the occupancy grid is updated before every iteration that
+    ``models/ngp.grid_update_due`` names (every ``GRID_EVERY`` steps
+    from that step on), and a chunk ends before the next such update, so
+    that with ``scan_chunk`` 16 and an update every 16 steps every update
+    falls between chunks; no gated training."""
     i_train, _, i_test = i_split
     H, W = hw
     state = create_train_state(cfg, device)
@@ -334,12 +359,15 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
 
     policy = None
     world = parallel.world_size()
-    if train_precull_active(cfg, world):
+    ngp = cfg.arch == "ngp"
+    if ngp and world > 1:
+        raise ValueError("Instant-NGP trains in one process")
+    if not ngp and train_precull_active(cfg, world):
         policy = _SupportPolicy(cfg, K, extrinsics, hw, i_train, device,
                                 n_est=cfg.N_rays // world)
         print0(f">> train_precull on (refresh every "
                f"{cfg.train_precull_every} iters)")
-    elif train_precull_mode(cfg) == "on":
+    elif not ngp and train_precull_mode(cfg) == "on":
         print0(">> train_precull requested but inapplicable here (needs "
                "blender data, the ray-major kernel pair (the kernels' domain, "
                "use_rays_train and its shapes at the per-rank ray count, "
@@ -388,6 +416,8 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
     i = first
     try:
         while i <= cfg.iter_N:
+            if ngp and grid_update_due(i):
+                ngp_grid_update(state.model, cfg, i - 1)
             if policy is not None and i >= next_refresh:
                 support = policy.refresh(state.model, i)
                 steps.set_support(support)
@@ -404,7 +434,9 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
                 elif i == cfg.iter_start + PROFILE_STOP:
                     profiler.stop(i)
             if cfg.global_batch:
+                # a chunk ends before the next refresh or grid update
                 k = chunks.length(i, ray_pool.i_batch, len(ray_pool.pool),
+                                  next_grid_update(i) if ngp else
                                   next_refresh if policy else None)
                 items = [ray_pool.next_start(cfg.N_rays) for _ in range(k)]
             else:
@@ -441,14 +473,12 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
                 path = ckpt.save_checkpoint(cfg.logdir, cfg.exp_name, state)
                 print0(f">> checkpoint saved: {path}")
             if test_on and last % cfg.idx_test == 0:
-                run_test(last, pack_nerf(full_model(state.model), cfg,
-                                         device=device),
+                run_test(last, frame_weights(state.model, cfg, device),
                          images[i_test], extrinsics[i_test], K, hw, cfg,
                          device)
             if render_on and last % cfg.idx_render == 0:
-                run_render(last, pack_nerf(full_model(state.model), cfg,
-                                           device=device), K, hw, cfg,
-                           device, render_poses=render_poses)
+                run_render(last, frame_weights(state.model, cfg, device), K,
+                           hw, cfg, device, render_poses=render_poses)
             i += k
     finally:
         if profiler is not None:
@@ -521,14 +551,19 @@ def _run(cfg: NerfConfig, device: torch.device) -> dict:
     render_poses = _llff_render_poses_34(render_poses)
     print0(f">> dataset loaded: images {images.shape}, hw {hw}, "
            f"train/val/test {'/'.join(str(len(i)) for i in i_split)}")
-    reason = plain_route_reason(
-        cfg, train=not (cfg.eval_only or cfg.render_only))
-    print0(f">> field route: {'fused kernels' if reason is None else 'plain'}"
-           + (f" ({reason})" if reason else ""))
+    if cfg.arch == "ngp":
+        print0(">> field route: Instant-NGP (hash grid, marcher and "
+               "compositing kernels)")
+    else:
+        reason = plain_route_reason(
+            cfg, train=not (cfg.eval_only or cfg.render_only))
+        print0(f">> field route: "
+               f"{'fused kernels' if reason is None else 'plain'}"
+               + (f" ({reason})" if reason else ""))
     if cfg.eval_only or cfg.render_only:
         i_test = i_split[2]
         model = load_model(cfg, cfg.testing_idx, device)
-        packed = pack_nerf(model, cfg, device=device)
+        packed = frame_weights(model, cfg, device)
         res = {}
         if cfg.eval_only:
             res = run_test(cfg.testing_idx, packed, images[i_test],

@@ -134,6 +134,7 @@ import torch
 from .. import parallel
 from ..kernels.fused_mlp import (fused_mlp_eval, fused_mlp_eval_rays,
                                  fused_mlp_sigma, fused_mlp_sigma_rays)
+from ..ops.ngp import make_ngp_frame_renderer
 from ..ops.occupancy import (ray_hits_bounds, segment_in_cube,
                              support_bounds_from_sigma)
 from ..ops.rays import get_rays
@@ -174,7 +175,11 @@ def make_frame_renderer(cfg, H: int, W: int, K, device,
     ``cfg.chunk_rays``, else min(131072, H*W).  ``render.route`` says
     whether the frame runs the ray kernels ("rays": K3/K4, K1/K5), the
     plane layout ("planes": K7 for the coarse density, K8) or the plain
-    MLP ("plain"); ``render.rays_route`` is ``route == "rays"``."""
+    MLP ("plain"); ``render.rays_route`` is ``route == "rays"``.  For
+    ``cfg.arch == "ngp"`` the renderer is ``ops/ngp.make_ngp_frame_renderer``
+    (route "ngp"), called with the ``NGP`` model."""
+    if cfg.arch == "ngp":
+        return make_ngp_frame_renderer(cfg, H, W, K, device, block_rays)
     device = torch.device(device)
     block = int(block_rays or cfg.chunk_rays or min(DEFAULT_BLOCK, H * W))
     if int(cfg.sp_shards) > 1:

@@ -1,18 +1,27 @@
-from . import fused_mlp_vjp
+from . import fused_mlp_vjp, hash_grid, ngp_march
 from .fused_mlp import (fused_mlp_eval, fused_mlp_eval_rays,
                         fused_mlp_eval_rays_plain, fused_mlp_sigma,
                         fused_mlp_sigma_rays, fused_mlp_sigma_rays_plain,
                         pack_nerf, pack_nerf_mlp_params)
 
 # every wrapper's launch counter, (wrapper, attribute): the rays wrappers
-# count their gated launches (K4, K5, K6) apart
+# count their gated launches (K4, K5, K6) apart.  New counters are
+# appended: readers take positions (k1_roofline.train reads 2 and 3)
 LAUNCH_COUNTERS = (
     (fused_mlp_sigma_rays, "launches"), (fused_mlp_sigma_rays, "gated_launches"),
     (fused_mlp_eval_rays, "launches"), (fused_mlp_eval_rays, "gated_launches"),
     (fused_mlp_sigma, "launches"), (fused_mlp_eval, "launches"),
     (fused_mlp_vjp.fused_mlp_bwd_rays, "launches"),
     (fused_mlp_vjp.fused_mlp_bwd_rays, "gated_launches"),
-    (fused_mlp_vjp.fused_mlp_bwd, "launches"))
+    (fused_mlp_vjp.fused_mlp_bwd, "launches"),
+    # Instant-NGP's kernels, appended: the hash encoding's launches and
+    # points encoded, forward and backward; the marcher (count, scan and
+    # compact a launch); the compositing forward and backward
+    (hash_grid.hash_encode, "launches"), (hash_grid.hash_encode, "points"),
+    (hash_grid.hash_encode_bwd, "launches"),
+    (hash_grid.hash_encode_bwd, "points"),
+    (ngp_march.march, "launches"), (ngp_march.composite_fwd, "launches"),
+    (ngp_march.composite_bwd, "launches"))
 
 
 def launch_counts() -> tuple:

@@ -49,8 +49,9 @@ import torch
 from .. import kernels
 from ..utils.spans import setup_span, span
 from .state import TrainState
-from .step import (_rank_slice, batch_draws, image_draws,
-                   make_image_train_body, make_train_body, scheduled_update)
+from .step import (NGPCounters, _rank_slice, batch_draws, image_draws,
+                   make_image_train_body, make_ngp_train_body,
+                   make_train_body, ngp_draws, scheduled_update)
 
 # the profiler window, in steps after iter_start (JAX driver.py:378-386)
 PROFILE_START, PROFILE_STOP = 10, 15
@@ -159,7 +160,10 @@ class StagedSteps:
     """The train steps of one run, staged (see the module docstring).
 
     Global batch: ``pool`` (``train/batching.RayPool``); a step's input is
-    its batch's offset in the pool (``pool.next_start``).  Per image:
+    its batch's offset in the pool (``pool.next_start``).  Instant-NGP
+    (``cfg.arch == "ngp"``) takes the pool alone, with one uniform a ray
+    (``train/step.ngp_draws``) and ``make_ngp_train_body``, whose counts
+    accumulate in ``counters`` (``train/step.NGPCounters``).  Per image:
     ``images`` [T, H, W, 3] and ``poses`` [T, 3, 4] on the device; a
     step's input is its image's index there.  ``graphs``: capture and
     replay full-length chunks (the card only).  ``keys`` name the metric
@@ -178,9 +182,14 @@ class StagedSteps:
             n = int(cfg.N_rays)
             lo, hi, _, _ = _rank_slice(n)
             dev = self.device
+            self.ngp = cfg.arch == "ngp"
+            if self.ngp and pool is None:
+                raise ValueError("Instant-NGP trains on the global ray pool")
+            self.counters = NGPCounters(dev) if self.ngp else None
             if pool is not None:
-                self.body = make_train_body(cfg, H, W,
-                                            float(np.asarray(K)[0, 0]))
+                self.body = (make_ngp_train_body(cfg, self.counters)
+                             if self.ngp else make_train_body(
+                                 cfg, H, W, float(np.asarray(K)[0, 0])))
                 self.rays = [torch.empty((n, 3), device=dev)
                              for _ in range(3)]
             else:
@@ -188,14 +197,15 @@ class StagedSteps:
                 self.coords = torch.empty((n, 2), dtype=torch.long,
                                           device=dev)
                 self.index = torch.zeros(1, dtype=torch.long, device=dev)
-            self.u_c = torch.empty((hi - lo, cfg.N_samples_c), device=dev)
+            self.u_c = torch.empty(
+                (n,) if self.ngp else (hi - lo, cfg.N_samples_c), device=dev)
             self.u_f = (torch.empty((hi - lo, cfg.N_samples_f), device=dev)
                         if cfg.N_samples_f > 0 and float(cfg.perturb) != 0.0
-                        else None)
+                        and not self.ngp else None)
             fine = ("loss_f", "psnr_f") if cfg.N_samples_f > 0 else ()
-            self.keys = ("loss_c", "psnr_c", *fine, "loss", "psnr",
-                         "gate_frac", *(("finite",) if cfg.check_nans
-                                        else ()))
+            losses = () if self.ngp else ("loss_c", "psnr_c", *fine)
+            self.keys = (*losses, "loss", "psnr", "gate_frac",
+                         *(("finite",) if cfg.check_nans else ()))
             self.out = torch.zeros(len(self.keys), device=dev)
             self.nan = torch.full((), math.nan, device=dev)
             self.support = None      # static copies of the live bounds
@@ -222,7 +232,9 @@ class StagedSteps:
         buffers (its learning rate is ``train/step.scheduled_update``'s)."""
         cfg, step, dev = self.cfg, self.state.step, self.device
         if self.pool is not None:
-            u_c, u_f = batch_draws(cfg, step, int(cfg.N_rays), dev)
+            u_c, u_f = ((ngp_draws(cfg, step, int(cfg.N_rays), dev), None)
+                        if self.ngp else
+                        batch_draws(cfg, step, int(cfg.N_rays), dev))
             batch = self.pool.pool[item:item + int(cfg.N_rays)]
             for k, slot in enumerate(self.rays):
                 slot.copy_(batch[:, k])

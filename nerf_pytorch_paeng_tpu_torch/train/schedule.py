@@ -39,9 +39,27 @@ def cosine_annealing_warmup_restarts(step: int, first_cycle_steps: int,
         math.pi * (sic - warmup_steps) / (cycle_len - warmup_steps))) / 2.0
 
 
+def ngp_step_decay(step: int, lr: float, start: int, every: int,
+                   decay: float) -> float:
+    """Instant-NGP's schedule: ``lr``, times ``decay`` at ``start`` and
+    every ``every`` steps after it."""
+    if step < start:
+        return lr
+    return lr * decay ** ((step - start) // every + 1)
+
+
 def schedule_from_cfg(cfg) -> Callable[[int], float]:
     """The reference driver's instance: one cycle of ``iter_N + 1`` steps,
-    warmup ``iter_warmup``, peak ``lr``, floor ``lr_min``."""
+    warmup ``iter_warmup``, peak ``lr``, floor ``lr_min``; for Instant-NGP
+    (``arch`` "ngp") ``ngp_step_decay``."""
+    if cfg.arch == "ngp":
+        from ..models.ngp import LR_DECAY, LR_DECAY_EVERY, LR_DECAY_START
+
+        def ngp_schedule(step: int) -> float:
+            return ngp_step_decay(step, cfg.lr, LR_DECAY_START,
+                                  LR_DECAY_EVERY, LR_DECAY)
+        return ngp_schedule
+
     def schedule(step: int) -> float:
         return cosine_annealing_warmup_restarts(
             step, cfg.iter_N + 1, cfg.iter_warmup, cfg.lr, cfg.lr_min)

@@ -55,6 +55,12 @@ Both steps take ``support=`` (coarse bounds, fine bounds) from
 ``train/precull.make_train_support_program``, or None: with bounds each
 pass is occupancy-gated (K5, K6) and the metrics gain ``gate_frac``; the
 loss is the ungated one bit for bit.
+
+Instant-NGP (``cfg.arch == "ngp"``, ``models/ngp.py``) has a step kind of
+its own on the global batch, one process: ``ngp_draws`` (one uniform a
+ray, from the step's generator) and ``make_ngp_train_body`` (march,
+encode, both MLPs, composite, the MSE over the kept rays, backward, Adam),
+which adds the step's counts to an ``NGPCounters`` on the device.
 """
 from __future__ import annotations
 
@@ -65,10 +71,14 @@ import numpy as np
 import torch
 
 from .. import parallel
+from ..kernels.ngp_march import MarchParams
+from ..models.ngp import update_occupancy_grid
+from ..ops.ngp import ngp_loss, render_rays_ngp
 from ..ops.rays import gather_rays, get_rays, sample_pixels
 from ..ops.render import (make_plain_field_fns, make_train_field_fns,
                           maybe_ndc, plain_route_reason, render_rays_from_cfg,
                           render_rays_train, supports_train_rays_kernels)
+from ..utils.spans import span
 from .state import TrainState, set_lr
 
 _U64 = (1 << 64) - 1
@@ -368,3 +378,66 @@ def make_image_train_step(cfg, schedule: Callable[[int], float], H: int,
         return scheduled_update(state, schedule, lambda: body(
             state, image, pose, coords, u_c, u_f, support))
     return train_step
+
+
+# ------------------------------------------------------------ Instant-NGP
+
+
+class NGPCounters:
+    """The NGP steps' counts, accumulated on the device without a host
+    read: rays drawn, rays kept within the budget, samples kept, and the
+    fewest samples kept in one step since ``reset_min``."""
+
+    def __init__(self, device):
+        self.t = torch.zeros(4, dtype=torch.float64, device=device)
+        self.reset_min()
+
+    def reset_min(self) -> None:
+        self.t[3].fill_(math.inf)
+
+    def add(self, n_rays: int, stats: torch.Tensor) -> None:
+        self.t[0] += n_rays
+        self.t[1:3] += stats.double()
+        torch.minimum(self.t[3:], stats[1:].double(), out=self.t[3:])
+
+
+def ngp_draws(cfg, step: int, n: int, device,
+              u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-ray uniforms [n] of NGP update ``step`` (``step`` completed
+    updates before it), from the step's generator; injected ones are
+    kept."""
+    if u is None:
+        gen = step_generator(cfg.seed + 3, step, device)
+        u = torch.rand((n,), generator=gen, dtype=torch.float32,
+                       device=device)
+    return u
+
+
+def make_ngp_train_body(cfg, counters: Optional[NGPCounters] = None):
+    """The NGP step with its draws injected: ``(state, rays_o, rays_d,
+    target, u, u_f=None, support=None) -> metrics`` (``loss``, ``psnr``),
+    one ``apply_update`` at the optimizer's ``lr``, no host read and no
+    step count; ``u_f`` and ``support`` are NeRF's and unused."""
+    params = MarchParams.from_cfg(cfg)
+
+    def body(state: TrainState, rays_o, rays_d, target, u, u_f=None,
+             support=None):
+        def loss_fn():
+            out = render_rays_ngp(state.model, rays_o, rays_d, u, params)
+            loss = ngp_loss(out, target)
+            if counters is not None:
+                counters.add(rays_o.shape[0], out["stats"])
+            d = loss.detach()
+            return loss, dict(loss=d, psnr=mse2psnr(d))
+        return apply_update(state, loss_fn)
+    return body
+
+
+def ngp_grid_update(model, cfg, step: int) -> None:
+    """The occupancy grid's update after ``step`` completed updates
+    (``models/ngp.update_occupancy_grid``), its draws from a generator
+    seeded from (seed + 5, step); span ``ngp.grid_update``."""
+    with span("ngp.grid_update"):
+        device = model.grid_values.device
+        update_occupancy_grid(model, cfg, step, step_generator(
+            cfg.seed + 5, step, device))

@@ -24,7 +24,10 @@ There is no other switch.
 Span names (see PERF.md, Layers): ``chunk``, ``step.stage``,
 ``step.launch``, ``policy.refresh``, ``pool.reshuffle``, ``frame``,
 ``frame.phase0``, ``frame.read_hits``, ``frame.phase1``, ``frame.read``,
-``frame.phase2``, ``pipeline.issue``, ``pipeline.drain``; set-up:
+``frame.phase2``, ``pipeline.issue``, ``pipeline.drain``; Instant-NGP's
+``ngp.march``, ``ngp.encode``, ``ngp.mlp``, ``ngp.composite`` (inside a
+step; a CUDA graph's replay shows none of them, its kernels are named)
+and ``ngp.grid_update`` (between chunks); set-up:
 ``setup.kernels``, ``setup.pack``, ``setup.support_grid``, ``setup.pool``,
 ``setup.state``, ``chunk.capture``, ``data.load``, ``checkpoint.save``.
 """

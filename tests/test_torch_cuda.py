@@ -1331,3 +1331,164 @@ def test_resume_on_the_card_from_a_non_capturable_checkpoint(dev, tmp_path,
     for i in sa:
         for k in ("exp_avg", "exp_avg_sq", "step"):
             assert torch.equal(sa[i][k], sb[i][k]), (i, k)
+
+
+# ------------------------------------------------------------ Instant-NGP
+#
+# The hash encoding's backward adds each corner's contribution by float32
+# atomics, in an order that changes from launch to launch: its gradients
+# are held to 1e-5 relative L2 of the plain version's (the sums of a few
+# hundred float32 terms in another order), not bit for bit.  The marcher
+# rounds op by op as its plain version does: the same samples exactly.
+
+
+def _ngp_cfg(**kw):
+    return NerfConfig(**{**dict(arch="ngp", compute_dtype="bfloat16",
+                                iter_warmup=0, iter_N=1000, lr=1e-2), **kw})
+
+
+def _orbit_rays(n, seed, dev):
+    """n world rays from cameras at radius 4 towards the blob."""
+    g = torch.Generator().manual_seed(seed)
+    c = torch.randn(n, 3, generator=g)
+    c = 4.0 * c / c.norm(dim=1, keepdim=True)
+    d = -c + 0.9 * torch.randn(n, 3, generator=g)
+    return c.to(dev), d.to(dev)
+
+
+def test_ngp_hash_kernels_match_plain(dev):
+    from nerf_pytorch_paeng_tpu_torch.kernels import hash_grid as hg
+    from nerf_pytorch_paeng_tpu_torch.models.ngp import NGP
+    cfg = _ngp_cfg()
+    model = NGP(cfg).to(dev).reset_parameters(
+        torch.Generator(device=dev).manual_seed(3))
+    with torch.no_grad():                    # features of order 1
+        for t in model.tables:
+            t.mul_(1e4)
+    n = 1 << 18
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand((n, 3), generator=g, device=dev)
+    x[:64] = torch.randint(0, 17, (64, 3), generator=g, device=dev) / 16.0
+    x[64:128] = 1.0
+    # samples along rays, in order: the coarse levels' runs of lanes that
+    # share an entry (the backward adds each run once)
+    o, d = _orbit_rays(64, 12, dev)
+    t = torch.linspace(0.0, 3.0, 256, device=dev)
+    along = (o[:, None, :] + t[None, :, None] * d[:, None, :]) * 0.33 + 0.5
+    x[128:128 + 64 * 256] = along.reshape(-1, 3).clamp(0.0, 1.0)
+    tables = list(model.tables)
+    n_valid = torch.tensor([n - 1000], dtype=torch.int32, device=dev)
+    got = hg.hash_encode(x, tables, model.levels, n_valid)
+    want = hg.hash_encode_plain(x, tables, model.levels, n_valid)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert hg.hash_encode.launches >= 1
+    dout = torch.randn(n, 32, generator=g, device=dev)
+    gk = torch.autograd.grad(got, tables, dout)
+    gp = torch.autograd.grad(want, tables, dout)
+    for a, b in zip(gk, gp):
+        err = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        assert err < 1e-5, err
+
+
+def test_ngp_marcher_kernels_match_plain(dev):
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_march as nm
+    cfg = _ngp_cfg()
+    o, d = _orbit_rays(4096, 5, dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    u = torch.rand(4096, generator=g, device=dev)
+    bits = (torch.rand(128 ** 3, generator=g, device=dev) < 0.3).to(
+        torch.uint8)
+    p = nm.MarchParams.from_cfg(cfg)
+    got, want = nm.march(o, d, u, bits, p), nm.march_plain(o, d, u, bits, p)
+    for name in ("counts", "offsets", "stats"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    n = int(want.stats[1])
+    assert 0 < int(want.stats[0]) < 4096 and n <= p.budget
+    assert torch.equal(got.ray_idx[:n], want.ray_idx[:n])
+    assert torch.equal(got.pos[:n], want.pos[:n])
+    assert torch.equal(got.ts[:n], want.ts[:n])
+    torch.testing.assert_close(got.sh[:n], want.sh[:n], atol=1e-7, rtol=0)
+
+
+def test_ngp_composite_kernels_match_plain(dev):
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_march as nm
+    from nerf_pytorch_paeng_tpu_torch.ops.ngp import composite
+    cfg = _ngp_cfg()
+    o, d = _orbit_rays(4096, 7, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    bits = (torch.rand(128 ** 3, generator=g, device=dev) < 0.5).to(
+        torch.uint8)
+    p = nm.MarchParams.from_cfg(cfg)
+    m = nm.march(o, d, torch.rand(4096, generator=g, device=dev), bits, p)
+    sigma = (torch.rand(p.budget, generator=g, device=dev) * 200.0
+             ).requires_grad_(True)
+    rgb = torch.rand((p.budget, 3), generator=g, device=dev
+                     ).requires_grad_(True)
+    got = composite(sigma, rgb, m.counts, m.offsets, p)
+    want = nm.composite_plain(sigma, rgb, m.counts, m.offsets, p)[0]
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+    gout = torch.randn(4096, 3, generator=g, device=dev)
+    gk = torch.autograd.grad(got, (sigma, rgb), gout)
+    gp = torch.autograd.grad(want, (sigma, rgb), gout)
+    for a, b in zip(gk, gp):
+        err = float((a - b).norm() / b.norm())
+        assert err < 1e-4, err
+
+
+def test_ngp_grid_update_and_marcher_match_the_reference(dev):
+    """At the published sizes, on a grid after an update of every cell
+    (a field whose density spans many decades, so that it is partly
+    empty): one update of half the cells against the reference's from the
+    same state and draws, and the step's marcher on the grid it leaves
+    against the reference's lattice, within the benchmark's limits
+    (``port_bench/arch/ngp.GRID_CHECK_LIMITS``): the marcher's kept rays
+    and samples exactly."""
+    from nerf_pytorch_paeng_tpu_torch.models.ngp import (
+        GRID_WARMUP, init_ngp, update_occupancy_grid)
+    from port_bench.arch import ngp as arch_ngp
+    cfg = _ngp_cfg()
+    model = init_ngp(cfg, dev, seed=1)
+    g = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        for t in model.tables:
+            t.copy_(torch.randn(t.shape, generator=g, device=dev) * 2.0)
+        model.sigma_w1[0].mul_(5.0)
+    update_occupancy_grid(model, cfg, 0,
+                          torch.Generator(device=dev).manual_seed(3))
+    occupied = float(model.grid_bits.double().mean())
+    assert 0.05 < occupied < 0.95, occupied
+    o, d = _orbit_rays(4096, 11, dev)
+    rays = torch.stack([o, d, torch.zeros_like(o)], 1)
+    r = arch_ngp.grid_march_readings(model, cfg, rays, GRID_WARMUP)
+    assert r["march_kept_mismatch"] == r["march_samples_gap"] == 0, r
+    arch_ngp.hold_grid_check(r)
+
+
+def test_ngp_captured_steps_equal_eager_steps(dev):
+    """A chunk of 16 NGP steps replayed from a CUDA graph (after its two
+    eager steps) against 16 eager steps from the same state: the same
+    losses within the atomics' tolerance."""
+    from nerf_pytorch_paeng_tpu_torch.models.ngp import init_ngp
+    from nerf_pytorch_paeng_tpu_torch.train.batching import RayPool
+    from nerf_pytorch_paeng_tpu_torch.train.chunk import StagedSteps
+    from nerf_pytorch_paeng_tpu_torch.train.schedule import schedule_from_cfg
+    from nerf_pytorch_paeng_tpu_torch.train.state import (TrainState,
+                                                          make_optimizer)
+    cfg = _ngp_cfg(N_rays=4096)
+    o, d = _orbit_rays(1 << 16, 9, dev)
+    pool = torch.stack([o, d, torch.rand_like(o)], 1)
+    losses, counts = [], []
+    for graphs in (False, True):
+        model = init_ngp(cfg, dev, seed=1)
+        st = TrainState(model, make_optimizer(model, cfg), 0)
+        steps = StagedSteps(cfg, st, schedule_from_cfg(cfg), dev, 8, 8,
+                            np.eye(3), pool=RayPool(pool.clone(), None),
+                            graphs=graphs)
+        slab = steps.run([4096 * k for k in range(16)], replay=graphs)
+        losses.append(slab[:, steps.keys.index("loss")].cpu())
+        counts.append(steps.counters.t.cpu())
+        assert steps.replays == (14 if graphs else 0)
+        steps.close()
+    torch.testing.assert_close(losses[1], losses[0], rtol=2e-3, atol=0)
+    torch.testing.assert_close(counts[1][:3], counts[0][:3], rtol=1e-2,
+                               atol=0)

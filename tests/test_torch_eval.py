@@ -106,7 +106,8 @@ def test_lpips_is_gated_not_faked():
 def test_config_parity(path):
     ours = port_config.config_from_file(path)
     theirs = jax_config(path)
-    got = {k: v for k, v in vars(ours).items() if k != "device"}
+    got = {k: v for k, v in vars(ours).items()
+           if k not in port_config.PORT_ONLY}
     want = {k: getattr(theirs, k) for k in got}
     assert got == want
     assert ours.device == "cuda"

@@ -199,14 +199,19 @@ def test_coarse_only_frame_renders_through_the_plane_kernel(scene):
 
 def test_config_knobs_are_the_jax_packages():
     """The port's NerfConfig has every field of the JAX package's, with its
-    default, and one more, ``device``; the JAX package's run knobs
-    (``scan_chunk``, ``profile``, ``check_nans``, ``compile_cache``) are
-    among them."""
+    default, and its own (``config.PORT_ONLY``): ``device`` and the
+    architecture's keys (``arch``, default NeRF, and Instant-NGP's
+    ``ngp_*``); the JAX package's run knobs (``scan_chunk``, ``profile``,
+    ``check_nans``, ``compile_cache``) are among them."""
+    from nerf_pytorch_paeng_tpu_torch.config import PORT_ONLY
     ours = {f.name: f.default for f in dataclasses.fields(NerfConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
-    assert set(ours) - set(theirs) == {"device"}
+    assert set(ours) - set(theirs) == set(PORT_ONLY)
+    assert {"device", "arch"} <= set(PORT_ONLY) and ours["arch"] == "nerf"
+    assert all(k in ("device", "arch") or k.startswith("ngp_")
+               for k in PORT_ONLY)
     assert set(theirs) <= set(ours)
     for k, v in ours.items():
-        assert k == "device" or theirs[k] == v, k
+        assert k in PORT_ONLY or theirs[k] == v, k
     for name in ("scan_chunk", "profile", "check_nans", "compile_cache"):
         assert name in theirs and name in ours, name
