@@ -249,8 +249,12 @@ bytes or its FP32 operations.  Then ``driver.main_worker`` trains the
 NGP config (``configs/blender_lego_ngp.txt``) for three chunks of 16 on
 a synthetic scene, the NGP counters at 0 before: one launch of each
 kernel a step, and the encoding's forward eight times more in each of
-the two grid updates.  ``python3 chip_smoke.py --ngp`` runs this phase
-alone.
+the two grid updates.  The fused MLPs (``kernels/ngp_mlp.py``: N6
+forward, N7 backward with its reduce) at the marched samples' features,
+against their plain twin (relative L2 5e-3 forward, 1e-2 backward, d_feat
+0 past the kept samples), timed beside the twin, the bf16 ``torch.mm``
+path and their bound; in the training run one launch of each a step.
+``python3 chip_smoke.py --ngp`` runs this phase alone.
 
 Each path runs with every launch counter at 0 before and is read after.
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -392,6 +396,11 @@ PHASE0_PLAIN_SCENES = ("std", "hard")
 # the NGP phase: the kernels' tolerances against their plain twins (the
 # card tests' own), the peaks of their bounds, the trained chunks
 NGP_HASH_TOL = 1e-5               # forward abs/rel; backward rel L2 a table
+# N6/N7 against their plain twin (the same bf16 roundings, float32 sums in
+# another order: an activation may round to its other bf16 neighbour):
+# relative L2 of sigma and rgb, of d_feat and each weight's gradient
+NGP_MLP_TOL = dict(fwd_rel_l2=5e-3, bwd_rel_l2=1e-2)
+NGP_MLP_MACS = 9408               # both MLPs' multiply-adds a sample
 NGP_COMPOSITE_TOL = dict(atol=2e-5, rtol=1e-5, bwd_rel_l2=1e-4)
 PEAK_FP32_FLOPS = 67e12           # H100 SXM, outside the tensor cores
 NGP_CHUNKS = 3
@@ -1236,11 +1245,15 @@ def ngp_launch_counters() -> dict:
     """The NGP kernels' launch counters, by row name."""
     from nerf_pytorch_paeng_tpu_torch.kernels import hash_grid as hg
     from nerf_pytorch_paeng_tpu_torch.kernels import ngp_march as nm
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_mlp as nmlp
     return {"hash_encode_fwd": (hg.hash_encode, "launches"),
             "hash_encode_bwd": (hg.hash_encode_bwd, "launches"),
             "ngp_march": (nm.march, "launches"),
             "ngp_composite_fwd": (nm.composite_fwd, "launches"),
-            "ngp_composite_bwd": (nm.composite_bwd, "launches")}
+            "ngp_composite_bwd": (nm.composite_bwd, "launches"),
+            "ngp_mlp_fwd": (nmlp.ngp_mlp, "launches"),
+            "ngp_mlp_bwd": (nmlp.ngp_mlp_bwd, "launches"),
+            "ngp_mlp_reduce": (nmlp.ngp_mlp_reduce, "launches")}
 
 
 def ngp_field(cfg, device):
@@ -1363,6 +1376,83 @@ def ngp_kernel_rows(device) -> dict:
     row("ngp_composite_bwd", "ngp_march.cu", k_ms, p_ms,
         p.budget * 32 + TRAIN_RAYS * 32, 0.0, err,
         f"{NGP_COMPOSITE_TOL['bwd_rel_l2']} rel L2")
+    rows.update(ngp_mlp_rows(model, got.detach(), m.sh, n_valid, device))
+    return rows
+
+
+def ngp_mlp_rows(model, feat, sh, n_valid, device) -> dict:
+    """N6 and N7 (with its reduce) at the step's 2^18 marched samples and
+    their features, against the plain twin, each timed beside its bound,
+    the twin and the bf16 ``torch.mm`` path (``library_ms``)."""
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_mlp as nmlp
+    n, k = feat.shape[0], int(n_valid)
+    weights = model.mlp_parameters()
+    g = torch.Generator(device).manual_seed(6)
+    g_sigma = torch.randn(n, generator=g, device=device)
+    g_rgb = torch.randn((n, 3), generator=g, device=device)
+    feat = feat.clone().requires_grad_(True)
+
+    def rel(a, b):
+        return float((a[:k] - b[:k]).norm() / b[:k].norm().clamp(min=1e-30))
+
+    def torch_path(x):
+        sigma, z = model.density_mlp(x)
+        return sigma, model.color_mlp(z, sh)
+
+    with torch.no_grad():
+        k_ms, out = cuda_ms(lambda: nmlp.ngp_mlp(feat, sh, weights, n_valid),
+                            20, 3)
+        p_ms, want = cuda_ms(lambda: nmlp.ngp_mlp_plain(feat, sh, weights,
+                                                        n_valid), 3)
+        l_ms, _ = cuda_ms(lambda: torch_path(feat), 20, 3)
+    err = max(rel(a, b) for a, b in zip(out, want))
+    check(err <= NGP_MLP_TOL["fwd_rel_l2"],
+          f"ngp_mlp's forward differs from its plain twin ({err})")
+    rows = {}
+    fwd = dict(name="ngp_mlp_fwd", route="cuda",
+               source="nerf_pytorch_paeng_tpu_torch/kernels/csrc/ngp_mlp.cu",
+               replaces=None, launches=None, ms=k_ms, plain_ms=p_ms,
+               library_ms=l_ms, error=err,
+               tolerance=f"{NGP_MLP_TOL['fwd_rel_l2']} rel L2")
+    # bytes: features and SH in, sigma and rgb out; operations: 9,408
+    # multiply-adds a sample at the bf16 tensor-core peak
+    bounds = {"ngp_mlp_fwd": (n * (4 * 32 + 4 * 16 + 16),
+                              2 * NGP_MLP_MACS * n),
+              # the same inputs and the outputs' gradients in, d_feat out;
+              # the forward again, the inputs' and the weights' gradients
+              "ngp_mlp_bwd": (n * (4 * 32 + 4 * 16 + 16 + 4 * 32),
+                              3 * 2 * NGP_MLP_MACS * n)}
+    sig_k, rgb_k = nmlp.ngp_mlp(feat, sh, weights, n_valid)
+    sig_p, rgb_p = nmlp.ngp_mlp_plain(feat, sh, weights, n_valid)
+    sig_t, rgb_t = torch_path(feat)
+    inputs = [feat, *weights]
+
+    def grads(s, r):
+        return torch.autograd.grad((s, r), inputs, (g_sigma, g_rgb),
+                                   retain_graph=True)
+
+    k_ms, gk = cuda_ms(lambda: grads(sig_k, rgb_k), 20, 3)
+    p_ms, gp = cuda_ms(lambda: grads(sig_p, rgb_p), 3)
+    l_ms, _ = cuda_ms(lambda: grads(sig_t, rgb_t), 20, 3)
+    err = max([rel(gk[0], gp[0])] + [
+        float((a - b).norm() / b.norm()) for a, b in zip(gk[1:], gp[1:])])
+    check(err <= NGP_MLP_TOL["bwd_rel_l2"],
+          f"ngp_mlp's backward differs from its plain twin's ({err})")
+    check(bool((gk[0][k:] == 0).all()), "ngp_mlp's d_feat is not 0 past "
+          "n_valid")
+    bwd = dict(fwd, name="ngp_mlp_bwd", ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               error=err, tolerance=f"{NGP_MLP_TOL['bwd_rel_l2']} rel L2")
+    for r in (fwd, bwd):
+        nbytes, flop = bounds[r["name"]]
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flop / PEAK_BF16_FLOPS * 1e3
+        r.update(bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 samples=n, valid=k)
+        log(f"kernel {r['name']}: ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} error={r['error']:.3e} "
+            f"(tolerance {r['tolerance']})")
+        rows[r["name"]] = r
     return rows
 
 
@@ -1407,6 +1497,7 @@ def ngp_phase(work: str, device) -> tuple:
           "non-finite NGP training losses")
     for name, row in rows.items():
         row["launches"] = launches[name]
+    rows["ngp_mlp_bwd"]["reduce_launches"] = launches["ngp_mlp_reduce"]
     stats = {"steps": steps, "chunks": res.get("chunks"),
              "grid_updates": updates, "wall_s": wall,
              "loss_first": losses[0], "loss_last": losses[-1],
@@ -4587,7 +4678,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--ngp"]:
         return ngp_main(device, card)
     t0 = time.perf_counter()
-    sources = ("fused_mlp", "fused_mlp_vjp", "hash_grid", "ngp_march")
+    sources = ("fused_mlp", "fused_mlp_vjp", "hash_grid", "ngp_march",
+               "ngp_mlp")
     libs = build.build_all(sources)
     log(f"build: {', '.join(s + '.cu' for s in sources)} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
@@ -4802,7 +4894,7 @@ def ngp_main(device, card: str) -> int:
     """``--ngp``: the NGP kernels' build and phase alone."""
     from nerf_pytorch_paeng_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    sources = ("hash_grid", "ngp_march")
+    sources = ("hash_grid", "ngp_march", "ngp_mlp")
     libs = build.build_all(sources)
     log(f"build: {', '.join(s + '.cu' for s in sources)} in "
         f"{time.perf_counter() - t0:.1f} s")

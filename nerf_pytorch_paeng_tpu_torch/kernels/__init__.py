@@ -1,4 +1,4 @@
-from . import fused_mlp_vjp, hash_grid, ngp_march
+from . import fused_mlp_vjp, hash_grid, ngp_march, ngp_mlp
 from .fused_mlp import (fused_mlp_eval, fused_mlp_eval_rays,
                         fused_mlp_eval_rays_plain, fused_mlp_sigma,
                         fused_mlp_sigma_rays, fused_mlp_sigma_rays_plain,
@@ -21,7 +21,10 @@ LAUNCH_COUNTERS = (
     (hash_grid.hash_encode_bwd, "launches"),
     (hash_grid.hash_encode_bwd, "points"),
     (ngp_march.march, "launches"), (ngp_march.composite_fwd, "launches"),
-    (ngp_march.composite_bwd, "launches"))
+    (ngp_march.composite_bwd, "launches"),
+    # the fused MLPs: N6, N7 and N7's reduce
+    (ngp_mlp.ngp_mlp, "launches"), (ngp_mlp.ngp_mlp_bwd, "launches"),
+    (ngp_mlp.ngp_mlp_reduce, "launches"))
 
 
 def launch_counts() -> tuple:

@@ -32,7 +32,11 @@ computes the same in plain float32; items marked *assumed* are listed in
   each sample by the marcher (``kernels/ngp_march.sh_encode``).
   Both MLPs: 9,408 multiply-adds a sample; weights Xavier-uniform
   (*assumed*, tiny-cuda-nn's initialisation); operands in
-  ``compute_dtype``, float32 accumulation.
+  ``compute_dtype``, float32 accumulation.  On the card at bf16 the
+  field's MLPs are one forward and one backward kernel
+  (``kernels/ngp_mlp.py``), which keep z_0, the outputs and the weight
+  gradients in float32; the grid update's density stays on
+  ``density_mlp``.
 - Marcher (``kernels/ngp_march.py``): the ray's chord [t_in, t_out] of the
   cube, dt = sqrt(3) / 1024, candidates t_k = t_in + (u + k) dt (k < 1024,
   t_k < t_out, u the ray's uniform), kept where the 128^3 grid's cell is
@@ -69,6 +73,7 @@ from torch import nn
 
 from ..kernels.hash_grid import hash_encode
 from ..kernels.ngp_march import MAX_STEPS
+from ..kernels.ngp_mlp import ngp_mlp
 from ..utils.device import resolve_device
 from ..utils.spans import span
 
@@ -174,9 +179,13 @@ class NGP(nn.Module):
               n_valid: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Samples in the cube [n, 3] and their rays' SH [n, 16] -> (sigma
-        [n], rgb [n, 3])."""
+        [n], rgb [n, 3]).  On the card at bf16 both MLPs are one forward
+        and one backward kernel (``kernels/ngp_mlp``); on the CPU, or at
+        float32, ``density_mlp`` and ``color_mlp``."""
         feat = self.encode(pos, n_valid)
         with span("ngp.mlp"):
+            if pos.is_cuda and self.cdt == torch.bfloat16:
+                return ngp_mlp(feat, sh, self.mlp_parameters(), n_valid)
             sigma, z = self.density_mlp(feat)
             return sigma, self.color_mlp(z, sh)
 

@@ -1492,3 +1492,220 @@ def test_ngp_captured_steps_equal_eager_steps(dev):
     torch.testing.assert_close(losses[1], losses[0], rtol=2e-3, atol=0)
     torch.testing.assert_close(counts[1][:3], counts[0][:3], rtol=1e-2,
                                atol=0)
+
+
+# ---------------------------------------------- Instant-NGP's fused MLPs
+#
+# N6 (forward) and N7 (backward, with its fixed-order reduce) against the
+# plain twin, which rounds to bf16 where they do: float32 sums in another
+# order may round an activation to its other bf16 neighbour, so relative
+# L2 5e-3 (forward) and 1e-2 (backward).  Against float32 the kernels are
+# held to the bf16 ``torch.mm`` path's own distance (they keep z_0 and
+# the weights' gradients in float32, so they sit no further).
+
+
+def _mlp_model(dev, levels=16):
+    from nerf_pytorch_paeng_tpu_torch.models.ngp import init_ngp
+    return init_ngp(_ngp_cfg(ngp_levels=levels), dev, seed=21)
+
+
+def _mlp_inputs(n, seed, dev, n_feat=32):
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_march as nm
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feat = torch.randn((n, n_feat), generator=g, device=dev)
+    sh = nm.sh_encode(torch.nn.functional.normalize(
+        torch.randn((n, 3), generator=g, device=dev), dim=1))
+    g_sigma = torch.randn(n, generator=g, device=dev)
+    g_rgb = torch.randn((n, 3), generator=g, device=dev)
+    return feat.requires_grad_(True), sh, g_sigma, g_rgb
+
+
+def _mlp_grads(fn, feat, sh, weights, n_valid, g_sigma, g_rgb):
+    sigma, rgb = fn(feat, sh, weights, n_valid)
+    grads = torch.autograd.grad((sigma, rgb), [feat, *weights],
+                                (g_sigma, g_rgb))
+    return sigma.detach(), rgb.detach(), grads
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("n,valid,levels", [
+    (1 << 18, None, 16), (1 << 18, (1 << 18) - 1000, 16), (1, None, 16),
+    (63, 40, 16), (4097, None, 16), (4097, 2000, 4)])
+def test_ngp_mlp_kernels_match_the_plain_twin(dev, n, valid, levels):
+    """sigma, rgb, d_feat and the five weights' gradients against the
+    twin at bf16; rows at or past ``n_valid`` give 0 and leave the weights'
+    gradients as the valid rows alone give them."""
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_mlp as nmlp
+    model = _mlp_model(dev, levels)
+    weights = model.mlp_parameters()
+    feat, sh, g_sigma, g_rgb = _mlp_inputs(n, 22, dev, 2 * levels)
+    n_valid = (None if valid is None else
+               torch.tensor([valid], dtype=torch.int32, device=dev))
+    k = n if valid is None else valid
+    sk, rk, gk = _mlp_grads(nmlp.ngp_mlp, feat, sh, weights, n_valid,
+                            g_sigma, g_rgb)
+    sp, rp, gp = _mlp_grads(nmlp.ngp_mlp_plain, feat, sh, weights, n_valid,
+                            g_sigma, g_rgb)
+    assert _rel(sk[:k], sp[:k]) < 5e-3 and _rel(rk[:k], rp[:k]) < 5e-3
+    assert not sk[k:].any() and not rk[k:].any()
+    assert _rel(gk[0][:k], gp[0][:k]) < 1e-2
+    assert not gk[0][k:].any()
+    for a, b in zip(gk[1:], gp[1:]):
+        assert _rel(a, b) < 1e-2
+    if valid is not None:          # the valid rows alone
+        ka = feat.detach()[:k].clone().requires_grad_(True)
+        _, _, ga = _mlp_grads(nmlp.ngp_mlp, ka, sh[:k], weights, None,
+                              g_sigma[:k], g_rgb[:k])
+        for a, b in zip(gk[1:], ga[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def test_ngp_mlp_kernels_against_the_torch_path_and_float32(dev):
+    """At the step's 2^18 samples: within bf16 rounding of the bf16
+    ``torch.mm`` path, and no further from the float32 MLP than it."""
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_mlp as nmlp
+    model = _mlp_model(dev)
+    weights = model.mlp_parameters()
+    feat, sh, g_sigma, g_rgb = _mlp_inputs(1 << 18, 23, dev)
+
+    def torch_path(x, sh, weights, n_valid):
+        sigma, z = model.density_mlp(x)
+        return sigma, model.color_mlp(z, sh)
+
+    def f32(x, sh, weights, n_valid):
+        return nmlp.ngp_mlp_plain(x, sh, weights, n_valid, rnd=nmlp.identity)
+
+    k = _mlp_grads(nmlp.ngp_mlp, feat, sh, weights, None, g_sigma, g_rgb)
+    t = _mlp_grads(torch_path, feat, sh, weights, None, g_sigma, g_rgb)
+    f = _mlp_grads(f32, feat, sh, weights, None, g_sigma, g_rgb)
+    for a, b in zip(k[:2] + tuple(k[2]), t[:2] + tuple(t[2])):
+        assert _rel(a, b) < 2e-2
+    for a, b, c in zip(k[:2] + tuple(k[2]), t[:2] + tuple(t[2]),
+                       f[:2] + tuple(f[2])):
+        assert _rel(a, c) <= 1.1 * _rel(b, c) + 1e-4, (_rel(a, c),
+                                                        _rel(b, c))
+
+
+def test_ngp_mlp_backward_is_deterministic_and_counted(dev):
+    """Two backward calls give the same bits; each call counts one N6, one
+    N7 and one reduce."""
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_mlp as nmlp
+    model = _mlp_model(dev)
+    weights = model.mlp_parameters()
+    feat, sh, g_sigma, g_rgb = _mlp_inputs(1 << 18, 24, dev)
+    n_valid = torch.tensor([(1 << 18) - 77], dtype=torch.int32, device=dev)
+    before = (nmlp.ngp_mlp.launches, nmlp.ngp_mlp_bwd.launches,
+              nmlp.ngp_mlp_reduce.launches)
+    runs = [_mlp_grads(nmlp.ngp_mlp, feat, sh, weights, n_valid, g_sigma,
+                       g_rgb) for _ in range(2)]
+    after = (nmlp.ngp_mlp.launches, nmlp.ngp_mlp_bwd.launches,
+             nmlp.ngp_mlp_reduce.launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (2, 2, 2)
+    (s0, r0, g0), (s1, r1, g1) = runs
+    assert torch.equal(s0, s1) and torch.equal(r0, r1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["feat_dtype", "feat_width", "sh_rows",
+                                  "weight_dtype", "weights_on_cpu",
+                                  "n_valid_on_cpu", "feat_misaligned"])
+def test_ngp_mlp_wrapper_raises_on_the_card(dev, case):
+    """A CUDA input the kernels do not take raises; nothing falls back."""
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_mlp as nmlp
+    model = _mlp_model(dev)
+    weights = list(model.mlp_parameters())
+    feat, sh, _, _ = _mlp_inputs(64, 25, dev)
+    n_valid = None
+    if case == "feat_dtype":
+        feat = feat.detach().to(torch.bfloat16)
+    elif case == "feat_width":
+        feat = feat.detach()[:, :30].contiguous()
+    elif case == "sh_rows":
+        sh = sh[:63]
+    elif case == "weight_dtype":
+        weights[2] = weights[2].detach().half()
+    elif case == "weights_on_cpu":
+        weights = [w.detach().cpu() for w in weights]
+    elif case == "n_valid_on_cpu":
+        n_valid = torch.tensor([3], dtype=torch.int32)
+    elif case == "feat_misaligned":         # a contiguous view 4 bytes in
+        flat = torch.empty(feat.numel() + 1, device=dev)
+        feat = flat[1:].view_as(feat).copy_(feat.detach())
+    launches = nmlp.ngp_mlp.launches
+    with pytest.raises(ValueError):
+        nmlp.ngp_mlp(feat, sh, weights, n_valid)
+    assert nmlp.ngp_mlp.launches == launches
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_ngp_field_takes_the_fused_mlps_at_bf16(dev, compute_dtype):
+    """``NGP.field`` on the card: N6 at bf16, the ``torch.mm`` MLPs at
+    float32."""
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_mlp as nmlp
+    from nerf_pytorch_paeng_tpu_torch.models.ngp import init_ngp
+    model = init_ngp(_ngp_cfg(compute_dtype=compute_dtype), dev, seed=26)
+    g = torch.Generator(device=dev).manual_seed(27)
+    pos = torch.rand((4096, 3), generator=g, device=dev)
+    _, sh, _, _ = _mlp_inputs(4096, 28, dev)
+    launches = nmlp.ngp_mlp.launches
+    sigma, rgb = model.field(pos, sh)
+    assert sigma.shape == (4096,) and rgb.shape == (4096, 3)
+    assert nmlp.ngp_mlp.launches - launches == (
+        1 if compute_dtype == "bfloat16" else 0)
+
+
+def test_ngp_frame_matches_the_reference(dev, monkeypatch):
+    """``tests/test_torch_ngp.py``'s frame on the card: at float32 (the
+    ``torch.mm`` MLPs) against the reference as on the CPU; at bf16
+    through N6, within 2e-3 of the plain twin's frame (the same roundings)
+    and no more than half as far again from the reference."""
+    from nerf_pytorch_paeng_tpu_torch.data.render_pose import get_render_pose
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_mlp as nmlp
+    from nerf_pytorch_paeng_tpu_torch.kernels import ngp_march as nm
+    from nerf_pytorch_paeng_tpu_torch.models import ngp
+    from nerf_pytorch_paeng_tpu_torch.ops.ngp import make_ngp_frame_renderer
+    from nerf_pytorch_paeng_tpu_torch.ops.rays import get_rays
+    from port_bench.reference import ngp as ref
+    small = dict(ngp_levels=4, ngp_log2_table=13, ngp_grid_res=16,
+                 ngp_budget=4096)
+    H = W = 8
+    K = np.array([[10.0, 0, 4.0], [0, 10.0, 4.0], [0, 0, 1]], np.float32)
+    c2w = get_render_pose(n_angle=3, single_angle=-1, phi=-30.0, nf=4.0)[1]
+    bits = (torch.rand(16 ** 3, generator=torch.Generator().manual_seed(10))
+            < 0.6).to(torch.uint8)
+    o, d = get_rays(H, W, torch.as_tensor(K), torch.as_tensor(
+        np.asarray(c2w)[:3, :4], dtype=torch.float32))
+    frames = {}
+    for name in ("float32", "bfloat16", "twin"):
+        cfg = _ngp_cfg(compute_dtype="float32" if name == "float32"
+                       else "bfloat16", **small)
+        model = ngp.init_ngp(cfg, dev, seed=9)
+        with torch.no_grad():
+            for t in model.tables:
+                t.mul_(3e3)
+            model.grid_bits.copy_(bits.to(dev))
+        render = make_ngp_frame_renderer(cfg, H, W, K, dev, block_rays=24)
+        with monkeypatch.context() as mp:
+            if name == "twin":
+                mp.setattr(ngp, "ngp_mlp", nmlp.ngp_mlp_plain)
+            launches = nmlp.ngp_mlp.launches
+            rgb, _ = render(model, c2w)
+            assert (nmlp.ngp_mlp.launches > launches) == (name == "bfloat16")
+        frames[name] = rgb.reshape(-1, 3).cpu()
+        params = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    lv = ref.levels(4, 13, ref.N_MIN, ref.N_MAX)
+    want = ref.render(params, lv, o.reshape(-1, 3), d.reshape(-1, 3),
+                      torch.full((H * W,), 0.5), bits, steps=nm.MAX_STEPS,
+                      grid=16)
+    assert bool(want["kept"].all()) and float(want["acc"].max()) > 0.05
+    torch.testing.assert_close(frames["float32"], want["rgb"], atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(frames["bfloat16"], frames["twin"],
+                               atol=2e-3, rtol=0)
+    gap_k = float((frames["bfloat16"] - want["rgb"]).abs().max())
+    gap_t = float((frames["twin"] - want["rgb"]).abs().max())
+    assert 0 < gap_k <= 1.5 * gap_t, (gap_k, gap_t)

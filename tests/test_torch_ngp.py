@@ -3,7 +3,8 @@ reference of the benchmark (``port_bench/reference/ngp.py``: float32
 torch that imports nothing of the program): the hash encoding forward and
 backward, the marcher's kept samples and dropped rays, the occupancy
 grid's update, one whole step's loss and gradients, ``driver.train`` with
-a checkpoint's save and resume, and a frame.
+a checkpoint's save and resume, a frame, and the fused MLPs' plain twin
+and route.
 
 Small sizes: 4 levels (two dense, two hashed), tables of 2^10 entries,
 a 16^3 grid, 64 rays, 128 lattice steps, budgets of a few thousand
@@ -21,6 +22,7 @@ import torch
 from nerf_pytorch_paeng_tpu_torch.config import NerfConfig, load_config
 from nerf_pytorch_paeng_tpu_torch.kernels import hash_grid as hg
 from nerf_pytorch_paeng_tpu_torch.kernels import ngp_march as nm
+from nerf_pytorch_paeng_tpu_torch.kernels import ngp_mlp as nmlp
 from nerf_pytorch_paeng_tpu_torch.models import ngp
 from nerf_pytorch_paeng_tpu_torch.ops.ngp import (make_ngp_frame_renderer,
                                                   ngp_loss, render_rays_ngp)
@@ -266,3 +268,150 @@ def test_frame_matches_the_reference():
     torch.testing.assert_close(disp.reshape(-1), torch.where(
         want["acc"] > 0, want["acc"] / want["depth"].clamp(min=1e-10),
         torch.zeros_like(want["acc"])), atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------- the fused MLPs' twin
+#
+# ``kernels/ngp_mlp``: on the card both MLPs are one forward and one
+# backward kernel; on the CPU its wrapper runs the plain twin, which
+# repeats the kernels' arithmetic (bf16 operands, float32 sums).  At
+# float32 the twin is the reference's MLP.
+
+
+def _mlp_inputs(n, seed, model):
+    g = torch.Generator().manual_seed(seed)
+    feat = torch.randn(n, model.sigma_w0.shape[1], generator=g)
+    sh = nm.sh_encode(torch.nn.functional.normalize(
+        torch.randn(n, 3, generator=g), dim=1))
+    weights = [w.detach().clone().requires_grad_(True)
+               for w in model.mlp_parameters()]
+    return feat.requires_grad_(True), sh, weights
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_field_keeps_the_torch_mlps_on_the_cpu(compute_dtype, monkeypatch):
+    """``NGP.field`` takes the fused MLPs only for CUDA tensors at bf16:
+    on the CPU, at either dtype, it runs ``density_mlp`` and
+    ``color_mlp``."""
+    cfg = _cfg(compute_dtype=compute_dtype)
+    model = _model(cfg, seed=11)
+
+    def refuse(*a, **k):
+        raise AssertionError("the fused MLPs' wrapper was called")
+
+    monkeypatch.setattr(ngp, "ngp_mlp", refuse)
+    g = torch.Generator().manual_seed(12)
+    pos = torch.rand(50, 3, generator=g)
+    sh = nm.sh_encode(torch.nn.functional.normalize(
+        torch.randn(50, 3, generator=g), dim=1))
+    sigma, rgb = model.field(pos, sh)
+    s_want, z = model.density_mlp(model.encode(pos))
+    assert torch.equal(sigma, s_want)
+    assert torch.equal(rgb, model.color_mlp(z, sh))
+
+
+def _bad_mlp_args(case):
+    """(feat, sh, weights, n_valid) with one thing wrong."""
+    model = _model(_cfg(), seed=13)
+    feat, sh, weights = _mlp_inputs(8, 14, model)
+    feat = feat.detach()
+    n_valid = None
+    if case == "feat_dtype":
+        feat = feat.double()
+    elif case == "feat_width":
+        feat = feat[:, :7]
+    elif case == "sh_rows":
+        sh = sh[:7]
+    elif case == "weight_shape":
+        weights[3] = weights[3][:, :63]
+    elif case == "weight_dtype":
+        weights[0] = weights[0].to(torch.bfloat16)
+    elif case == "weight_count":
+        weights = weights[:4]
+    elif case == "n_valid_dtype":
+        n_valid = torch.tensor([4])
+    elif case == "n_valid_size":
+        n_valid = torch.tensor([4, 4], dtype=torch.int32)
+    elif case == "mixed_devices":
+        sh = sh.to("meta")
+    elif case == "other_device":
+        feat, sh = feat.to("meta"), sh.to("meta")
+        weights = [w.detach().to("meta") for w in weights]
+    return feat, sh, weights, n_valid
+
+
+@pytest.mark.parametrize("case", [
+    "feat_dtype", "feat_width", "sh_rows", "weight_shape", "weight_dtype",
+    "weight_count", "n_valid_dtype", "n_valid_size", "mixed_devices",
+    "other_device"])
+def test_mlp_wrapper_refuses_what_the_kernels_do_not_take(case):
+    feat, sh, weights, n_valid = _bad_mlp_args(case)
+    with pytest.raises((ValueError, RuntimeError)):
+        nmlp.ngp_mlp(feat, sh, weights, n_valid)
+
+
+@pytest.mark.parametrize("levels,n_valid", [(16, None), (16, 37), (4, 37)])
+def test_mlp_plain_twin_matches_the_reference_at_float32(levels, n_valid):
+    """The twin at float32 (no rounding): sigma, rgb, d_feat and the five
+    weights' gradients against the reference's MLP under autograd, at the
+    published 16 levels and at 4; rows at or past ``n_valid`` give 0 and
+    add nothing to the weights' gradients."""
+    model = _model(_cfg(ngp_levels=levels), seed=15)
+    n = 64
+    feat, sh, weights = _mlp_inputs(n, 16, model)
+    nv = None if n_valid is None else torch.tensor([n_valid],
+                                                   dtype=torch.int32)
+    sigma, rgb = nmlp.ngp_mlp_plain(feat, sh, weights, nv, rnd=nmlp.identity)
+    g = torch.Generator().manual_seed(17)
+    g_sigma, g_rgb = torch.randn(n, generator=g), torch.randn(n, 3,
+                                                              generator=g)
+    got = torch.autograd.grad((sigma * g_sigma).sum() + (rgb * g_rgb).sum(),
+                              [feat, *weights])
+    k = n if n_valid is None else n_valid
+    p = dict(zip(ngp.MLP_WEIGHTS, weights))
+    feat_r = feat.detach()[:k].clone().requires_grad_(True)
+    s_ref, z = ref.density(p, feat_r)
+    rgb_ref = ref.color(p, z, sh[:k])
+    want = torch.autograd.grad(
+        (s_ref * g_sigma[:k]).sum() + (rgb_ref * g_rgb[:k]).sum(),
+        [feat_r, *weights])
+    torch.testing.assert_close(sigma[:k], s_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rgb[:k], rgb_ref, rtol=1e-5, atol=1e-6)
+    assert not sigma[k:].any() and not rgb[k:].any()
+    torch.testing.assert_close(got[0][:k], want[0], rtol=1e-4, atol=1e-6)
+    assert not got[0][k:].any()
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_mlp_plain_twin_at_bf16_is_near_the_torch_path():
+    """On the CPU the wrapper runs the twin (bf16 operands, float32 sums),
+    which rounds where the bf16 ``torch.mm`` path does but keeps z_0, the
+    outputs and the weights' gradients in float32: within bf16's rounding
+    of that path, forward and backward."""
+    cfg = _cfg(compute_dtype="bfloat16", ngp_levels=16)
+    model = _model(cfg, seed=18)
+    n = 256
+    feat, sh, weights = _mlp_inputs(n, 19, model)
+    sigma, rgb = nmlp.ngp_mlp(feat, sh, weights)
+    s2, r2 = nmlp.ngp_mlp_plain(feat, sh, weights)
+    assert torch.equal(sigma, s2) and torch.equal(rgb, r2)
+    g = torch.Generator().manual_seed(20)
+    g_sigma, g_rgb = torch.randn(n, generator=g), torch.randn(n, 3,
+                                                              generator=g)
+    got = torch.autograd.grad((sigma * g_sigma).sum() + (rgb * g_rgb).sum(),
+                              [feat, *weights])
+    for p, w in zip(model.mlp_parameters(), weights):
+        with torch.no_grad():
+            p.copy_(w)
+    feat_t = feat.detach().clone().requires_grad_(True)
+    s_t, z = model.density_mlp(feat_t)
+    rgb_t = model.color_mlp(z, sh)
+    want = torch.autograd.grad(
+        (s_t * g_sigma).sum() + (rgb_t * g_rgb).sum(),
+        [feat_t, *model.mlp_parameters()])
+    torch.testing.assert_close(sigma, s_t, rtol=2e-2, atol=1e-3)
+    torch.testing.assert_close(rgb, rgb_t, rtol=2e-2, atol=2e-3)
+    for a, b in zip(got, want):
+        err = float((a - b).norm() / b.norm())
+        assert err < 2e-2, err
