@@ -54,6 +54,8 @@ import re
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+from .arch import NAMES as ARCHITECTURES
+
 LOG_DIR = os.path.normpath(os.path.join(
     os.path.abspath(os.path.dirname(os.path.realpath(__file__))), os.pardir,
     "logs"))
@@ -239,7 +241,7 @@ class NerfConfig:
         for name, ok in checks:
             if not ok:
                 raise ValueError(f"invalid {name}={getattr(self, name)!r}")
-        if self.arch not in ("nerf", "ngp"):
+        if self.arch not in ARCHITECTURES:
             raise ValueError(f"invalid arch={self.arch!r}")
         if self.arch == "ngp":
             self._validate_ngp()

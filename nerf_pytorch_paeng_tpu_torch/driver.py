@@ -13,13 +13,16 @@ training (``train_precull``) with its refresh policy; a run from step 0
 draws the training cameras into ``logs/<exp>/_ext_vis/`` first
 (``utils/visualize.py``).  Checkpoints are the
 reference format, ``logs/<exp>/<exp>_<step>.pth.tar``
-(``train/checkpoint.py``).  ``arch`` "ngp" trains and renders
-Instant-NGP (``models/ngp.py``) on the same loop, with its occupancy
-grid's update between chunks.  With ``eval_only`` and/or ``render_only`` it
-restores the weights saved at ``testing_idx``, packs them once for the
-fused kernels (on the plain route hands the renderers the modules) and
-runs the held-out-view evaluation and/or the novel-view render.  It prints
-the field route once: the fused kernels, or the plain MLP and why.  LLFF
+(``train/checkpoint.py``).  What depends on the architecture
+(``arch``: NeRF, or Instant-NGP's ``models/ngp.py``) is its module's
+under ``arch/`` (``arch.architecture``): the model, the route line, the
+frame weights, the run's own checks and the loop's hook between chunks
+(NeRF's occupancy policy, Instant-NGP's grid update).  With
+``eval_only`` and/or ``render_only`` it restores the weights saved at
+``testing_idx``, packs them once for the fused kernels (on the plain
+route hands the renderers the modules) and runs the held-out-view
+evaluation and/or the novel-view render.  It prints the field route
+once: the fused kernels, or the plain MLP and why.  LLFF
 rays are projected into NDC inside the train steps and the frame
 renderers, never in the ray pool.
 
@@ -54,27 +57,21 @@ import torch
 import torch.distributed
 
 from . import parallel
+from .arch import architecture
 from .config import NerfConfig, load_config
 from .data import load_blender, load_custom, load_llff
 from .eval.render import run_render
 from .eval.test import run_test
 from .kernels import build
-from .kernels.fused_mlp import pack_nerf
-from .models.nerf import NeRF
-from .models.ngp import NGP, grid_update_due, next_grid_update
-from .ops.rays import get_rays
-from .ops.render import plain_route_reason
 from .train import RayPool, build_ray_pool, create_train_state
 from .train import checkpoint as ckpt
 from .parallel import print0
-from .parallel.tensor import check_model_replicas, full_model
-from .train.precull import (make_gate_frac_estimator,
-                            make_train_support_program, train_precull_active,
-                            train_precull_mode)
+from .parallel.tensor import check_model_replicas
+# port_bench/arch/nerf.py imports the policy from here
+from .train.precull import SupportPolicy as _SupportPolicy  # noqa: F401
 from .train.chunk import (PROFILE_START, PROFILE_STOP, ChunkSchedule,
                           StagedSteps, chunk_off_reason)
 from .train.schedule import schedule_from_cfg
-from .train.step import ngp_grid_update
 from .utils.logging import MetricLogger
 from .utils.spans import setup_span, setup_table, span
 from .utils.visualize import visualize_extrinsics
@@ -121,26 +118,13 @@ def _llff_render_poses_34(render_poses):
 
 
 def load_model(cfg: NerfConfig, step: int, device):
-    """The ``NeRF`` (or, for ``arch`` "ngp", the ``NGP`` with its
+    """The architecture's model (a ``NeRF``, or an ``NGP`` with its
     occupancy grid) saved at ``step``, on ``device``."""
-    if cfg.arch == "ngp":
-        model = NGP(cfg)
-    else:
-        model = NeRF(depth=cfg.netDepth, width=cfg.netWidth, L_x=cfg.L_x,
-                     L_d=cfg.L_d)
+    model = architecture(cfg).empty_model(cfg)
     state = torch.load(checkpoint_path(cfg, step), map_location="cpu",
                        weights_only=True)
     model.load_state_dict(state["model_state_dict"])
     return model.to(device).eval()
-
-
-def frame_weights(model, cfg: NerfConfig, device):
-    """What the frame renderers take: NeRF's weights packed for the
-    kernels (``pack_nerf``, gathered to full width first), or the NGP
-    model itself."""
-    if cfg.arch == "ngp":
-        return model
-    return pack_nerf(full_model(model), cfg, device=device)
 
 
 class _StepClock:
@@ -218,77 +202,6 @@ class _Profiler:
         print0(f">> profiler trace written to {path}")
 
 
-class _SupportPolicy:
-    """The refresh of occupancy-gated training: support bounds of both
-    modules from the live weights, the predicted skipped share on a fixed
-    probe batch, and the decision whether the next steps run gated.
-
-    The probe batch is drawn once with ``np.random.default_rng(seed + 7)``
-    exactly as the JAX package's driver draws it (up to 4 training views,
-    then pixels of each), at the ray count one rank trains on, so both
-    predict the same ``gate_frac``.  Each refresh makes one host read
-    (both validity flags and the prediction), appends
-    ``iter,bounds_valid,gate_frac_pred,gated`` to
-    ``logs/<exp>/precull_policy.csv`` (truncated on a fresh run, appended
-    on a resume) and prints the decision when it changes.  Under a
-    process group the bounds and the prediction are rank 0's, broadcast,
-    so every rank decides alike and gates with the same bounds; rank 0
-    alone writes and prints."""
-
-    def __init__(self, cfg, K, extrinsics, hw, i_train, device, n_est: int):
-        H, W = hw
-        self.cfg = cfg
-        self.prog, _ = make_train_support_program(
-            cfg, poses=np.asarray(extrinsics)[i_train, :3, :4],
-            K=np.asarray(K), hw=(H, W), device=device)
-        self.est = make_gate_frac_estimator(cfg)
-        rng = np.random.default_rng(cfg.seed + 7)
-        sel = rng.choice(i_train, size=min(4, len(i_train)), replace=False)
-        eo, ed = [], []
-        for p in sel:
-            ro, rd = get_rays(H, W, K, torch.as_tensor(
-                np.asarray(extrinsics[p])[:3, :4], dtype=torch.float32))
-            pix = rng.choice(H * W, size=-(-n_est // len(sel)), replace=False)
-            eo.append(ro.reshape(-1, 3).numpy()[pix])
-            ed.append(rd.reshape(-1, 3).numpy()[pix])
-        self.rays_o = torch.as_tensor(np.concatenate(eo)[:n_est], device=device)
-        self.rays_d = torch.as_tensor(np.concatenate(ed)[:n_est], device=device)
-        self.gated = None           # the first refresh always prints
-        self.path = os.path.join(cfg.logdir, cfg.exp_name,
-                                 "precull_policy.csv")
-        if parallel.is_main() and (cfg.iter_start == 0
-                                   or not os.path.isfile(self.path)):
-            os.makedirs(os.path.dirname(self.path), exist_ok=True)
-            with open(self.path, "w") as f:
-                f.write("iter,bounds_valid,gate_frac_pred,gated\n")
-
-    def refresh(self, model, it: int):
-        """The bounds to gate with from step ``it`` on, or None (ungated):
-        None while the bounds are invalid or the predicted skipped share
-        cannot repay the sort and the smaller tiles.  Span
-        ``policy.refresh``."""
-        with span("policy.refresh"):
-            bc, bf = self.prog(model)
-            gf = self.est(bc, bf, self.rays_o, self.rays_d)
-            if parallel.world_size() > 1:
-                for t in (*bc, *bf, gf):
-                    parallel.broadcast0(t)
-            vc, vf, gfh = torch.stack([bc[3][0].float(), bf[3][0].float(),
-                                       gf.float()]).tolist()  # one host read
-        valid = bool(vc) and bool(vf)
-        on = valid and gfh >= self.cfg.train_precull_min_gate
-        if parallel.is_main():
-            with open(self.path, "a") as f:
-                f.write(f"{it},{int(valid)},{gfh:.4f},{int(on)}\n")
-        if on != self.gated:
-            self.gated = on
-            why = f"predicted gate_frac {gfh:.3f}" if valid \
-                else "bounds invalid"
-            print0(f">> train_precull -> {'GATED' if on else 'ungated'} "
-                   f"({why}) @ iter {it}")
-        return (bc, bf) if on else None
-
-
 def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
           device: torch.device, render_poses=None) -> dict:
     """Steps ``iter_start + 1 .. iter_N``; returns the final step, every
@@ -300,13 +213,21 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
     ``render_poses`` (the LLFF spiral, [M, 3, 4]) feed the ``idx_render``
     hook.
 
-    Occupancy-gated training (``train_precull``): the support bounds are
-    refreshed before step ``iter_start + 1`` and then every
-    ``train_precull_every`` steps, the interval doubling (up to
-    ``train_precull_backoff_max`` times) while the policy declines.  A
-    resumed run restarts that cadence at its first step, so a gated run's
-    resume is not bit-exact with the uninterrupted run (as in the JAX
-    package).
+    Before each chunk the architecture's hook (``chunk_hook``, ``arch/``;
+    ``train/chunk.NoHook``) does the work due and names the bounds the
+    chunk gates with, and a chunk ends before the hook's next work.
+    NeRF's is the occupancy policy of gated training (``train_precull``,
+    ``train/precull.SupportPolicy``): the support bounds are refreshed
+    before step ``iter_start + 1`` and then every ``train_precull_every``
+    steps, the interval doubling (up to ``train_precull_backoff_max``
+    times) while the policy declines.  A resumed run restarts that cadence
+    at its first step, so a gated run's resume is not bit-exact with the
+    uninterrupted run (as in the JAX package).  Instant-NGP's (one
+    process, the global pool) updates its occupancy grid before every
+    iteration that ``models/ngp.grid_update_due`` names (every
+    ``GRID_EVERY`` steps from that step on), so that with ``scan_chunk``
+    16 and an update every 16 steps every update falls between chunks; it
+    gates nothing.
 
     Steps run in chunks (``train/chunk.py``, ``scan_chunk``): the hooks
     fire on a chunk's last step, ``idx_print`` and ``idx_vis`` log from
@@ -317,14 +238,7 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
     first bad step; ``profile`` traces steps ``iter_start + 10 .. + 14``.
     Under a gloo process group, an NCCL group of more than one rank or
     ``n_model_shards > 1`` chunks have length 1
-    (``chunk.chunk_off_reason``).
-
-    Instant-NGP (``cfg.arch == "ngp"``, one process, the global pool):
-    the occupancy grid is updated before every iteration that
-    ``models/ngp.grid_update_due`` names (every ``GRID_EVERY`` steps
-    from that step on), and a chunk ends before the next such update, so
-    that with ``scan_chunk`` 16 and an update every 16 steps every update
-    falls between chunks; no gated training."""
+    (``chunk.chunk_off_reason``)."""
     i_train, _, i_test = i_split
     H, W = hw
     state = create_train_state(cfg, device)
@@ -357,22 +271,10 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
                 np.asarray(extrinsics[i_train], np.float32)[:, :3, :4],
                 device=device))
 
-    policy = None
     world = parallel.world_size()
-    ngp = cfg.arch == "ngp"
-    if ngp and world > 1:
-        raise ValueError("Instant-NGP trains in one process")
-    if not ngp and train_precull_active(cfg, world):
-        policy = _SupportPolicy(cfg, K, extrinsics, hw, i_train, device,
-                                n_est=cfg.N_rays // world)
-        print0(f">> train_precull on (refresh every "
-               f"{cfg.train_precull_every} iters)")
-    elif not ngp and train_precull_mode(cfg) == "on":
-        print0(">> train_precull requested but inapplicable here (needs "
-               "blender data, the ray-major kernel pair (the kernels' domain, "
-               "use_rays_train and its shapes at the per-rank ray count, "
-               "which the ranks must split evenly) and a usable support "
-               "grid) — running ungated")
+    arch = architecture(cfg)
+    arch.check_run(cfg, world)
+    hook = arch.chunk_hook(cfg, K, extrinsics, hw, i_train, device, world)
 
     logger = MetricLogger(cfg.logdir, cfg.exp_name,
                           fresh=(cfg.iter_start == 0))
@@ -410,38 +312,24 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
     gate_fracs = torch.full_like(losses, float("nan"))   # nan: ungated
     loss_col, gate_col = steps.keys.index("loss"), steps.keys.index(
         "gate_frac")
-    support, next_refresh, backoff = None, first, 1
     clock = _StepClock(device)
     clock.mark()
     i = first
     try:
         while i <= cfg.iter_N:
-            if ngp and grid_update_due(i):
-                ngp_grid_update(state.model, cfg, i - 1)
-            if policy is not None and i >= next_refresh:
-                support = policy.refresh(state.model, i)
-                steps.set_support(support)
-                # declined refreshes stretch the interval (no bounds are in
-                # use while ungated, so staleness costs nothing); engaging
-                # resets it
-                backoff = 1 if support is not None else min(
-                    backoff * 2, max(int(cfg.train_precull_backoff_max), 1))
-                next_refresh = i + max(int(cfg.train_precull_every),
-                                       1) * backoff
+            support = hook.before(i, state.model)
+            steps.set_support(support)
             if profiler is not None:
                 if i == cfg.iter_start + PROFILE_START:
                     profiler.start(i)
                 elif i == cfg.iter_start + PROFILE_STOP:
                     profiler.stop(i)
             if cfg.global_batch:
-                # a chunk ends before the next refresh or grid update
                 k = chunks.length(i, ray_pool.i_batch, len(ray_pool.pool),
-                                  next_grid_update(i) if ngp else
-                                  next_refresh if policy else None)
+                                  hook.next_boundary(i))
                 items = [ray_pool.next_start(cfg.N_rays) for _ in range(k)]
             else:
-                k = chunks.length(i, next_refresh=next_refresh if policy
-                                  else None)
+                k = chunks.length(i, next_refresh=hook.next_boundary(i))
                 items = [slot[int(rng.choice(i_train))] for _ in range(k)]
             slab = steps.run(items, precrop=i < cfg.precrop_iters,
                              gated=support is not None,
@@ -473,12 +361,13 @@ def train(cfg: NerfConfig, images, K, extrinsics, hw, i_split,
                 path = ckpt.save_checkpoint(cfg.logdir, cfg.exp_name, state)
                 print0(f">> checkpoint saved: {path}")
             if test_on and last % cfg.idx_test == 0:
-                run_test(last, frame_weights(state.model, cfg, device),
+                run_test(last, arch.frame_weights(state.model, cfg, device),
                          images[i_test], extrinsics[i_test], K, hw, cfg,
                          device)
             if render_on and last % cfg.idx_render == 0:
-                run_render(last, frame_weights(state.model, cfg, device), K,
-                           hw, cfg, device, render_poses=render_poses)
+                run_render(last, arch.frame_weights(state.model, cfg,
+                                                    device),
+                           K, hw, cfg, device, render_poses=render_poses)
             i += k
     finally:
         if profiler is not None:
@@ -551,19 +440,12 @@ def _run(cfg: NerfConfig, device: torch.device) -> dict:
     render_poses = _llff_render_poses_34(render_poses)
     print0(f">> dataset loaded: images {images.shape}, hw {hw}, "
            f"train/val/test {'/'.join(str(len(i)) for i in i_split)}")
-    if cfg.arch == "ngp":
-        print0(">> field route: Instant-NGP (hash grid, marcher and "
-               "compositing kernels)")
-    else:
-        reason = plain_route_reason(
-            cfg, train=not (cfg.eval_only or cfg.render_only))
-        print0(f">> field route: "
-               f"{'fused kernels' if reason is None else 'plain'}"
-               + (f" ({reason})" if reason else ""))
+    arch = architecture(cfg)
+    print0(f">> field route: {arch.route_line(cfg)}")
     if cfg.eval_only or cfg.render_only:
         i_test = i_split[2]
         model = load_model(cfg, cfg.testing_idx, device)
-        packed = frame_weights(model, cfg, device)
+        packed = arch.frame_weights(model, cfg, device)
         res = {}
         if cfg.eval_only:
             res = run_test(cfg.testing_idx, packed, images[i_test],

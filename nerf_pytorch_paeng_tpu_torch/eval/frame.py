@@ -2,11 +2,12 @@
 occupancy-culled two-phase renderer.
 
 Counterpart of the JAX package's ``eval/frame.py``, on one device or
-split over the ranks of a process group (below).
-``make_frame_renderer`` routes as it does: ``cfg.render_cull == "auto"``
-(the default) with a fine pass goes to the culled renderer, anything else
-to the dense one.  Held-out evaluation forces the dense one
-(``eval/test.py``).
+split over the ranks of a process group (below).  ``make_frame_renderer``
+takes the architecture's renderer (``arch/``); NeRF's,
+``make_nerf_frame_renderer``, routes as the JAX package's does:
+``cfg.render_cull == "auto"`` (the default) with a fine pass goes to the
+culled renderer, anything else to the dense one.  Held-out evaluation
+forces the dense one (``eval/test.py``).
 
 **Dense** (``render_cull="none"``, or no fine pass), per block of rays:
 
@@ -132,9 +133,9 @@ import numpy as np
 import torch
 
 from .. import parallel
+from ..arch import architecture
 from ..kernels.fused_mlp import (fused_mlp_eval, fused_mlp_eval_rays,
                                  fused_mlp_sigma, fused_mlp_sigma_rays)
-from ..ops.ngp import make_ngp_frame_renderer
 from ..ops.occupancy import (ray_hits_bounds, segment_in_cube,
                              support_bounds_from_sigma)
 from ..ops.rays import get_rays
@@ -155,12 +156,23 @@ _OFF = ("off", "false", "f", "no", "n", "0")
 
 
 def make_frame_renderer(cfg, H: int, W: int, K, device,
-                        block_rays: Optional[int] = None,
-                        stratified: bool = True,
-                        sigma_fn: Callable = fused_mlp_sigma_rays,
-                        field_fn: Callable = fused_mlp_eval_rays,
-                        points_fn: Callable = fused_mlp_sigma,
-                        plane_fn: Callable = fused_mlp_eval):
+                        block_rays: Optional[int] = None, **plain):
+    """The frame renderer of ``cfg``'s architecture (``arch/``): NeRF's
+    ``make_nerf_frame_renderer`` (``plain``: its ``stratified`` and its
+    kernel stand-ins), or Instant-NGP's
+    ``ops/ngp.make_ngp_frame_renderer`` (route "ngp"), called with the
+    ``NGP`` model."""
+    return architecture(cfg).make_frame_renderer(cfg, H, W, K, device,
+                                                 block_rays, **plain)
+
+
+def make_nerf_frame_renderer(cfg, H: int, W: int, K, device,
+                             block_rays: Optional[int] = None,
+                             stratified: bool = True,
+                             sigma_fn: Callable = fused_mlp_sigma_rays,
+                             field_fn: Callable = fused_mlp_eval_rays,
+                             points_fn: Callable = fused_mlp_sigma,
+                             plane_fn: Callable = fused_mlp_eval):
     """Returns ``render(packed, c2w, generator=None) -> (rgb [H,W,3],
     disp [H,W])`` for the fields from ``kernels.fused_mlp.pack_nerf``
     (packed weights, or on the plain route the two modules): with
@@ -175,11 +187,7 @@ def make_frame_renderer(cfg, H: int, W: int, K, device,
     ``cfg.chunk_rays``, else min(131072, H*W).  ``render.route`` says
     whether the frame runs the ray kernels ("rays": K3/K4, K1/K5), the
     plane layout ("planes": K7 for the coarse density, K8) or the plain
-    MLP ("plain"); ``render.rays_route`` is ``route == "rays"``.  For
-    ``cfg.arch == "ngp"`` the renderer is ``ops/ngp.make_ngp_frame_renderer``
-    (route "ngp"), called with the ``NGP`` model."""
-    if cfg.arch == "ngp":
-        return make_ngp_frame_renderer(cfg, H, W, K, device, block_rays)
+    MLP ("plain"); ``render.rays_route`` is ``route == "rays"``."""
     device = torch.device(device)
     block = int(block_rays or cfg.chunk_rays or min(DEFAULT_BLOCK, H * W))
     if int(cfg.sp_shards) > 1:

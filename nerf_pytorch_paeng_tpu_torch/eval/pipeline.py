@@ -10,7 +10,17 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable
 
+import torch
+
 from ..utils.spans import span
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a fresh pinned host buffer, queued on the current
+    stream (``non_blocking``): read it only after an event recorded behind
+    the copy has completed."""
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return buf.copy_(t, non_blocking=True)
 
 
 def pipelined_frames(items: Iterable, render_one: Callable,

@@ -33,7 +33,7 @@ from ..utils.image import imwrite
 from ..utils.metrics import to8b
 from ..utils.spans import setup_table
 from .frame import make_frame_renderer
-from .pipeline import pipelined_frames
+from .pipeline import pipelined_frames, to_host
 
 
 def write_gif(path: str, frames: np.ndarray, ms_per_frame: int = 40) -> None:
@@ -95,10 +95,6 @@ def run_render(idx: int, packed, K, hw, cfg, device,
     n = len(poses)
     rgbs, disps, frame_s = [None] * n, [None] * n, [0.0] * n
 
-    def _to_host(t):
-        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return buf.copy_(t, non_blocking=True)
-
     def _render(i, pose):
         c2w = torch.as_tensor(pose[:3, :4])
         if device.type == "cpu":
@@ -111,7 +107,7 @@ def run_render(idx: int, packed, K, hw, cfg, device,
         start.record()
         rgb, disp = renderer(packed, c2w, generator)
         end.record()
-        host = [_to_host(t) for t in (rgb, disp)]
+        host = [to_host(t) for t in (rgb, disp)]
         copied = torch.cuda.Event()
         copied.record()
         return (*host, (start, end, copied))

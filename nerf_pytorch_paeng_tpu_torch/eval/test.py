@@ -23,7 +23,7 @@ from ..utils.image import imwrite
 from ..utils.metrics import to8b
 from .frame import make_frame_renderer
 from .metrics import load_lpips_params, lpips_tensor, ssim_tensor
-from .pipeline import pipelined_frames
+from .pipeline import pipelined_frames, to_host
 
 
 def run_test(idx: int, packed, test_imgs, test_poses, K, hw, cfg,
@@ -70,10 +70,6 @@ def run_test(idx: int, packed, test_imgs, test_poses, K, hw, cfg,
     frame_s = [0.0] * n
     generator = torch.Generator(device).manual_seed(cfg.seed + idx)
 
-    def _to_host(t):
-        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return buf.copy_(t, non_blocking=True)
-
     def _scores(rgb, gt):
         """SSIM and LPIPS as device tensors (no LPIPS without weights)."""
         if lpips_params is None:
@@ -100,7 +96,7 @@ def run_test(idx: int, packed, test_imgs, test_poses, K, hw, cfg,
         end.record()
         if gt is None:
             return None, None, None, (start, end, end)
-        host = [_to_host(t) for t in (rgb, disp, *_scores(rgb, gt))]
+        host = [to_host(t) for t in (rgb, disp, *_scores(rgb, gt))]
         copied = torch.cuda.Event()
         copied.record()
         return host[0], host[1], host[2:], (start, end, copied)

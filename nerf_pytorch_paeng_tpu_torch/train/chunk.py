@@ -31,6 +31,13 @@ CUDA meaning (``StagedSteps``):
 - On the CPU every step runs the same body eagerly: no graphs, the same
   staging, slabs and schedule.
 
+The draws and the body are the architecture's (``StepKind``, from its
+``arch/`` module): NeRF's above, or Instant-NGP's one uniform a ray and
+``make_ngp_train_body`` on the pool.  Between chunks the driver's loop
+runs the architecture's hook (``NoHook`` describes it): NeRF's occupancy
+policy (``train/precull.SupportPolicy``) or Instant-NGP's grid update,
+and a chunk ends before the hook's next work is due.
+
 The trajectory does not depend on ``scan_chunk``: the draws, the inputs
 and the body are the single step's.  The kernel wrappers' launch counters
 (``kernels.launch_counts``) stay true: the launches a capture recorded
@@ -47,11 +54,10 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..arch import architecture
 from ..utils.spans import setup_span, span
 from .state import TrainState
-from .step import (NGPCounters, _rank_slice, batch_draws, image_draws,
-                   make_image_train_body, make_ngp_train_body,
-                   make_train_body, ngp_draws, scheduled_update)
+from .step import scheduled_update
 
 # the profiler window, in steps after iter_start (JAX driver.py:378-386)
 PROFILE_START, PROFILE_STOP = 10, 15
@@ -121,9 +127,11 @@ class ChunkSchedule:
         chunk ends before the pool would reshuffle (``pool_cursor``, the
         pool's ``i_batch``); save, test and render may fall only on the
         chunk's last iteration.  One rule of the port's own: a chunk ends
-        before the pre-cull refresh due at ``next_refresh`` (the JAX
-        package moves such a refresh to the next chunk's start; here the
-        refresh cadence is the same at every ``scan_chunk``)."""
+        before iteration ``next_refresh``, the loop hook's
+        ``next_boundary`` (``NoHook``): NeRF's pre-cull refresh or
+        Instant-NGP's grid update (the JAX package moves a refresh to the
+        next chunk's start; here its cadence is the same at every
+        ``scan_chunk``)."""
         k = self.k
         if k == 1 or i + k - 1 > self.iter_N:
             return 1
@@ -143,6 +151,40 @@ class ChunkSchedule:
         return k
 
 
+class NoHook:
+    """The loop's work between chunks where there is none.  A hook (an
+    architecture's ``chunk_hook``, ``arch/``) has two methods:
+    ``before(i, model)`` does the work due before iteration ``i`` and
+    returns the bounds that the chunk from ``i`` on gates with, or None;
+    ``next_boundary(i)`` is the iteration before which a chunk must end,
+    or None (``ChunkSchedule.length``'s ``next_refresh``)."""
+
+    def before(self, i: int, model) -> None:
+        return None
+
+    def next_boundary(self, i: int) -> None:
+        return None
+
+
+@dataclass(frozen=True)
+class StepKind:
+    """What ``StagedSteps`` takes from an architecture (its
+    ``step_kind``, ``arch/``): the staged ``body`` with its draws injected
+    (``train/step.make_train_body`` and its kin); ``draws``, which the
+    body's static buffers are staged from (on the pool ``(cfg, step, n,
+    device) -> (u_c, u_f)``, as ``train/step.batch_draws``; per image
+    ``(cfg, step, H, W, precrop, device) -> (coords, u_c, u_f)``, as
+    ``image_draws``); the shapes of those buffers (``u_f`` None: the step
+    has no fine uniforms); the body's metric ``keys``; the ``counters``
+    the body adds to, or None."""
+    body: Callable
+    draws: Callable
+    u_c: tuple
+    u_f: Optional[tuple]
+    keys: tuple
+    counters: object = None
+
+
 class _Graph:
     """One captured step: the graph and the launch counts its capture
     recorded (added at every replay)."""
@@ -160,15 +202,16 @@ class StagedSteps:
     """The train steps of one run, staged (see the module docstring).
 
     Global batch: ``pool`` (``train/batching.RayPool``); a step's input is
-    its batch's offset in the pool (``pool.next_start``).  Instant-NGP
-    (``cfg.arch == "ngp"``) takes the pool alone, with one uniform a ray
-    (``train/step.ngp_draws``) and ``make_ngp_train_body``, whose counts
-    accumulate in ``counters`` (``train/step.NGPCounters``).  Per image:
+    its batch's offset in the pool (``pool.next_start``).  Per image:
     ``images`` [T, H, W, 3] and ``poses`` [T, 3, 4] on the device; a
-    step's input is its image's index there.  ``graphs``: capture and
-    replay full-length chunks (the card only).  ``keys`` name the metric
-    slab's columns; under ``check_nans`` the last column, ``finite``, is 1
-    where the step's loss, gradients and updated weights are all finite."""
+    step's input is its image's index there.  The body, its draws, the
+    shapes of their buffers, the metric keys and the ``counters`` (None,
+    or Instant-NGP's ``train/step.NGPCounters``) are the architecture's
+    ``StepKind`` for the batch mode, resolved once here.  ``graphs``:
+    capture and replay full-length chunks (the card only).  ``keys`` name
+    the metric slab's columns; under ``check_nans`` the last column,
+    ``finite``, is 1 where the step's loss, gradients and updated weights
+    are all finite."""
 
     def __init__(self, cfg, state: TrainState,
                  schedule: Callable[[int], float], device: torch.device,
@@ -180,35 +223,27 @@ class StagedSteps:
             self.H, self.W = H, W
             self.pool, self.images, self.poses = pool, images, poses
             n = int(cfg.N_rays)
-            lo, hi, _, _ = _rank_slice(n)
             dev = self.device
-            self.ngp = cfg.arch == "ngp"
-            if self.ngp and pool is None:
-                raise ValueError("Instant-NGP trains on the global ray pool")
-            self.counters = NGPCounters(dev) if self.ngp else None
+            kind = architecture(cfg).step_kind(cfg, H, W, K, dev,
+                                               pool is not None)
+            self.body, self.draws = kind.body, kind.draws
+            self.counters = kind.counters
             if pool is not None:
-                self.body = (make_ngp_train_body(cfg, self.counters)
-                             if self.ngp else make_train_body(
-                                 cfg, H, W, float(np.asarray(K)[0, 0])))
                 self.rays = [torch.empty((n, 3), device=dev)
                              for _ in range(3)]
             else:
-                self.body = make_image_train_body(cfg, H, W, K)
                 self.coords = torch.empty((n, 2), dtype=torch.long,
                                           device=dev)
                 self.index = torch.zeros(1, dtype=torch.long, device=dev)
-            self.u_c = torch.empty(
-                (n,) if self.ngp else (hi - lo, cfg.N_samples_c), device=dev)
-            self.u_f = (torch.empty((hi - lo, cfg.N_samples_f), device=dev)
-                        if cfg.N_samples_f > 0 and float(cfg.perturb) != 0.0
-                        and not self.ngp else None)
-            fine = ("loss_f", "psnr_f") if cfg.N_samples_f > 0 else ()
-            losses = () if self.ngp else ("loss_c", "psnr_c", *fine)
-            self.keys = (*losses, "loss", "psnr", "gate_frac",
+            self.u_c = torch.empty(kind.u_c, device=dev)
+            self.u_f = (torch.empty(kind.u_f, device=dev)
+                        if kind.u_f is not None else None)
+            self.keys = (*kind.keys, "gate_frac",
                          *(("finite",) if cfg.check_nans else ()))
             self.out = torch.zeros(len(self.keys), device=dev)
             self.nan = torch.full((), math.nan, device=dev)
             self.support = None      # static copies of the live bounds
+            self.support_of = None   # the bounds they were copied from
             self.use_graphs = bool(graphs) and dev.type == "cuda"
             self.stream = torch.cuda.Stream(dev) if self.use_graphs else None
             self.graphs = {}
@@ -216,10 +251,12 @@ class StagedSteps:
 
     def set_support(self, support) -> None:
         """The bounds that gated steps read from now on, copied into the
-        static buffers (made at the first refresh that engages); None
-        leaves them as they are (ungated steps read none)."""
-        if support is None:
+        static buffers (made at the first refresh that engages); None, or
+        the bounds last copied, leave them as they are (ungated steps read
+        none)."""
+        if support is None or support is self.support_of:
             return
+        self.support_of = support
         if self.support is None:
             self.support = tuple(tuple(t.clone() for t in b) for b in support)
         else:
@@ -232,15 +269,13 @@ class StagedSteps:
         buffers (its learning rate is ``train/step.scheduled_update``'s)."""
         cfg, step, dev = self.cfg, self.state.step, self.device
         if self.pool is not None:
-            u_c, u_f = ((ngp_draws(cfg, step, int(cfg.N_rays), dev), None)
-                        if self.ngp else
-                        batch_draws(cfg, step, int(cfg.N_rays), dev))
+            u_c, u_f = self.draws(cfg, step, int(cfg.N_rays), dev)
             batch = self.pool.pool[item:item + int(cfg.N_rays)]
             for k, slot in enumerate(self.rays):
                 slot.copy_(batch[:, k])
         else:
-            coords, u_c, u_f = image_draws(cfg, step, self.H, self.W,
-                                           precrop, dev)
+            coords, u_c, u_f = self.draws(cfg, step, self.H, self.W,
+                                          precrop, dev)
             self.coords.copy_(coords)
             self.index.fill_(item)
         self.u_c.copy_(u_c)

@@ -16,16 +16,25 @@ only the float32 summation order of the gradients.  Between refreshes the
 bounds can go stale only by support growth through non-local weight
 updates; the refresh re-measures the live field.
 
-The driver decides at every refresh whether gating pays
+The policy (``SupportPolicy``, NeRF's hook between the train loop's
+chunks) decides at every refresh whether gating pays
 (``make_gate_frac_estimator`` against ``train_precull_min_gate``) and backs
-off while it declines (``driver.train``).  The reference has no such path:
-it evaluates every sample of every ray every step.
+off while it declines.  The reference has no such path: it evaluates every
+sample of every ray every step.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+
+from .. import parallel
+from ..ops.rays import get_rays
+from ..parallel import print0
+from ..utils.spans import span
+from .chunk import NoHook
 
 _ON = ("on", "true", "t", "yes", "y", "1")
 
@@ -167,3 +176,118 @@ def make_gate_frac_estimator(cfg):
         return (gf_c * r_c + gf_f * r_f) / (r_c + r_f)
 
     return est
+
+
+class SupportPolicy:
+    """The refresh of occupancy-gated training: support bounds of both
+    modules from the live weights, the predicted skipped share on a fixed
+    probe batch, and the decision whether the next steps run gated.
+
+    The probe batch is drawn once with ``np.random.default_rng(seed + 7)``
+    exactly as the JAX package's driver draws it (up to 4 training views,
+    then pixels of each), at the ray count one rank trains on, so both
+    predict the same ``gate_frac``.  Each refresh makes one host read
+    (both validity flags and the prediction), appends
+    ``iter,bounds_valid,gate_frac_pred,gated`` to
+    ``logs/<exp>/precull_policy.csv`` (truncated on a fresh run, appended
+    on a resume) and prints the decision when it changes.  Under a
+    process group the bounds and the prediction are rank 0's, broadcast,
+    so every rank decides alike and gates with the same bounds; rank 0
+    alone writes and prints.
+
+    As the train loop's hook (``train/chunk.NoHook``) it refreshes before
+    step ``iter_start + 1`` and then every ``train_precull_every`` steps,
+    the interval doubling (up to ``train_precull_backoff_max`` times)
+    while the policy declines."""
+
+    def __init__(self, cfg, K, extrinsics, hw, i_train, device, n_est: int):
+        H, W = hw
+        self.cfg = cfg
+        self.prog, _ = make_train_support_program(
+            cfg, poses=np.asarray(extrinsics)[i_train, :3, :4],
+            K=np.asarray(K), hw=(H, W), device=device)
+        self.est = make_gate_frac_estimator(cfg)
+        rng = np.random.default_rng(cfg.seed + 7)
+        sel = rng.choice(i_train, size=min(4, len(i_train)), replace=False)
+        eo, ed = [], []
+        for p in sel:
+            ro, rd = get_rays(H, W, K, torch.as_tensor(
+                np.asarray(extrinsics[p])[:3, :4], dtype=torch.float32))
+            pix = rng.choice(H * W, size=-(-n_est // len(sel)), replace=False)
+            eo.append(ro.reshape(-1, 3).numpy()[pix])
+            ed.append(rd.reshape(-1, 3).numpy()[pix])
+        self.rays_o = torch.as_tensor(np.concatenate(eo)[:n_est], device=device)
+        self.rays_d = torch.as_tensor(np.concatenate(ed)[:n_est], device=device)
+        self.gated = None           # the first refresh always prints
+        self.support, self.backoff = None, 1
+        self.next_refresh = cfg.iter_start + 1
+        self.path = os.path.join(cfg.logdir, cfg.exp_name,
+                                 "precull_policy.csv")
+        if parallel.is_main() and (cfg.iter_start == 0
+                                   or not os.path.isfile(self.path)):
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            with open(self.path, "w") as f:
+                f.write("iter,bounds_valid,gate_frac_pred,gated\n")
+
+    def refresh(self, model, it: int):
+        """The bounds to gate with from step ``it`` on, or None (ungated):
+        None while the bounds are invalid or the predicted skipped share
+        cannot repay the sort and the smaller tiles.  Span
+        ``policy.refresh``."""
+        with span("policy.refresh"):
+            bc, bf = self.prog(model)
+            gf = self.est(bc, bf, self.rays_o, self.rays_d)
+            if parallel.world_size() > 1:
+                for t in (*bc, *bf, gf):
+                    parallel.broadcast0(t)
+            vc, vf, gfh = torch.stack([bc[3][0].float(), bf[3][0].float(),
+                                       gf.float()]).tolist()  # one host read
+        valid = bool(vc) and bool(vf)
+        on = valid and gfh >= self.cfg.train_precull_min_gate
+        if parallel.is_main():
+            with open(self.path, "a") as f:
+                f.write(f"{it},{int(valid)},{gfh:.4f},{int(on)}\n")
+        if on != self.gated:
+            self.gated = on
+            why = f"predicted gate_frac {gfh:.3f}" if valid \
+                else "bounds invalid"
+            print0(f">> train_precull -> {'GATED' if on else 'ungated'} "
+                   f"({why}) @ iter {it}")
+        return (bc, bf) if on else None
+
+    def before(self, i: int, model):
+        """The bounds that step ``i`` gates with, refreshed first where a
+        refresh is due."""
+        if i >= self.next_refresh:
+            cfg = self.cfg
+            self.support = self.refresh(model, i)
+            # declined refreshes stretch the interval (no bounds are in
+            # use while ungated, so staleness costs nothing); engaging
+            # resets it
+            self.backoff = 1 if self.support is not None else min(
+                self.backoff * 2, max(int(cfg.train_precull_backoff_max), 1))
+            self.next_refresh = i + max(int(cfg.train_precull_every),
+                                        1) * self.backoff
+        return self.support
+
+    def next_boundary(self, i: int) -> int:
+        return self.next_refresh
+
+
+def support_hook(cfg, K, extrinsics, hw, i_train, device, world: int):
+    """NeRF's hook between the train loop's chunks: the ``SupportPolicy``
+    at the per-rank ray count where ``train_precull_active`` holds, else
+    ``NoHook``, said once (also where an explicit "on" cannot apply)."""
+    if train_precull_active(cfg, world):
+        policy = SupportPolicy(cfg, K, extrinsics, hw, i_train, device,
+                               n_est=cfg.N_rays // world)
+        print0(f">> train_precull on (refresh every "
+               f"{cfg.train_precull_every} iters)")
+        return policy
+    if train_precull_mode(cfg) == "on":
+        print0(">> train_precull requested but inapplicable here (needs "
+               "blender data, the ray-major kernel pair (the kernels' domain, "
+               "use_rays_train and its shapes at the per-rank ray count, "
+               "which the ranks must split evenly) and a usable support "
+               "grid) — running ungated")
+    return NoHook()

@@ -14,6 +14,8 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+from ..arch import architecture
+
 
 def cosine_annealing_warmup_restarts(step: int, first_cycle_steps: int,
                                      warmup_steps: int = 0,
@@ -49,18 +51,8 @@ def ngp_step_decay(step: int, lr: float, start: int, every: int,
 
 
 def schedule_from_cfg(cfg) -> Callable[[int], float]:
-    """The reference driver's instance: one cycle of ``iter_N + 1`` steps,
-    warmup ``iter_warmup``, peak ``lr``, floor ``lr_min``; for Instant-NGP
-    (``arch`` "ngp") ``ngp_step_decay``."""
-    if cfg.arch == "ngp":
-        from ..models.ngp import LR_DECAY, LR_DECAY_EVERY, LR_DECAY_START
-
-        def ngp_schedule(step: int) -> float:
-            return ngp_step_decay(step, cfg.lr, LR_DECAY_START,
-                                  LR_DECAY_EVERY, LR_DECAY)
-        return ngp_schedule
-
-    def schedule(step: int) -> float:
-        return cosine_annealing_warmup_restarts(
-            step, cfg.iter_N + 1, cfg.iter_warmup, cfg.lr, cfg.lr_min)
-    return schedule
+    """The architecture's schedule (``arch/``): NeRF's is the reference
+    driver's instance, one cycle of ``iter_N + 1`` steps, warmup
+    ``iter_warmup``, peak ``lr``, floor ``lr_min``; Instant-NGP's is
+    ``ngp_step_decay``."""
+    return architecture(cfg).schedule(cfg)

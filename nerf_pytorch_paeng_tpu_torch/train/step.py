@@ -56,9 +56,9 @@ Both steps take ``support=`` (coarse bounds, fine bounds) from
 pass is occupancy-gated (K5, K6) and the metrics gain ``gate_frac``; the
 loss is the ungated one bit for bit.
 
-Instant-NGP (``cfg.arch == "ngp"``, ``models/ngp.py``) has a step kind of
-its own on the global batch, one process: ``ngp_draws`` (one uniform a
-ray, from the step's generator) and ``make_ngp_train_body`` (march,
+Instant-NGP (``arch/ngp.py``, ``models/ngp.py``) has a step kind of its
+own on the global batch, one process: ``ngp_draws`` (one uniform a ray,
+from the step's generator) and ``make_ngp_train_body`` (march,
 encode, both MLPs, composite, the MSE over the kept rays, backward, Adam),
 which adds the step's counts to an ``NGPCounters`` on the device.
 """
@@ -401,16 +401,20 @@ class NGPCounters:
         torch.minimum(self.t[3:], stats[1:].double(), out=self.t[3:])
 
 
+def ngp_batch_draws(cfg, step: int, n: int, device):
+    """``(u, None)``: the per-ray uniforms [n] of NGP update ``step``
+    (``step`` completed updates before it), from the step's generator, in
+    ``batch_draws``' form (``train/chunk.StepKind``)."""
+    gen = step_generator(cfg.seed + 3, step, device)
+    return torch.rand((n,), generator=gen, dtype=torch.float32,
+                      device=device), None
+
+
 def ngp_draws(cfg, step: int, n: int, device,
               u: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The per-ray uniforms [n] of NGP update ``step`` (``step`` completed
-    updates before it), from the step's generator; injected ones are
-    kept."""
-    if u is None:
-        gen = step_generator(cfg.seed + 3, step, device)
-        u = torch.rand((n,), generator=gen, dtype=torch.float32,
-                       device=device)
-    return u
+    """The per-ray uniforms [n] of NGP update ``step``
+    (``ngp_batch_draws``); injected ones are kept."""
+    return ngp_batch_draws(cfg, step, n, device)[0] if u is None else u
 
 
 def make_ngp_train_body(cfg, counters: Optional[NGPCounters] = None):

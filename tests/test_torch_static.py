@@ -53,3 +53,68 @@ def test_kernel_sources_use_no_wmma(path):
     text = path.read_text()
     assert "wmma" not in text and "nvcuda" not in text, path
     assert "<mma.h>" not in text, path
+
+
+def _arch_reads(path: pathlib.Path):
+    """The lines of ``path`` that read an attribute named ``arch``
+    (``x.arch``, ``getattr(x, "arch")``), each with its enclosing
+    function's name."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            inner = (child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else fn)
+            if isinstance(child, ast.Attribute) and child.attr == "arch":
+                yield child.lineno, fn
+            elif (isinstance(child, ast.Call)
+                  and isinstance(child.func, ast.Name)
+                  and child.func.id == "getattr" and len(child.args) > 1
+                  and isinstance(child.args[1], ast.Constant)
+                  and child.args[1].value == "arch"):
+                yield child.lineno, fn
+            yield from walk(child, inner)
+    return list(walk(tree, None))
+
+
+def test_only_arch_reads_the_architecture():
+    """Every decision on the architecture is taken behind
+    ``nerf_pytorch_paeng_tpu_torch/arch/``: no other module of the package
+    reads ``cfg.arch``, save ``NerfConfig.validate``'s check of the
+    field."""
+    bad = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT)
+        if rel.parts[0] == "arch":
+            continue
+        for line, fn in _arch_reads(path):
+            if not (rel == pathlib.Path("config.py") and fn == "validate"):
+                bad.append(f"{rel}:{line}")
+    assert not bad, bad
+
+
+def test_every_architecture_gives_the_interface():
+    """Every name ``arch.architecture`` accepts resolves to a module with
+    every member of the interface, and its hook between chunks has both
+    methods; any other name is refused, by ``architecture`` and by
+    ``NerfConfig.validate``."""
+    import numpy as np
+
+    from nerf_pytorch_paeng_tpu_torch import NerfConfig
+    from nerf_pytorch_paeng_tpu_torch.arch import (MEMBERS, NAMES,
+                                                   architecture)
+
+    K = np.array([[8.0, 0, 4.0], [0, 8.0, 4.0], [0, 0, 1]], np.float32)
+    ext = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    for name in NAMES:
+        cfg = NerfConfig(arch=name, device="cpu", global_batch=True)
+        module = architecture(cfg.validate())
+        missing = [m for m in MEMBERS if not callable(getattr(module, m,
+                                                              None))]
+        assert not missing, (name, missing)
+        hook = module.chunk_hook(cfg, K, ext, (8, 8), np.arange(2), "cpu", 1)
+        assert callable(hook.before) and callable(hook.next_boundary), name
+    bad = NerfConfig(arch="mipnerf", device="cpu")
+    for refuse in (bad.validate, lambda: architecture(bad)):
+        with pytest.raises(ValueError, match="arch='mipnerf'"):
+            refuse()
